@@ -29,25 +29,183 @@ def _keywords():
     return SecretScanner(device="cpu")._keywords
 
 
-@pytest.mark.parametrize("rows,length", [(64, 16384), (3, 4096), (1, 64)])
-def test_shiftor_kernel_equals_plain(cuda, rows, length):
-    bank = ac.build_literal_bank(_keywords())
-    rng = np.random.default_rng(rows)
-    chunks = rng.integers(0, 256, (rows, length), dtype=np.uint8)
-    chunks[0, :64] = 0xFF
-    for i, kw in enumerate(bank.kw_bytes):
-        r, off = i % rows, int(rng.integers(0, length - len(kw)))
-        chunks[r, off:off + len(kw)] = np.frombuffer(kw, np.uint8)
-    kw = bank.kw_bytes[-1]
-    chunks[-1, length - len(kw):] = np.frombuffer(kw, np.uint8)
-    x = torch.from_numpy(ac.lower_bytes(chunks.tobytes())
-                         .reshape(rows, length)).to(cuda)
-    arrays = [torch.from_numpy(a).to(cuda) for a in so.pack_bank(bank)]
+def _edge_keywords():
+    """1-byte and 2-byte keywords beside longer ones sharing their
+    first bytes."""
+    return [b"a", b"z", b"=", b"sk", b"sh", b"key", b"shpat_", b"a1",
+            b"zz", b"token"]
+
+
+def _full_keywords():
+    """128 keywords: the built-in bank plus random ones of 1 to 64
+    bytes (16 state words)."""
+    rng = np.random.default_rng(128)
+    kws = list(_keywords())
+    alphabet = b"abcdefghijklmnopqrstuvwxyz_-=.0123456789"
+    while len(kws) < 128:
+        n = 64 if len(kws) == 127 else int(rng.integers(1, 65))
+        kw = bytes(alphabet[i] for i in rng.integers(0, len(alphabet), n))
+        if kw not in kws:
+            kws.append(kw)
+    return kws
+
+
+def _shiftor_equal(cuda, bank, chunks):
+    x = torch.from_numpy(chunks).to(cuda)
+    packed = so.pack_bank(bank)
+    arrays = [torch.from_numpy(a).to(cuda) for a in packed]
+    index = tuple(torch.from_numpy(a).to(cuda)
+                  for a in so.bank_index(*packed))
     before = so.shiftor_cuda.launches
-    got = so.shiftor(*arrays, x, n_words=bank.words)
+    got = so.shiftor(*arrays, x, n_words=bank.words, index=index)
     want = so.shiftor_plain(*arrays, x, n_words=bank.words)
     assert torch.equal(got, want)
     assert so.shiftor_cuda.launches == before + 1
+    return got
+
+
+def _planted(bank, rows, length, seed):
+    rng = np.random.default_rng(seed)
+    chunks = rng.integers(0, 256, (rows, length), dtype=np.uint8)
+    chunks[0, :64] = 0xFF
+    for i, kw in enumerate(bank.kw_bytes):
+        r, off = i % rows, int(rng.integers(0, length - len(kw) + 1))
+        chunks[r, off:off + len(kw)] = np.frombuffer(kw, np.uint8)
+    kw = bank.kw_bytes[-1]
+    chunks[-1, length - len(kw):] = np.frombuffer(kw, np.uint8)
+    return ac.lower_bytes(chunks.tobytes()).reshape(rows, length)
+
+
+@pytest.mark.parametrize("rows,length", [(64, 16384), (3, 4096), (1, 64)])
+def test_shiftor_kernel_equals_plain(cuda, rows, length):
+    bank = ac.build_literal_bank(_keywords())
+    _shiftor_equal(cuda, bank, _planted(bank, rows, length, rows))
+
+
+@pytest.mark.parametrize("keywords", [_edge_keywords, _full_keywords])
+@pytest.mark.parametrize("rows,length", [(8, 16384), (5, 8208), (2, 80)])
+def test_shiftor_edge_banks_equal_plain(cuda, keywords, rows, length):
+    bank = ac.build_literal_bank(keywords())
+    assert bank.n_keywords <= 128
+    chunks = _planted(bank, rows, length, length)
+    # 1-byte keywords at a row's last byte, longer ones cut by it
+    chunks[0, -1] = ord("z")
+    chunks[1 % rows, -3:] = np.frombuffer(b"tok", np.uint8)
+    got = _shiftor_equal(cuda, bank, chunks)
+    assert got.any()
+
+
+def test_shiftor_worst_case_filter_input(cuda):
+    """Every position passes the filter: rows of repeated first bytes."""
+    bank = ac.build_literal_bank(_keywords())
+    chunks = np.frombuffer(b"sh" * (4 * 16384), np.uint8).reshape(8, -1)
+    _shiftor_equal(cuda, bank, chunks.copy())
+    bank = ac.build_literal_bank(_edge_keywords())
+    chunks = np.full((4, 16384), ord("a"), np.uint8)
+    assert _shiftor_equal(cuda, bank, chunks).any()
+
+
+def _cuda_join_args(cuda, lo, hi, flags, ver, qs, qc, qv):
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (lo, hi, flags, ver, qs, qc, qv)]
+    return args, J.prefix_planes(*args[:2])
+
+
+def _compact_equal(args, prefix, total, t_pad, h_cap):
+    before = J.csr_join_compact_cuda.launches
+    got = J.csr_pair_join_compact(*args, total, t_pad, h_cap, prefix=prefix)
+    assert J.csr_join_compact_cuda.launches == before + 1
+    bits = J.csr_pair_join_plain(*args, total, t_pad)
+    want = J._compact_core(bits, h_cap) + (bits,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    return int(got[2])
+
+
+def _hit_pattern_case(cuda, hit_slots, total):
+    """One query over rows 0..total-1, so slot i evaluates row i: rows
+    in `hit_slots` have no bounds (SATISFIED), the rest a lower bound
+    above the installed version (a miss)."""
+    k = 40
+    lo = np.full((total, k), 1, np.int32)
+    lo[:, 0] = 5
+    hi = np.full((total, k), 1, np.int32)
+    flags = np.full(total, J.HAS_LO, np.int32)
+    flags[np.asarray(hit_slots, np.int64)] = 0
+    ver = np.full((4, k), 1, np.int32)
+    qs = np.zeros(64, np.int32)
+    qc = np.zeros(64, np.int32)
+    qc[0] = total
+    return _cuda_join_args(cuda, lo, hi, flags, ver, qs, qc,
+                           np.zeros(64, np.int32))
+
+
+@pytest.mark.parametrize("case", ["none", "cap", "cap+1", "ends", "dense"])
+def test_compaction_edges(cuda, case):
+    total, t_pad, h_cap = 3000, 4096, 256  # total is no multiple of a tile
+    rng = np.random.default_rng(7)
+    hits = {"none": [], "ends": [0, total - 1],
+            "cap": rng.choice(total, h_cap, replace=False),
+            "cap+1": rng.choice(total, h_cap + 1, replace=False),
+            "dense": np.arange(total)}[case]
+    args, prefix = _hit_pattern_case(cuda, hits, total)
+    n = _compact_equal(args, prefix, total, t_pad, h_cap)
+    assert n == len(hits)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compaction_many_tiles(cuda, seed):
+    """~100 tiles of look-back, long prefix ties, clamped bucket tails."""
+    rng = np.random.default_rng(seed)
+    n_rows, k, n_q = 3000, 40, 2000
+    lo = rng.integers(0, 3, (n_rows, k)).astype(np.int32)
+    hi = rng.integers(0, 3, (n_rows, k)).astype(np.int32)
+    ver = rng.integers(0, 3, (64, k)).astype(np.int32)
+    lo[:, :6] = hi[:, :6] = ver[:, :6] = 1   # ties past the prefix planes
+    flags = rng.integers(0, 64, n_rows).astype(np.int32)
+    qc = np.zeros(2048, np.int32)
+    qc[:n_q] = rng.integers(1, 100, n_q)
+    qs = np.zeros(2048, np.int32)
+    qs[:n_q] = rng.integers(0, n_rows, n_q)
+    qv = np.zeros(2048, np.int32)
+    qv[:n_q] = rng.integers(0, 64, n_q)
+    total = int(qc.sum())
+    args, prefix = _cuda_join_args(cuda, lo, hi, flags, ver, qs, qc, qv)
+    t_pad = 1 << int(np.ceil(np.log2(total)))
+    for h_cap in (1 << 20, 4096):
+        assert _compact_equal(args, prefix, total, t_pad, h_cap) > 4096
+    dense = J.csr_pair_join(*args, total, t_pad, prefix=prefix)
+    assert torch.equal(dense, J.csr_pair_join_plain(*args, total, t_pad))
+
+
+@pytest.mark.parametrize("counts", ["zero_inside", "short_buckets"])
+def test_tile_of_many_queries(cuda, counts):
+    """More queries in a tile than it stages: zero-count queries inside
+    the data put more queries than slots in a tile (the starts are then
+    searched in global memory), and buckets of one to three rows put
+    more than the 256 whose row base and version a tile stages (those
+    are then read from global memory)."""
+    n_rows, k = 50, 40
+    rng = np.random.default_rng(2)
+    lo = rng.integers(0, 3, (n_rows, k)).astype(np.int32)
+    hi = rng.integers(0, 3, (n_rows, k)).astype(np.int32)
+    ver = rng.integers(0, 3, (8, k)).astype(np.int32)
+    lo[:, :4] = hi[:, :4] = ver[:, :4] = 1   # ties past the prefix planes
+    flags = rng.integers(0, 64, n_rows).astype(np.int32)
+    qc = np.zeros(4096, np.int32)
+    if counts == "zero_inside":
+        qc[::3] = 1
+    else:
+        qc[:3000] = rng.integers(1, 4, 3000)
+    qs = rng.integers(0, n_rows, 4096).astype(np.int32)
+    qv = rng.integers(0, 8, 4096).astype(np.int32)
+    total = int(qc.sum())
+    args, prefix = _cuda_join_args(cuda, lo, hi, flags, ver, qs, qc, qv)
+    t_pad = 1 << int(np.ceil(np.log2(total)))
+    _compact_equal(args, prefix, total, t_pad, 512)
+    assert torch.equal(J.csr_pair_join(*args, total, t_pad, prefix=prefix),
+                       J.csr_pair_join_plain(*args, total, t_pad))
 
 
 def test_csr_join_kernel_equals_plain(cuda):
@@ -64,24 +222,26 @@ def test_csr_join_kernel_equals_plain(cuda):
     qv = np.zeros(128, np.int32)
     qv[:n_q] = rng.integers(0, 32, n_q)
     total = int(qc.sum())
-    args = [torch.from_numpy(a).to(cuda)
-            for a in (lo, hi, flags, ver, qs, qc, qv)]
+    args, prefix = _cuda_join_args(cuda, lo, hi, flags, ver, qs, qc, qv)
     for t_pad in (4096, total):
-        got = J.csr_pair_join(*args, total, t_pad)
+        got = J.csr_pair_join(*args, total, t_pad, prefix=prefix)
         want = J.csr_pair_join_plain(*args, total, t_pad)
         assert torch.equal(got, want)
     zero = J.csr_pair_join(*args[:5], torch.zeros_like(args[5]), args[6],
-                           0, 512)
+                           0, 512, prefix=prefix)
     assert not zero.any()
     with pytest.raises(ValueError):   # a CPU tensor in a CUDA call
-        J.csr_join_cuda(*args[:3], args[3].cpu(), *args[4:], total, 4096)
+        J.csr_join_cuda(*args[:3], args[3].cpu(), *args[4:], total, 4096,
+                        prefix=prefix)
+    with pytest.raises(TypeError):   # the kernel needs the prefix planes
+        J.csr_pair_join(*args, total, 4096)
 
 
 def test_detector_and_secrets_on_cuda_equal_cpu(cuda, monkeypatch):
     from trivy_tpu_torch.db.table import RawAdvisory, build_table
     from trivy_tpu_torch.detect import engine as DE
     from trivy_tpu_torch.detect.engine import BatchDetector, PkgQuery
-    # small hit buffers, so the compaction epilogue runs
+    # small hit buffers, so the compacted kernel runs
     monkeypatch.setattr(DE, "_HIT_FLOOR", 8)
     monkeypatch.setattr(DE, "_HIT_ALIGN", 8)
     from trivy_tpu_torch.secret import SecretScanner

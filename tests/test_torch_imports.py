@@ -85,11 +85,12 @@ def test_failed_build_raises_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(so, "shiftor_plain", plain)
     x = _CudaLike()
     with pytest.raises(kernels.KernelError):
-        J.csr_pair_join(x, x, x, x, x, x, x, 0, 256)
+        J.csr_pair_join(x, x, x, x, x, x, x, 0, 256, prefix=(x, x))
     with pytest.raises(kernels.KernelError):
-        J.csr_pair_join_compact(x, x, x, x, x, x, x, 0, 256, 128)
+        J.csr_pair_join_compact(x, x, x, x, x, x, x, 0, 256, 128,
+                                prefix=(x, x))
     with pytest.raises(kernels.KernelError):
-        so.shiftor(x, x, x, x, n_words=3)
+        so.shiftor(x, x, x, x, n_words=3, index=(x, x))
     assert J.csr_join_cuda.launches == 0 and so.shiftor_cuda.launches == 0
 
 
@@ -111,3 +112,32 @@ def test_chip_smoke_refuses_without_gpu(no_gpu):
     import chip_smoke
     assert chip_smoke.main() != 0
     assert np.array(sorted(chip_smoke.EXPECTED_VULNS)).shape == (5, 2)
+
+
+
+def test_build_passes_the_shared_constants(monkeypatch, tmp_path):
+    """nvcc gets the constants the wrappers size their buffers with, and
+    a change of them names a different library."""
+    from trivy_tpu_torch.ops import constants as C
+    assert f"-DJOIN_TILE={C.JOIN_TILE}" in kernels.DEFINES
+    assert f"-DPREFIX_TOKENS={C.PREFIX_TOKENS}" in kernels.DEFINES
+    cmds = []
+
+    class Proc:
+        returncode = 1
+
+        def __init__(self, cmd, **_kw):
+            cmds.append(cmd)
+
+        def communicate(self):
+            return b"stopped here", b""
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kernels.subprocess, "Popen", Proc)
+    with pytest.raises(kernels.KernelError, match="stopped here"):
+        kernels.build()
+    assert len(cmds) == len(kernels.SOURCES)
+    assert all(set(kernels.DEFINES) <= set(c) for c in cmds)
+    before = kernels._source_hash()
+    monkeypatch.setattr(kernels, "DEFINES", ("-DJOIN_TILE=1024",))
+    assert kernels._source_hash() != before

@@ -26,6 +26,10 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _prefix(lo, hi):
+    return J.prefix_planes(_t(lo), _t(hi))
+
+
 def _random_case(seed, n_rows=300, n_ver=64, n_q=48, q_pad=64):
     """Random tokens from a tiny alphabet (so ties and first-position
     decisions are common), random flags, CSR descriptors with tail
@@ -65,7 +69,8 @@ def _ref_dense(case):
 def _port_dense(case):
     lo, hi, flags, ver, qs, qc, qv, total, t_pad = case
     return J.csr_pair_join(_t(lo), _t(hi), _t(flags), _t(ver), _t(qs),
-                           _t(qc), _t(qv), total, t_pad).numpy()
+                           _t(qc), _t(qv), total, t_pad,
+                           prefix=_prefix(lo, hi)).numpy()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
@@ -90,7 +95,7 @@ def test_random_tables_compact(h_cap):
                                    t_pad, h_cap)
     got = J.csr_pair_join_compact(_t(lo), _t(hi), _t(flags), _t(ver),
                                   _t(qs), _t(qc), _t(qv), total, t_pad,
-                                  h_cap)
+                                  h_cap, prefix=_prefix(lo, hi))
     g_idx, g_bits, g_n, g_dense = (x.numpy() for x in got)
     assert int(g_n) == int(r_n) == h[2]
     assert np.array_equal(g_idx, r_idx) and np.array_equal(g_idx, h[0])
@@ -106,7 +111,7 @@ def test_overflow_keeps_prefix_and_true_count():
     h_cap = 128
     got = J.csr_pair_join_compact(_t(lo), _t(hi), _t(flags), _t(ver),
                                   _t(qs), _t(qc), _t(qv), total, t_pad,
-                                  h_cap)
+                                  h_cap, prefix=_prefix(lo, hi))
     dense = _ref_dense(case)
     nz = np.nonzero(dense)[0]
     assert int(got[2]) == nz.size > h_cap
@@ -124,7 +129,7 @@ def test_total_zero():
     lo, hi, flags, ver, qs, qc, qv, total, t_pad = case
     idx, bits, n, dense = J.csr_pair_join_compact(
         _t(lo), _t(hi), _t(flags), _t(ver), _t(qs), _t(qc), _t(qv), 0,
-        t_pad, 128)
+        t_pad, 128, prefix=_prefix(lo, hi))
     assert int(n) == 0 and not idx.any() and not bits.any()
 
 
@@ -181,6 +186,28 @@ def test_detector_hits_match_reference(compact, monkeypatch):
     assert _hit_keys(got) == _hit_keys(want)
     assert got
     assert isinstance(launched[0], DE._PendingCompact) == compact
+
+
+def test_prefix_planes_are_first_tokens():
+    """The join kernel's derived [A, 4] planes: each bound's first four
+    tokens, contiguous, uploaded once with the table, and required by
+    both entry points."""
+    ref = _demo_table(skew_pkg_rows=96)
+    table = _port_table(ref)
+    lo, hi, flags, lo_pre, hi_pre = table.device_arrays("cpu")
+    assert J.PREFIX_TOKENS == 4
+    for pre, full, ref_tok in ((lo_pre, lo, ref.lo_tok),
+                               (hi_pre, hi, ref.hi_tok)):
+        assert pre.dtype == torch.int32 and pre.is_contiguous()
+        assert pre.shape == (len(table), 4)
+        assert torch.equal(pre, full[:, :4])
+        assert np.array_equal(pre.numpy(), np.asarray(ref_tok)[:, :4])
+    assert table.device_arrays(torch.device("cpu"))[3] is lo_pre
+    case = _random_case(0)
+    with pytest.raises(TypeError, match="prefix"):
+        J.csr_pair_join(*(_t(a) for a in case[:7]), *case[7:])
+    with pytest.raises(TypeError, match="prefix"):
+        J.csr_pair_join_compact(*(_t(a) for a in case[:7]), *case[7:], 128)
 
 
 def test_pair_owners_equal_reference_pairs():

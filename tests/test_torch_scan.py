@@ -69,7 +69,8 @@ def test_rootfs_report_identical_to_reference(tmp_path):
     assert n_vulns == 5 and n_secrets > 15
     counts = json.loads(out["port"][1].strip().splitlines()[-1])
     assert counts["prefilter_path"] == {"torch": 1}
-    assert counts["launches"] == {"shiftor": 0, "csr_join": 0}
+    assert counts["launches"] == {"shiftor": 0, "csr_join": 0,
+                                  "csr_join_compact": 0}
 
 
 def _corpus_files():

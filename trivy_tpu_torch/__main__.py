@@ -52,10 +52,11 @@ def normalize_scanners(spec: str) -> tuple:
 
 def launch_counts() -> dict:
     """Kernel launches in this process, by kernel."""
-    from .ops.join import csr_join_cuda
+    from .ops.join import csr_join_compact_cuda, csr_join_cuda
     from .ops.shiftor import shiftor_cuda
     return {"shiftor": shiftor_cuda.launches,
-            "csr_join": csr_join_cuda.launches}
+            "csr_join": csr_join_cuda.launches,
+            "csr_join_compact": csr_join_compact_cuda.launches}
 
 
 def cmd_rootfs(args) -> int:

@@ -118,17 +118,22 @@ class AdvisoryTable:
         return self._hash_u64
 
     def device_arrays(self, device):
-        """(lo_tok, hi_tok, flags) as torch tensors on `device`, uploaded
-        once per device and reused by every batch. Hashes stay on the
-        host: the bucket lookup is a host searchsorted, and the join
+        """(lo_tok, hi_tok, flags, lo_pre, hi_pre) as torch tensors on
+        `device`, uploaded once per device and reused by every batch.
+        lo_pre/hi_pre are the join kernel's [A, 4] prefix planes
+        (ops.join.prefix_planes), which it reads first. Hashes stay on
+        the host: the bucket lookup is a host searchsorted, and the join
         only reads version tokens and flags."""
         import torch
+
+        from ..ops.join import prefix_planes
         device = torch.device(device)
         cached = self._device.get(device) if self._device else None
         if cached is None:
-            cached = tuple(torch.from_numpy(np.ascontiguousarray(x))
-                           .to(device)
-                           for x in (self.lo_tok, self.hi_tok, self.flags))
+            lo, hi, flags = (torch.from_numpy(np.ascontiguousarray(x))
+                             .to(device)
+                             for x in (self.lo_tok, self.hi_tok, self.flags))
+            cached = (lo, hi, flags, *prefix_planes(lo, hi))
             self._device = {**(self._device or {}), device: cached}
         return cached
 

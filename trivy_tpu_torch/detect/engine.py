@@ -8,8 +8,9 @@ Per batch:
           hashes. Queries with empty buckets are dropped; the rest become
           [Q] CSR descriptors (bucket start, count, version row).
   device: the descriptors go up, the join kernel expands them to pair
-          slots and evaluates the version-interval predicate
-          (ops/join.py), and the compaction epilogue squeezes the hits.
+          slots, evaluates the version-interval predicate and, when a
+          hit buffer pays for itself, squeezes the hits into it in the
+          same kernel (ops/join.py).
           One .cpu() brings back the O(hits) triple; the dense bits come
           back only when the hit buffer overflowed.
   host:   numpy group-by over the reported pairs — package-name
@@ -290,17 +291,18 @@ class BatchDetector:
         J.check_csr_descriptors(q_count, n_queries)
         if h_cap is None:
             h_cap = self._hit_capacity(t_pad)
-        adv_lo, adv_hi, adv_flags = self.table.device_arrays(self.device)
+        adv_lo, adv_hi, adv_flags, lo_pre, hi_pre = \
+            self.table.device_arrays(self.device)
         ver_dev = self._ver_device(u_pad)
         qs, qc, qv = (torch.from_numpy(np.ascontiguousarray(a, np.int32))
                       .to(self.device) for a in (q_start, q_count, q_ver))
         args = (adv_lo, adv_hi, adv_flags, ver_dev, qs, qc, qv, total)
         if h_cap:
-            hit_idx, hit_bits, n_hits, dense = \
-                J.csr_pair_join_compact(*args, t_pad, h_cap)
+            hit_idx, hit_bits, n_hits, dense = J.csr_pair_join_compact(
+                *args, t_pad, h_cap, prefix=(lo_pre, hi_pre))
             return _PendingCompact(hit_idx, hit_bits, n_hits, dense,
                                    h_cap, t_pad)
-        return J.csr_pair_join(*args, t_pad)
+        return J.csr_pair_join(*args, t_pad, prefix=(lo_pre, hi_pre))
 
     def _fetch_bits(self, dev):
         """Device→host fetch. A _PendingCompact fetches only the O(hits)

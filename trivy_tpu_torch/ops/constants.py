@@ -45,3 +45,13 @@ TABLE_SCHEMA = {
 
 # dtype of the join's per-pair report word
 REPORT_DTYPE = "int8"
+
+# leading tokens of each bound kept in the join kernel's derived [A, 4]
+# prefix planes (AdvisoryTable.device_arrays): 16 contiguous bytes a row,
+# compared first; the full vectors are read only when the prefixes tie
+PREFIX_TOKENS = 4
+
+# pair slots one block of the join kernel owns; ops/kernels.py compiles
+# csrc/csr_join.cu with this value and PREFIX_TOKENS, and ops/join.py
+# sizes the kernel's scratch with it
+JOIN_TILE = 2048

@@ -6,6 +6,8 @@ use, into `trivy_tpu_torch/_build/` (not committed), under a name that
 carries a hash of the sources, so an edited source rebuilds and an
 unchanged one is loaded as it is. Each source compiles in its own nvcc
 process, all started together, and the objects link into the library.
+The constants a kernel shares with the Python side (ops/constants.py)
+reach it as -D flags, so they are defined in one place.
 
 Nothing here runs when the module is imported: the CPU tests import
 every module of the package on machines without nvcc.
@@ -22,18 +24,25 @@ import tempfile
 import threading
 import time
 
+from . import constants as C
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("shiftor.cu", "csr_join.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# the constants the kernels share with the Python side
+DEFINES = (f"-DJOIN_TILE={C.JOIN_TILE}", f"-DPREFIX_TOKENS={C.PREFIX_TOKENS}")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point → argument types (each returns a cudaError_t as int)
+# the join's leading arguments: token vectors, flags, prefix planes,
+# shapes, version pool, CSR descriptors, total, t_pad, dense bits, scratch
+_JOIN = (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P)
 _SIGNATURES = {
-    "trivy_shiftor": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P),
-    "trivy_csr_join": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I,
-                       _I, _P, _P),
+    "trivy_shiftor": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P),
+    "trivy_csr_join": _JOIN + (_P,),
+    "trivy_csr_join_compact": _JOIN + (_P, _P, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -58,7 +67,7 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(ARCH.encode())
+    h = hashlib.sha256(" ".join((ARCH, *DEFINES)).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -79,7 +88,8 @@ def build() -> str:
         procs = []
         for name in SOURCES:
             obj = os.path.join(tmp, name + ".o")
-            cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+            cmd = [nvcc, ARCH, *DEFINES, "-std=c++17", "-O3",
+                   "-Xcompiler", "-fPIC",
                    "-Xptxas", "-v", "-c", os.path.join(CSRC, name),
                    "-o", obj]
             procs.append((name, obj, subprocess.Popen(

@@ -7,6 +7,11 @@ package's Pallas layout, kept so both take the same bank). Padding
 entries carry word -1, mask -1 and bit value 0: an all-0xFF word can
 occur in binary data, but a bit value of 0 never sets an output bit.
 
+`bank_index` adds the kernel's bigram index of that bank: for each
+bigram (bytes p, p+1 of a row) the keyword lanes that can start there.
+The kernel rejects most positions with one lookup in it and verifies
+only the lanes it names.
+
 `shiftor` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never moves work from one to the other.
 """
@@ -19,6 +24,7 @@ import torch
 from . import ac, kernels
 
 K_LANES = 128  # keyword slots in the kernel's bank
+BIGRAMS = 1 << 16  # b0 | b1 << 8
 
 
 def pack_bank(bank) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -39,6 +45,30 @@ def pack_bank(bank) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return kww, kwm, bit.reshape(1, -1)
 
 
+def bank_index(kw_words: np.ndarray, kw_masks: np.ndarray,
+               kw_bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """pack_bank's arrays → the kernel's bigram index: (int32[2048]
+    presence bitmap, bit g % 32 of word g // 32; int32[65536, 4]
+    candidate lanes of each bigram, bit k % 32 of word k // 32).
+
+    Lane k is a candidate at bigram g iff its word 0 agrees with g under
+    the low two bytes of its mask: a keyword of two or more bytes sits
+    under its own first two bytes, a 1-byte keyword under every bigram
+    that starts with its byte (second byte 0 included, which is how a
+    match at a row's last byte reads), an empty keyword under all.
+    Padding lanes (bit value 0) are in no set. A bigram is present iff
+    its set is not empty."""
+    w0 = kw_words[0].view(np.uint32) & np.uint32(0xFFFF)
+    m0 = kw_masks[0].view(np.uint32) & np.uint32(0xFFFF)
+    g = np.arange(BIGRAMS, dtype=np.uint32)
+    cand = np.zeros((BIGRAMS, K_LANES // 32), np.uint32)
+    for k in np.flatnonzero(kw_bits.reshape(-1)):
+        under = ((g ^ w0[k]) & m0[k]) == 0
+        cand[under, k // 32] |= np.uint32(1) << np.uint32(k % 32)
+    bitmap = np.packbits(cand.any(axis=1), bitorder="little").view("<u4")
+    return bitmap.astype(np.uint32).view(np.int32), cand.view(np.int32)
+
+
 def shiftor_plain(kw_words, kw_masks, kw_bits, chunks, *, n_words: int):
     """Plain torch version of the kernel (ac.shiftor_scan over all 128
     lanes): each hit ORs its lane's bit value into word lane // 32."""
@@ -46,36 +76,44 @@ def shiftor_plain(kw_words, kw_masks, kw_bits, chunks, *, n_words: int):
                            kw_bits=kw_bits)
 
 
-def shiftor_cuda(kw_words, kw_masks, kw_bits, chunks, *, n_words: int):
-    """Launch csrc/shiftor.cu → int32[B, n_words] (current stream)."""
+def shiftor_cuda(kw_words, kw_masks, kw_bits, chunks, *, n_words: int,
+                 index):
+    """Launch csrc/shiftor.cu → int32[B, n_words] (current stream).
+    index: `bank_index` of the same bank, on the chunks' device."""
     lib = kernels.library()
     dev = chunks.device
+    bitmap, cand = index
     for name, t, dtype, nd in (("kw_words", kw_words, torch.int32, 2),
                                ("kw_masks", kw_masks, torch.int32, 2),
                                ("kw_bits", kw_bits, torch.int32, 2),
+                               ("bitmap", bitmap, torch.int32, 1),
+                               ("cand", cand, torch.int32, 2),
                                ("chunks", chunks, torch.uint8, 2)):
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name}: expected a tensor on {dev}, "
-                             f"got {t.device}")
-        if t.dtype != dtype or t.dim() != nd or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {dtype} of rank "
-                             f"{nd}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev or t.dtype != dtype or t.dim() != nd \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor "
+                             f"of rank {nd} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     n_state = kw_words.shape[0]
     if kw_words.shape != (n_state, K_LANES) or kw_masks.shape != \
             kw_words.shape or kw_bits.shape != (1, K_LANES):
         raise ValueError("shiftor: bank must be pack_bank's [W, 128] "
                          "planes and [1, 128] bit values")
+    if bitmap.shape != (BIGRAMS // 32,) or \
+            cand.shape != (BIGRAMS, K_LANES // 32):
+        raise ValueError("shiftor: index must be bank_index's [2048] "
+                         "bitmap and [65536, 4] candidate lanes")
     rows, length = chunks.shape
-    if not 1 <= n_words <= K_LANES // 32 or length % 4 \
-            or chunks.data_ptr() % 4 or rows > 65535 or n_state > 16:
+    x_ptr, cand_ptr = chunks.data_ptr(), cand.data_ptr()
+    # the bulk copy moves 16-byte granules from 16-byte aligned rows
+    if not 1 <= n_words <= K_LANES // 32 or length % 16 or x_ptr % 16 \
+            or cand_ptr % 16 or not 1 <= n_state <= 16:
         raise ValueError(f"shiftor: unsupported shape {tuple(chunks.shape)}"
                          f", {n_state} state words, {n_words} words")
-    out = torch.zeros((rows, n_words), dtype=torch.int32, device=dev)
+    out = torch.empty((rows, n_words), dtype=torch.int32, device=dev)
     rc = lib.trivy_shiftor(
-        chunks.data_ptr(), rows, length, kw_words.data_ptr(),
-        kw_masks.data_ptr(), kw_bits.data_ptr(), n_state,
-        # lanes past 32 * n_words cannot reach the output
-        min(K_LANES, 32 * n_words),
+        x_ptr, rows, length, kw_words.data_ptr(), kw_masks.data_ptr(),
+        kw_bits.data_ptr(), bitmap.data_ptr(), cand_ptr, n_state,
         out.data_ptr(), n_words, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, "shiftor")
     shiftor_cuda.launches += 1
@@ -85,11 +123,14 @@ def shiftor_cuda(kw_words, kw_masks, kw_bits, chunks, *, n_words: int):
 shiftor_cuda.launches = 0
 
 
-def shiftor(kw_words, kw_masks, kw_bits, chunks, *, n_words: int):
+def shiftor(kw_words, kw_masks, kw_bits, chunks, *, n_words: int,
+            index):
     """chunks: uint8[B, L] (lowercased) → int32[B, n_words] exact keyword
-    bitmask; kw_* from `pack_bank`, on the chunks' device."""
+    bitmask; kw_* from `pack_bank` and `index` = (bitmap, cand) from
+    `bank_index`, all on the chunks' device. The kernel reads the index,
+    the plain version does not."""
     if chunks.is_cuda:
         return shiftor_cuda(kw_words, kw_masks, kw_bits, chunks,
-                            n_words=n_words)
+                            n_words=n_words, index=index)
     return shiftor_plain(kw_words, kw_masks, kw_bits, chunks,
                          n_words=n_words)

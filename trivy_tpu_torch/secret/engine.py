@@ -109,9 +109,14 @@ class SecretScanner:
         return out
 
     def _bank_arrays(self):
+        """→ (pack_bank's arrays, the kernel's bigram index) on the
+        scanner's device, uploaded once."""
         if self._bank_dev is None:
-            self._bank_dev = tuple(torch.from_numpy(a).to(self.device)
-                                   for a in so.pack_bank(self._bank))
+            def up(arrays):
+                return tuple(torch.from_numpy(a).to(self.device)
+                             for a in arrays)
+            packed = so.pack_bank(self._bank)
+            self._bank_dev = (up(packed), up(so.bank_index(*packed)))
         return self._bank_dev
 
     def _keyword_masks_device(self, files: list[bytes]
@@ -140,7 +145,7 @@ class SecretScanner:
             remap[i] = j
         uniq = chunks[np.asarray(uniq_rows)] \
             if len(uniq_rows) < chunks.shape[0] else chunks
-        arrays = self._bank_arrays()
+        arrays, index = self._bank_arrays()
         pieces = []
         for off in range(0, uniq.shape[0], DEVICE_ROWS):
             piece = uniq[off:off + DEVICE_ROWS]
@@ -148,7 +153,8 @@ class SecretScanner:
             padded = np.zeros((b, piece.shape[1]), np.uint8)
             padded[:piece.shape[0]] = piece
             dev_piece = torch.from_numpy(padded).to(self.device)
-            pieces.append(so.shiftor(*arrays, dev_piece, n_words=bank.words))
+            pieces.append(so.shiftor(*arrays, dev_piece, n_words=bank.words,
+                                     index=index))
         masks = torch.cat(pieces).cpu().numpy()[:uniq.shape[0]][remap]
         # decode the exact bitmask: a set bit means the full keyword
         # occurs in that chunk row, so file hits are direct unions
