@@ -52,15 +52,22 @@ def no_gpu(monkeypatch):
 def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
     from trivy_tpu_torch import __main__ as cli
     from trivy_tpu_torch.detect.engine import BatchDetector
+    from trivy_tpu_torch.fanal.cache import MemoryCache
+    from trivy_tpu_torch.fanal.fixtures import tar_bytes, write_docker_archive
     from trivy_tpu_torch.scanner import LocalScanner
     from trivy_tpu_torch.secret import SecretScanner
     table = build_table([])
+    image = str(tmp_path / "image.tar")
+    layer = tar_bytes({"etc/alpine-release": b"3.17.3\n"})
+    write_docker_archive(image, [layer], ["sha256:" + "0" * 64])
     for make in (lambda: D.resolve_device(None),
                  lambda: D.resolve_device("cuda"),
                  lambda: SecretScanner(),
                  lambda: BatchDetector(table),
-                 lambda: LocalScanner(table),
+                 lambda: LocalScanner(MemoryCache(), table),
                  lambda: cli.main(["rootfs", str(tmp_path),
+                                   "--scanners", "secret"]),
+                 lambda: cli.main(["image", "--input", image,
                                    "--scanners", "secret"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

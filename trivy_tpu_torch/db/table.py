@@ -101,6 +101,12 @@ class AdvisoryTable:
         self._device: dict | None = None   # torch.device → tensors
         self._hash_u64 = None
 
+    def sources_for_prefix(self, prefix: str) -> list[str]:
+        """Buckets matching an ecosystem prefix — the columnar equivalent
+        of the reference's prefix bucket scan (library/driver.go:111
+        GetAdvisories("pip::", name))."""
+        return [s for s in self.sources if s.startswith(prefix)]
+
     def __len__(self):
         return self.hash.shape[0]
 
@@ -151,6 +157,31 @@ class AdvisoryTable:
                    np.asarray(group, np.int32),
                    [_group_from(g) for g in groups], int(window),
                    details, aux)
+
+    def save(self, path: str) -> None:
+        """Write the columnar `.npz` that `load` (and the JAX package's
+        AdvisoryTable.load) reads."""
+        np.savez(
+            path, hash=self.hash, lo_tok=self.lo_tok, hi_tok=self.hi_tok,
+            flags=self.flags, group=self.group,
+            meta=np.frombuffer(json.dumps({
+                "window": self.window,
+                "groups": [
+                    {"source": g.source, "ecosystem": g.ecosystem,
+                     "pkg_name": g.pkg_name, "vuln_id": g.vuln_id,
+                     "fixed_version": g.fixed_version, "status": g.status,
+                     "severity": g.severity, "data_source": g.data_source,
+                     "vendor_ids": list(g.vendor_ids),
+                     "arches": list(g.arches),
+                     "cpe_indices": list(g.cpe_indices),
+                     "raw_specs": list(g.raw_specs) if g.raw_specs
+                     else None,
+                     "rows": [[p, iv.lo, iv.lo_incl, iv.hi, iv.hi_incl]
+                              for p, iv in g.rows]}
+                    for g in self.groups],
+                "details": self.details,
+                "aux": self.aux,
+            }).encode(), dtype=np.uint8))
 
     @classmethod
     def load(cls, path: str) -> "AdvisoryTable":

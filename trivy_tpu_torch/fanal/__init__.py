@@ -1,2 +1,3 @@
-"""Artifact analysis on the host: the filesystem walker, the analyzers
-the slice needs (OS release, apk) and the blob squash."""
+"""Artifact analysis on the host: image archives and filesystem trees
+(`artifact`), the layer and tree walkers, the analyzers, the
+post-handlers, the blob cache and the layer squash (`applier`)."""

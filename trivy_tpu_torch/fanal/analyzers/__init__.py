@@ -2,7 +2,10 @@
 
 Mirrors pkg/fanal/analyzer/analyzer.go: each analyzer declares the paths
 it needs (`required`) and produces a partial AnalysisResult; the group
-merges results. The port registers the OS-release and apk analyzers."""
+merges results. Analyzer versions participate in cache keys so cached
+blobs invalidate when an analyzer changes (pkg/fanal/cache/key.go:18-60).
+The port registers the OS-release, apk, dpkg, rpm, Red Hat and Python
+packaging analyzers."""
 
 from __future__ import annotations
 
@@ -17,9 +20,12 @@ class AnalysisResult:
     os: Optional[T.OS] = None
     repository: Optional[T.Repository] = None
     package_infos: list = field(default_factory=list)
-    # files owned by the OS package manager (reference
-    # analyzer.AnalysisResult SystemInstalledFiles)
+    applications: list = field(default_factory=list)
+    # files owned by the OS package manager; consumed by the system-file
+    # filter post-handler (reference analyzer.AnalysisResult
+    # SystemInstalledFiles)
     system_installed_files: list = field(default_factory=list)
+    build_info: Optional[T.BuildInfo] = None  # Red Hat content sets, nvr
 
     def merge(self, other: "AnalysisResult"):
         if other is None:
@@ -32,7 +38,16 @@ class AnalysisResult:
         if other.repository is not None:
             self.repository = other.repository
         self.package_infos.extend(other.package_infos)
+        self.applications.extend(other.applications)
         self.system_installed_files.extend(other.system_installed_files)
+        if other.build_info is not None:
+            if self.build_info is None:
+                self.build_info = other.build_info
+            else:  # merge content sets with nvr/arch (analyzer.go Merge)
+                bi, obi = self.build_info, other.build_info
+                bi.content_sets = bi.content_sets or obi.content_sets
+                bi.nvr = bi.nvr or obi.nvr
+                bi.arch = bi.arch or obi.arch
 
 
 class Analyzer:
@@ -48,7 +63,22 @@ class Analyzer:
         raise NotImplementedError
 
 
+class PostAnalyzer:
+    """Multi-file analyzer run after the walk over all collected files
+    (reference pkg/fanal/analyzer PostAnalyzer over a composite FS), for
+    results that need several files at once."""
+    name = "base-post"
+    version = 1
+
+    def required(self, path: str, size: int = -1) -> bool:
+        raise NotImplementedError
+
+    def post_analyze(self, files: dict) -> Optional[AnalysisResult]:
+        raise NotImplementedError
+
+
 _REGISTRY: dict[str, type] = {}
+_POST_REGISTRY: dict[str, type] = {}
 
 
 def register(cls):
@@ -56,22 +86,62 @@ def register(cls):
     return cls
 
 
+def register_post(cls):
+    _POST_REGISTRY[cls.name] = cls
+    return cls
+
+
 def _ensure_loaded():
-    from . import apk, os_release  # noqa: F401
+    from . import apk, dpkg, os_release, python, redhat, rpm  # noqa: F401
+
+
+# analyzers that are opt-in everywhere (reference: license scanning is
+# behind --license-full); excluded from every AnalyzerGroup unless the
+# caller lists them in `enabled`
+OPTIN_ANALYZERS = ("license-file", "executable")
+
+# lockfile analyzers, which image and rootfs scans disable (reference
+# run.go:167-224, const.go TypeLockfiles)
+LOCKFILE_ANALYZERS = ("bundler", "npm", "yarn", "pnpm", "pip", "pipenv",
+                      "poetry", "gomod", "pom", "conan",
+                      "gradle-lockfile", "cocoapods", "swift", "pub",
+                      "mix-lock")
 
 
 class AnalyzerGroup:
-    def __init__(self):
+    def __init__(self, disabled: tuple = (), enabled: tuple = ()):
         _ensure_loaded()
-        self.analyzers = [cls() for _name, cls in sorted(_REGISTRY.items())]
+        off = set(disabled) | (set(OPTIN_ANALYZERS) - set(enabled))
+        self.analyzers = [cls() for name, cls in sorted(_REGISTRY.items())
+                          if name not in off]
+        self.post_analyzers = [
+            cls() for name, cls in sorted(_POST_REGISTRY.items())
+            if name not in off]
+
+    def versions(self) -> dict[str, int]:
+        """name → version, for cache keys."""
+        out = {a.name: a.version for a in self.analyzers}
+        out.update({a.name: a.version for a in self.post_analyzers})
+        return out
 
     def required(self, path: str, size: int = -1) -> bool:
         return any(a.required(path, size) for a in self.analyzers)
+
+    def post_required(self, path: str, size: int = -1) -> bool:
+        return any(a.required(path, size) for a in self.post_analyzers)
 
     def analyze_file(self, path: str, content: bytes,
                      result: AnalysisResult) -> None:
         for a in self.analyzers:
             if a.required(path, len(content)):
                 r = a.analyze(path, content)
+                if r is not None:
+                    result.merge(r)
+
+    def post_analyze(self, files: dict, result: AnalysisResult) -> None:
+        for a in self.post_analyzers:
+            subset = {p: c for p, c in files.items() if a.required(p, -1)}
+            if subset:
+                r = a.post_analyze(subset)
                 if r is not None:
                     result.merge(r)

@@ -1,0 +1,120 @@
+"""Deterministic image archive builders: docker-save tarballs and OCI
+image layouts, from layer blobs built with `tar_bytes` (and gzipped
+with `gz_bytes` where wanted). Zeroed tar/gzip mtimes keep the bytes
+reproducible, so the same seed gives the same image ids.
+
+The docker-save layout is the JAX package's (fanal/fixtures.py) byte for
+byte, so an archive written here scans to the same report in both
+packages."""
+
+from __future__ import annotations
+
+import gzip
+import hashlib
+import io
+import json
+import tarfile
+
+
+def tar_bytes(files: dict) -> bytes:
+    """Deterministic plain tar of {path: bytes}."""
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+        for name in files:
+            ti = tarfile.TarInfo(name)
+            ti.size = len(files[name])
+            tf.addfile(ti, io.BytesIO(files[name]))
+    return buf.getvalue()
+
+
+def gz_bytes(data: bytes, level: int = 9) -> bytes:
+    buf = io.BytesIO()
+    with gzip.GzipFile(fileobj=buf, mode="wb", mtime=0,
+                       compresslevel=level) as gz:
+        gz.write(data)
+    return buf.getvalue()
+
+
+def sha256_hex(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def image_config(diff_ids: list[str], created_by=None) -> dict:
+    """The image config both archive writers record."""
+    if created_by is None:
+        created_by = [f"fixture-layer-{i}" for i in range(len(diff_ids))]
+    return {
+        "architecture": "amd64", "os": "linux",
+        "rootfs": {"type": "layers", "diff_ids": diff_ids},
+        "history": [{"created_by": created_by[i]}
+                    for i in range(len(diff_ids))],
+    }
+
+
+def _write_tar(path: str, members: list[tuple[str, bytes]]) -> None:
+    with tarfile.open(path, "w") as tf:
+        for name, data in members:
+            ti = tarfile.TarInfo(name)
+            ti.size = len(data)
+            tf.addfile(ti, io.BytesIO(data))
+
+
+def write_docker_archive(path: str, layer_blobs: list[bytes],
+                         diff_ids: list[str],
+                         repo_tag: str = "fixture/img:1",
+                         repo_tags=None, created_by=None,
+                         config_sort_keys: bool = True) -> None:
+    """Write a docker-save tarball from pre-built layer blobs (plain or
+    gzipped); `diff_ids` are the sha256 ids of the uncompressed layer
+    tars, recorded verbatim. `config_sort_keys=False` keeps the config's
+    insertion order, as the test suite's `make_image` writes it."""
+    if repo_tags is None:
+        repo_tags = (repo_tag,)
+    config_bytes = json.dumps(image_config(diff_ids, created_by),
+                              sort_keys=config_sort_keys).encode()
+    config_name = sha256_hex(config_bytes) + ".json"
+    manifest = [{
+        "Config": config_name,
+        "RepoTags": list(repo_tags),
+        "Layers": [f"layer{i}/layer.tar"
+                   for i in range(len(layer_blobs))],
+    }]
+    _write_tar(path, [("manifest.json", json.dumps(manifest).encode()),
+                      (config_name, config_bytes)]
+               + [(f"layer{i}/layer.tar", b)
+                  for i, b in enumerate(layer_blobs)])
+
+
+def write_oci_layout(path: str, layer_blobs: list[bytes],
+                     diff_ids: list[str], created_by=None) -> None:
+    """Write an OCI image layout as one tarball (`oci-layout`,
+    `index.json`, content-addressed `blobs/sha256/...`) from the same
+    layer blobs; a gzipped blob gets the `+gzip` layer media type."""
+    config_bytes = json.dumps(image_config(diff_ids, created_by),
+                              sort_keys=True).encode()
+    blobs = {sha256_hex(config_bytes): config_bytes}
+    layers = []
+    for b in layer_blobs:
+        digest = sha256_hex(b)
+        blobs[digest] = b
+        gz = b[:2] == b"\x1f\x8b"
+        layers.append({
+            "mediaType": "application/vnd.oci.image.layer.v1.tar"
+                         + ("+gzip" if gz else ""),
+            "digest": "sha256:" + digest, "size": len(b)})
+    manifest = json.dumps({
+        "schemaVersion": 2,
+        "mediaType": "application/vnd.oci.image.manifest.v1+json",
+        "config": {"mediaType": "application/vnd.oci.image.config.v1+json",
+                   "digest": "sha256:" + sha256_hex(config_bytes),
+                   "size": len(config_bytes)},
+        "layers": layers}, sort_keys=True).encode()
+    blobs[sha256_hex(manifest)] = manifest
+    index = {"schemaVersion": 2, "manifests": [{
+        "mediaType": "application/vnd.oci.image.manifest.v1+json",
+        "digest": "sha256:" + sha256_hex(manifest),
+        "size": len(manifest)}]}
+    _write_tar(path, [("oci-layout",
+                       b'{"imageLayoutVersion": "1.0.0"}'),
+                      ("index.json", json.dumps(index).encode())]
+               + [(f"blobs/sha256/{d}", b) for d, b in blobs.items()])

@@ -1,17 +1,26 @@
-"""Filesystem walker: enumerate the files of a directory tree, feed them
-to the analyzer group, and collect secret-scan candidates so the secret
-engine runs once, batched, per blob instead of per file.
+"""Walkers: enumerate the files of a layer tar or a directory tree, feed
+them to the analyzer group, and collect secret-scan candidates so the
+secret engine runs once, batched, per artifact instead of per file.
 
-Mirrors pkg/fanal/walker/fs.go and the secret-candidate gates of
-pkg/fanal/analyzer/secret/secret.go, serially, in sorted path order."""
+Mirrors pkg/fanal/walker/tar.go (whiteout handling: a basename prefix
+``.wh.`` marks a deletion, ``.wh..wh..opq`` marks the directory opaque),
+walker/fs.go, and the secret-candidate gates of
+pkg/fanal/analyzer/secret/secret.go, serially, in archive or sorted path
+order."""
 
 from __future__ import annotations
 
 import os
+import re
+import tarfile
 from dataclasses import dataclass, field
 
 from .. import types as T
 from .analyzers import AnalysisResult, AnalyzerGroup
+from .handlers import post_handle
+
+WH_PREFIX = ".wh."
+OPAQUE_MARKER = ".wh..wh..opq"
 
 # secret-candidate gates (pkg/fanal/analyzer/secret/secret.go:27-41,115-140)
 MAX_SECRET_SIZE = 10 * 1024 * 1024
@@ -50,9 +59,134 @@ def looks_binary(content: bytes) -> bool:
 
 @dataclass
 class BlobScan:
-    """Result of walking one filesystem snapshot."""
+    """Result of walking one blob (a layer or a filesystem snapshot)."""
     result: AnalysisResult
+    whiteout_files: list = field(default_factory=list)
+    opaque_dirs: list = field(default_factory=list)
     secret_files: list = field(default_factory=list)  # [(path, bytes)]
+    post_files: dict = field(default_factory=dict)    # path -> bytes
+
+
+def _parent_dirs(path: str):
+    parts = path.split("/")[:-1]
+    for i in range(1, len(parts) + 1):
+        yield "/".join(parts[:i])
+
+
+def classify_member(member: tarfile.TarInfo, group: AnalyzerGroup,
+                    collect_secrets: bool, skip_files: tuple = (),
+                    skip_dir_globs: tuple = ()):
+    """One tar member's routing → (kind, path, wants): kind is 'skip',
+    'opaque', 'whiteout' or 'file', and wants (file only) is the
+    (analyze, post, secret) triple. Globs must already be normalized
+    (normalize_skip_globs)."""
+    path = _norm_rel(member.name)
+    if not path:
+        return ("skip", "", None)
+    if skip_files and skip_match(path, skip_files):
+        return ("skip", path, None)
+    if skip_dir_globs and any(skip_match(d, skip_dir_globs)
+                              for d in _parent_dirs(path)):
+        return ("skip", path, None)
+    dirname, base = os.path.split(path)
+    if base == OPAQUE_MARKER:
+        return ("opaque", dirname, None)
+    if base.startswith(WH_PREFIX):
+        return ("whiteout",
+                os.path.join(dirname, base[len(WH_PREFIX):]), None)
+    if not (member.isfile() or member.islnk()):
+        return ("skip", path, None)
+    wants = group.required(path, member.size)
+    wants_post = group.post_required(path, member.size)
+    wants_secret = collect_secrets and secret_candidate(path, member.size)
+    if not (wants or wants_post or wants_secret):
+        return ("skip", path, None)
+    return ("file", path, (wants, wants_post, wants_secret))
+
+
+def walk_layer_tar(tf: tarfile.TarFile, group: AnalyzerGroup,
+                   collect_secrets: bool = False, skip_files: tuple = (),
+                   skip_dir_globs: tuple = ()) -> BlobScan:
+    """Walk one layer's tar in archive order. --skip-files/--skip-dirs
+    apply to layers too (reference walker.go CleanSkipPaths)."""
+    skip_files = normalize_skip_globs(skip_files)
+    skip_dir_globs = normalize_skip_globs(skip_dir_globs)
+    scan = BlobScan(result=AnalysisResult())
+    for member in tf:
+        kind, path, wants3 = classify_member(
+            member, group, collect_secrets, skip_files, skip_dir_globs)
+        if kind == "opaque":
+            scan.opaque_dirs.append(path)
+            continue
+        if kind == "whiteout":
+            scan.whiteout_files.append(path)
+            continue
+        if kind != "file":
+            continue
+        try:
+            f = tf.extractfile(member)
+        except tarfile.StreamError:
+            # a stream-mode tar cannot seek back to a hardlink's target;
+            # the target itself is analyzed under its own member
+            continue
+        if f is None:
+            continue
+        content = f.read()
+        wants, wants_post, wants_secret = wants3
+        if wants:
+            group.analyze_file(path, content, scan.result)
+        if wants_post:
+            scan.post_files[path] = content
+        if wants_secret and not looks_binary(content):
+            scan.secret_files.append((path, content))
+    group.post_analyze(scan.post_files, scan.result)
+    return scan
+
+
+def normalize_skip_globs(globs) -> tuple:
+    """CleanSkipPaths: strip leading '/' so absolute-style flags match
+    the walked relative paths."""
+    return tuple(g.lstrip("/") for g in globs or ())
+
+
+def skip_match(rel: str, globs: tuple) -> bool:
+    """Reference doublestar semantics (utils.SkipPath): `*`/`?` never
+    cross a path separator, `**` matches any number of segments."""
+    return any(_skip_re(g).match(rel) is not None for g in globs)
+
+
+def _skip_re(glob: str):
+    out = []
+    i, n = 0, len(glob)
+    while i < n:
+        c = glob[i]
+        if c == "*":
+            if glob.startswith("**", i):
+                out.append(".*")
+                i += 2
+                continue
+            out.append("[^/]*")
+        elif c == "?":
+            out.append("[^/]")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return re.compile("".join(out) + r"\Z")
+
+
+def _norm_rel(path: str) -> str:
+    """A member name → a safe relative path, or '' to skip it. Layer
+    tars are outside input: a `..` segment must never reach the whiteout
+    and opaque handling of the applier, where it would delete paths
+    outside the shadowed subtree. One leading './' and any leading '/'
+    are stripped, empty and '.' segments collapse, and any '..' segment
+    rejects the name."""
+    if path.startswith("./"):
+        path = path[2:]
+    parts = [p for p in path.lstrip("/").split("/") if p not in ("", ".")]
+    if not parts or ".." in parts:
+        return ""
+    return "/".join(parts)
 
 
 def walk_fs(root: str, group: AnalyzerGroup,
@@ -72,8 +206,9 @@ def walk_fs(root: str, group: AnalyzerGroup,
             except OSError:
                 continue
             wants = group.required(rel, size)
+            wants_post = group.post_required(rel, size)
             wants_secret = collect_secrets and secret_candidate(rel, size)
-            if not (wants or wants_secret):
+            if not (wants or wants_post or wants_secret):
                 continue
             try:
                 with open(full, "rb") as f:
@@ -84,21 +219,34 @@ def walk_fs(root: str, group: AnalyzerGroup,
             if wants:
                 result = AnalysisResult()
                 group.analyze_file(rel, content, result)
-            secret = content if wants_secret and not looks_binary(content) \
-                else None
-            outputs.append((rel, result, secret))
-    for rel, result, secret in sorted(outputs, key=lambda o: o[0]):
+            outputs.append((rel, result, content if wants_post else None,
+                            content if wants_secret
+                            and not looks_binary(content) else None))
+    for rel, result, post, secret in sorted(outputs, key=lambda o: o[0]):
         if result is not None:
             scan.result.merge(result)
+        if post is not None:
+            scan.post_files[rel] = post
         if secret is not None:
             scan.secret_files.append((rel, secret))
+    group.post_analyze(scan.post_files, scan.result)
     return scan
 
 
-def blob_info(scan: BlobScan) -> T.BlobInfo:
+def blob_info(scan: BlobScan, diff_id: str = "",
+              created_by: str = "") -> T.BlobInfo:
+    """One walked blob → its BlobInfo, after the post-handlers."""
     r = scan.result
-    return T.BlobInfo(
+    bi = T.BlobInfo(
+        diff_id=diff_id,
+        created_by=created_by,
+        opaque_dirs=sorted(scan.opaque_dirs),
+        whiteout_files=sorted(scan.whiteout_files),
         os=r.os or T.OS(),
         repository=r.repository,
         package_infos=sorted(r.package_infos, key=lambda p: p.file_path),
+        applications=sorted(r.applications, key=lambda a: a.file_path),
+        build_info=r.build_info,
     )
+    post_handle(r, bi)
+    return bi

@@ -1,7 +1,11 @@
 """Local scan driver: the orchestration the reference runs per target in
-pkg/scanner/local/scan.go — ApplyLayers → OS-package detection →
-FillInfo → result assembly, with detection as one batched device join.
-"""
+pkg/scanner/local/scan.go — ApplyLayers → OS/lang-package detection →
+FillInfo → result assembly, with detection as batched device joins.
+
+Same (target, artifact id, blob ids, options) → (results, os) contract
+as the JAX package's LocalScanner: the blobs come from the cache, every
+target's OS and per-application query batches are built on the host,
+and ONE detect_many call joins them all (one join launch per batch)."""
 
 from __future__ import annotations
 
@@ -14,73 +18,147 @@ from . import types as T
 from .db.table import AdvisoryTable
 from .detect.engine import BatchDetector
 from .detect.fill import fill_info
+from .detect.langpkg import LangpkgScanner
 from .detect.ospkg import OspkgScanner
-from .fanal.applier import apply_blob
+from .fanal.applier import apply_layers
 
 
 class LocalScanner:
-    def __init__(self, table: AdvisoryTable,
+    def __init__(self, cache, table: AdvisoryTable,
                  device: str | torch.device | None = None):
+        self.cache = cache
         self.table = table
         self.detector = BatchDetector(table, device=device)
         self.ospkg = OspkgScanner(self.detector)
+        self.langpkg = LangpkgScanner(self.detector)
 
-    def scan(self, target: str, blob: T.BlobInfo,
+    def scan(self, target: str, artifact_id: str, blob_ids: list[str],
              options: Optional[T.ScanOptions] = None,
              now: Optional[dt.datetime] = None
              ) -> tuple[list[T.Result], T.OS]:
-        """One artifact blob → (results, detected OS)."""
-        options = options or T.ScanOptions()
-        detail = apply_blob(blob)
-        # OS-independent packages without a detected OS report Family
-        # "none" (reference local/scan.go:66-71)
-        if not detail.os.detected and detail.packages:
-            detail.os = T.OS(family=T.OSFamily.NONE)
+        return self.scan_many([(target, artifact_id, blob_ids)],
+                              options, now)[0]
 
-        results: list[T.Result] = []
-        if T.Scanner.VULN in options.scanners and detail.os.detected \
-                and "os" in options.pkg_types:
-            queries, finish = self.ospkg.prepare(
-                detail.os, detail.repository, detail.packages, now=now)
-            if finish is not None:  # family supported
-                vulns, eosl = finish(self.detector.detect_many([queries])[0])
+    def scan_many(self, items: list[tuple[str, str, list[str]]],
+                  options: Optional[T.ScanOptions] = None,
+                  now: Optional[dt.datetime] = None
+                  ) -> list[tuple[list[T.Result], T.OS]]:
+        """Scan many targets with one detect_many call over all their
+        query batches."""
+        options = options or T.ScanOptions()
+        details = []
+        for _target, artifact_id, blob_ids in items:
+            blobs = []
+            for bid in blob_ids:
+                blob = self.cache.get_blob(bid)
+                if blob is None:
+                    raise KeyError(f"missing blob {bid} in cache "
+                                   f"(artifact {artifact_id})")
+                blobs.append(blob)
+            detail = apply_layers(blobs)
+            # OS-independent packages without a detected OS report
+            # Family "none" (reference local/scan.go:66-71)
+            if not detail.os.detected and detail.packages:
+                detail.os = T.OS(family=T.OSFamily.NONE)
+            details.append(detail)
+
+        # phase 1: every query batch (host)
+        units = []    # (item index, "os" | app, finish)
+        batches = []
+        if T.Scanner.VULN in options.scanners:
+            for idx, detail in enumerate(details):
+                if detail.os.detected and "os" in options.pkg_types:
+                    qs, fin = self.ospkg.prepare(
+                        detail.os, detail.repository, detail.packages,
+                        now=now)
+                    if fin is not None:  # family supported
+                        units.append((idx, "os", fin))
+                        batches.append(qs)
+                if "library" in options.pkg_types:
+                    for app in sorted(detail.applications,
+                                      key=lambda a: (a.file_path, a.type)):
+                        qs, fin = self.langpkg.prepare_app(app)
+                        units.append((idx, app, fin))
+                        batches.append(qs)
+
+        # phase 2: one detect_many over every batch (device)
+        hit_lists = self.detector.detect_many(batches) if batches else []
+
+        # phase 3: per-target results (host)
+        vuln_results: dict[int, list[T.Result]] = {}
+        for (idx, unit, finish), hits in zip(units, hit_lists):
+            target = items[idx][0]
+            detail = details[idx]
+            if unit == "os":
+                vulns, eosl = finish(hits)
                 if eosl:
                     detail.os.eosl = True
                 # a supported, detected OS always yields a result — even
                 # with zero packages (ospkg/scan.go:42-69)
-                results.append(self._vuln_result(
+                keep = True
+                res = self._vuln_result(
                     vulns, target=f"{target} ({detail.os.family} "
                                   f"{detail.os.name})",
-                    rtype=detail.os.family))
+                    clazz=T.ResultClass.OS_PKGS, rtype=detail.os.family,
+                    packages=detail.packages, options=options)
+            else:
+                app = unit
+                vulns = finish(hits)
+                keep = bool(vulns) or options.list_all_packages
+                res = self._vuln_result(
+                    vulns,
+                    target=app.file_path or PKG_TARGETS.get(app.type,
+                                                            app.type),
+                    clazz=T.ResultClass.LANG_PKGS, rtype=app.type,
+                    packages=app.packages, options=options)
+            if keep:
+                vuln_results.setdefault(idx, []).append(res)
 
-        if T.Scanner.SECRET in options.scanners:
-            for sec in detail.secrets:
-                results.append(T.Result(
-                    target=sec.file_path,
-                    clazz=T.ResultClass.SECRET,
-                    secrets=sec.findings,
-                ))
-        return results, detail.os
+        out = []
+        for idx, detail in enumerate(details):
+            results = vuln_results.get(idx, [])
+            if T.Scanner.SECRET in options.scanners:
+                for sec in detail.secrets:
+                    results.append(T.Result(
+                        target=sec.file_path, clazz=T.ResultClass.SECRET,
+                        secrets=sec.findings))
+            out.append((results, detail.os))
+        return out
 
-    def _vuln_result(self, vulns, target: str, rtype) -> T.Result:
-        """FillInfo enrichment and the severity sort."""
+    def _vuln_result(self, vulns, target: str, clazz, rtype, packages,
+                     options: T.ScanOptions) -> T.Result:
+        """FillInfo enrichment, the severity sort, and the package list
+        under --list-all-pkgs."""
         fill_info(vulns, self.table.details)
         vulns.sort(key=_vuln_sort_key)
-        return T.Result(target=target, clazz=T.ResultClass.OS_PKGS,
-                        type=rtype, vulnerabilities=vulns)
+        res = T.Result(target=target, clazz=clazz, type=rtype,
+                       vulnerabilities=vulns)
+        if options.list_all_packages:
+            res.packages = sorted(packages,
+                                  key=lambda p: (p.name, p.version))
+        return res
+
+
+# friendly targets for aggregated individual-package results
+# (reference pkg/scanner/langpkg/scan.go:15-23)
+PKG_TARGETS = {
+    "python-pkg": "Python", "conda-pkg": "Conda", "gemspec": "Ruby",
+    "node-pkg": "Node.js", "jar": "Java", "k8s": "Kubernetes",
+    "kubernetes": "Kubernetes",
+}
 
 
 def filter_results(results: list[T.Result]) -> list[T.Result]:
     """Reference pkg/result/filter.go Filter:39 at its defaults: findings
-    of every severity stay; empty results drop, except OS-package
-    results, which the reference keeps."""
+    of every severity stay; empty results drop, except OS- and
+    language-package results, which the reference keeps."""
     sev = set(T.SEVERITIES)
     for res in results:
         res.vulnerabilities = [v for v in res.vulnerabilities
                                if v.severity in sev]
         res.secrets = [s for s in res.secrets if s.severity in sev]
-    return [r for r in results
-            if not r.is_empty() or r.clazz == T.ResultClass.OS_PKGS]
+    return [r for r in results if not r.is_empty() or r.clazz in
+            (T.ResultClass.OS_PKGS, T.ResultClass.LANG_PKGS)]
 
 
 def _vuln_sort_key(v: T.DetectedVulnerability):

@@ -1,4 +1,4 @@
-"""Core scan/report types — the subset the rootfs slice uses.
+"""Core scan/report types — the subset the ported scan paths use.
 
 Mirrors the reference report schema so JSON output is comparable
 byte-for-byte after normalization:
@@ -71,6 +71,18 @@ class Scanner:
 
 
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
+
+
+class Status:
+    """Advisory status (trivy-db pkg/types/status.go ordering)."""
+    UNKNOWN = "unknown"
+    NOT_AFFECTED = "not_affected"
+    AFFECTED = "affected"
+    FIXED = "fixed"
+    UNDER_INVESTIGATION = "under_investigation"
+    WILL_NOT_FIX = "will_not_fix"
+    FIX_DEFERRED = "fix_deferred"
+    END_OF_LIFE = "end_of_life"
 
 
 # --- helpers ---
@@ -173,6 +185,12 @@ class Repository(JsonMixin):
 
 
 @dataclass
+class Location(JsonMixin):
+    start_line: int = 0
+    end_line: int = 0
+
+
+@dataclass
 class PkgIdentifier(JsonMixin):
     purl: str = ""
     bom_ref: str = ""
@@ -205,6 +223,11 @@ class Package(JsonMixin):
     digest: str = ""
     locations: list = field(default_factory=list)
     installed_files: list = field(default_factory=list)
+    # attached by the applier from the origin layer's Red Hat build
+    # metadata (docker.go lookupBuildInfo); never serialized to reports
+    # (reference Package has BuildInfo `json:"-"`)
+    build_info: Optional["BuildInfo"] = None
+    _json_skip = ("build_info",)
     _json_names = {"id": "ID", "src_name": "SrcName", "src_version": "SrcVersion",
                    "src_release": "SrcRelease", "src_epoch": "SrcEpoch"}
     # non-pointer structs: always marshaled by Go (see DetectedVulnerability)
@@ -231,6 +254,15 @@ def _format_ver(epoch: int, version: str, release: str) -> str:
 
 @dataclass
 class PackageInfo(JsonMixin):
+    file_path: str = ""
+    packages: list = field(default_factory=list)  # [Package]
+
+
+@dataclass
+class Application(JsonMixin):
+    """A language-ecosystem application (reference
+    pkg/fanal/types/artifact.go Application)."""
+    type: str = ""          # ecosystem, e.g. "python-pkg"
     file_path: str = ""
     packages: list = field(default_factory=list)  # [Package]
 
@@ -279,6 +311,16 @@ class Secret(JsonMixin):
 
 
 @dataclass
+class BuildInfo(JsonMixin):
+    """Red Hat build metadata (reference pkg/fanal/types/artifact.go
+    BuildInfo): content sets scope which advisories apply."""
+    content_sets: list = field(default_factory=list)
+    nvr: str = ""
+    arch: str = ""
+    _json_names = {"nvr": "Nvr"}
+
+
+@dataclass
 class BlobInfo(JsonMixin):
     """Per-layer analysis result (reference pkg/fanal/types/artifact.go:311)."""
     schema_version: int = 2
@@ -290,8 +332,20 @@ class BlobInfo(JsonMixin):
     os: OS = field(default_factory=OS)
     repository: Optional[Repository] = None
     package_infos: list = field(default_factory=list)   # [PackageInfo]
+    applications: list = field(default_factory=list)    # [Application]
     secrets: list = field(default_factory=list)         # [Secret]
+    build_info: Optional[BuildInfo] = None
     _json_names = {"diff_id": "DiffID", "os": "OS"}
+
+
+@dataclass
+class ArtifactInfo(JsonMixin):
+    schema_version: int = 2
+    architecture: str = ""
+    created: str = ""
+    docker_version: str = ""
+    os: str = ""
+    _json_names = {"os": "OS"}
 
 
 @dataclass
@@ -300,6 +354,7 @@ class ArtifactDetail(JsonMixin):
     os: OS = field(default_factory=OS)
     repository: Optional[Repository] = None
     packages: list = field(default_factory=list)      # [Package]
+    applications: list = field(default_factory=list)  # [Application]
     secrets: list = field(default_factory=list)       # [Secret]
     _json_names = {"os": "OS"}
 
@@ -443,3 +498,4 @@ class Report(JsonMixin):
 class ScanOptions:
     pkg_types: tuple = ("os", "library")
     scanners: tuple = (Scanner.VULN,)
+    list_all_packages: bool = False
