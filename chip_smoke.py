@@ -48,7 +48,7 @@ Phases, one JSON line each; any failure exits non-zero:
            Flask image (two layers) against the fixture DB: the 5 OS
            CVEs and Flask's, two planted tokens, and not a third that
            the second layer whites out.
-  image    this slice's main path at a size users would call real: a
+  image    the image slice's main path at a size users would call real: a
            seeded Debian 12 application image (gzip docker-save, 5
            layers: 430 dpkg packages over two status files, 60 Python
            packages, ~61 MiB of text with planted tokens, a whiteout and
@@ -60,9 +60,38 @@ Phases, one JSON line each; any failure exits non-zero:
            shift-or launch for the whole image, a join launch, exactly
            the surviving planted secrets; then each kernel on the very
            inputs this image hands it, against its plain version.
+  apps_table
+           the table of the two language phases: Debian 12 (22,000
+           source names, the 4,000-row linux bucket) and npm, maven, go,
+           cargo, rubygems, composer, nuget and pip names under their
+           own GitHub Security Advisory sources, Zipf bucket sizes,
+           ranges in each ecosystem's grammar (a share of them in
+           operators the token encoding cannot hold: INEXACT rows), as
+           an .npz; its rows, INEXACT rows and device bytes.
+  fs       a seeded monorepo checkout (package-lock v3, a yarn
+           workspace, go.mod + go.sum, Cargo.lock, poetry, Gemfile.lock,
+           composer.lock, pom.xml; 40 MiB of text with planted tokens)
+           through `fs` and `repo` on the card, and `fs --device cpu
+           --scanners vuln` as the reference: equal vulnerability
+           results, every planted secret, one shift-or launch and one
+           join launch per application batch on the route the detector
+           picks; per batch its queries, pairs, t_pad, route and the
+           pairs marked NEEDS_RECHECK (checked against the rows' INEXACT
+           flags), the dev packages dropped; then each kernel on the
+           checkout's own inputs against its plain version.
+  image_apps
+           a 4-layer gzip application image (Debian 12 and 200 dpkg
+           packages; 900 node_modules packages; 40 jars and a Go binary
+           of 150 modules; 60 gems, a cargo-auditable Rust binary, 30
+           conda records and 16 MiB of text with planted tokens) cold
+           and warm on the card and `--device cpu --scanners vuln` as
+           the reference, with the same checks and figures as fs: one
+           OS batch, the node-pkg, jar and gemspec batches, the Go and
+           the Rust binary's.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
-largest scale case under "at_scale" and the image's under "at_image";
+largest scale case under "at_scale", the image's under "at_image", and
+the language phases' under "at_fs" and "at_image_apps";
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -460,16 +489,8 @@ def check_main_path_shapes(torch, root: str) -> dict:
     from trivy_tpu_torch.fanal.analyzers import AnalyzerGroup
     from trivy_tpu_torch.fanal.applier import apply_layers
     from trivy_tpu_torch.fanal.walker import blob_info, walk_fs
-    from trivy_tpu_torch.ops import ac, next_pow2
-    from trivy_tpu_torch.secret.engine import CHUNK_LEN, SecretScanner
     scan = walk_fs(root, AnalyzerGroup(), collect_secrets=True)
-    bank = SecretScanner(device="cuda")._bank
-    chunks, _ = ac.pack_chunks([c for _, c in scan.secret_files],
-                               CHUNK_LEN, bank.max_kw_len - 1)
-    chunks = np.unique(chunks, axis=0)
-    padded = np.zeros((next_pow2(chunks.shape[0], floor=64), CHUNK_LEN),
-                      np.uint8)
-    padded[:chunks.shape[0]] = chunks
+    padded, bank, _rows = secret_rows(scan.secret_files)
     shiftor = shiftor_case(torch, bank, padded, "main_path")
     table = load_table(os.path.join(REPO, "tests/fixtures/db/*.yaml"))
     det = BatchDetector(table, device="cuda")
@@ -828,38 +849,49 @@ def _ver(rng, lo: int, hi: int) -> str:
             f"{rng.integers(0, 31)}")
 
 
+SEVERITIES = ("LOW", "MEDIUM", "HIGH", "CRITICAL")
+
+
+def _zipf_rows(rng, names: list, advisory) -> list:
+    """Bench-shaped advisories of one source (bench.py:91: Zipf(1.7)
+    bucket sizes clipped to [1, 64]): advisory(name, j, fix) for the
+    j-th row of each name, with a fixed version of major 1-8."""
+    sizes = np.clip(rng.zipf(1.7, len(names)), 1, 64)
+    return [advisory(name, j, _ver(rng, 1, 8))
+            for name, size in zip(names, sizes) for j in range(int(size))]
+
+
+def _debian_rows(rng, deb: list) -> list:
+    from trivy_tpu_torch.db.table import RawAdvisory
+    return _zipf_rows(rng, deb, lambda name, j, fix: RawAdvisory(
+        source=DEBIAN_SOURCE, ecosystem="debian", pkg_name=name,
+        vuln_id=f"CVE-2024-{name[-5:]}{j:02d}",
+        fixed_version=f"{fix}-{rng.integers(1, 6)}",
+        severity=SEVERITIES[int(rng.integers(0, 4))]))
+
+
+def _linux_rows(rng) -> list:
+    """The 4,000-row `linux` bucket of Debian 12."""
+    from trivy_tpu_torch.db.table import RawAdvisory
+    return [RawAdvisory(
+        source=DEBIAN_SOURCE, ecosystem="debian", pkg_name="linux",
+        vuln_id=f"CVE-2019-{j:05d}",
+        fixed_version=f"{_ver(rng, 1, 8)}-{rng.integers(1, 6)}",
+        severity=SEVERITIES[int(rng.integers(0, 4))]) for j in range(4000)]
+
+
 def image_table(rng):
-    """A bench-shaped table (bench.py:91: Zipf(1.7) bucket sizes clipped
-    to [1, 64]) for one Debian 12 image: 22,000 source names, a
-    4,000-row `linux` bucket, 8,000 pip names; fixed versions have
-    majors 1-8 → (table, debian names, pip names)."""
+    """A bench-shaped table for one Debian 12 image: 22,000 source
+    names, a 4,000-row `linux` bucket, 8,000 pip names; fixed versions
+    have majors 1-8 → (table, debian names, pip names)."""
     from trivy_tpu_torch.db.table import RawAdvisory, build_table
     deb = [f"src{i:05d}" for i in range(22_000)]
     pip = [f"py-lib-{i:05d}" for i in range(8_000)]
-    raw = []
-    sev = ("LOW", "MEDIUM", "HIGH", "CRITICAL")
-    for names, source in ((deb, DEBIAN_SOURCE), (pip, PIP_SOURCE)):
-        sizes = np.clip(rng.zipf(1.7, len(names)), 1, 64)
-        for name, size in zip(names, sizes):
-            for j in range(int(size)):
-                fix = _ver(rng, 1, 8)
-                if source == PIP_SOURCE:
-                    raw.append(RawAdvisory(
-                        source=source, ecosystem="pip", pkg_name=name,
-                        vuln_id=f"GHSA-{name[-5:]}-{j:04d}",
-                        vulnerable_ranges=f"< {fix}"))
-                else:
-                    raw.append(RawAdvisory(
-                        source=source, ecosystem="debian", pkg_name=name,
-                        vuln_id=f"CVE-2024-{name[-5:]}{j:02d}",
-                        fixed_version=f"{fix}-{rng.integers(1, 6)}",
-                        severity=sev[int(rng.integers(0, 4))]))
-    for j in range(4000):
-        raw.append(RawAdvisory(
-            source=DEBIAN_SOURCE, ecosystem="debian", pkg_name="linux",
-            vuln_id=f"CVE-2019-{j:05d}",
-            fixed_version=f"{_ver(rng, 1, 8)}-{rng.integers(1, 6)}",
-            severity=sev[int(rng.integers(0, 4))]))
+    raw = _debian_rows(rng, deb)
+    raw += _zipf_rows(rng, pip, lambda name, j, fix: RawAdvisory(
+        source=PIP_SOURCE, ecosystem="pip", pkg_name=name,
+        vuln_id=f"GHSA-{name[-5:]}-{j:04d}", vulnerable_ranges=f"< {fix}"))
+    raw += _linux_rows(rng)
     return build_table(raw), deb, pip
 
 
@@ -920,16 +952,13 @@ def image_layers(rng, deb: list, pip: list) -> tuple:
     return layers, expected, removed
 
 
-def image_path_batches(torch, table, layers: list):
-    """The image walked in this process as the artifact walks it →
-    (detector, [(label, queries)] of the scan's batches, the secret
-    files)."""
+def walk_image(layers: list) -> tuple:
+    """An image's layers walked in this process as the image artifact
+    walks them (lockfile analyzers off) → (the squashed artifact detail,
+    the secret candidates of every layer)."""
     import io
     import tarfile
 
-    from trivy_tpu_torch.detect.engine import BatchDetector
-    from trivy_tpu_torch.detect.langpkg import LangpkgScanner
-    from trivy_tpu_torch.detect.ospkg import OspkgScanner
     from trivy_tpu_torch.fanal.analyzers import (LOCKFILE_ANALYZERS,
                                                  AnalyzerGroup)
     from trivy_tpu_torch.fanal.applier import apply_layers
@@ -941,13 +970,7 @@ def image_path_batches(torch, table, layers: list):
             scan = walk_layer_tar(tf, group, collect_secrets=True)
         blobs.append(blob_info(scan, diff_id=diff_id))
         secret_files += scan.secret_files
-    detail = apply_layers(blobs)
-    det = BatchDetector(table, device="cuda")
-    batches = [("os", OspkgScanner(det).prepare(
-        detail.os, detail.repository, detail.packages)[0])]
-    batches += [(app.type, LangpkgScanner(det).prepare_app(app)[0])
-                for app in detail.applications]
-    return det, batches, secret_files, len(detail.packages)
+    return apply_layers(blobs), secret_files
 
 
 def compact_case(torch, table, det, prep, h_cap: int, label: str) -> dict:
@@ -988,9 +1011,6 @@ def run_image_at_size(torch, tmp: str) -> tuple:
     from trivy_tpu_torch.fanal.fixtures import (gz_bytes,
                                                 write_docker_archive,
                                                 write_oci_layout)
-    from trivy_tpu_torch.ops import ac, next_pow2
-    from trivy_tpu_torch.secret.engine import (CHUNK_LEN, DEVICE_ROWS,
-                                               SecretScanner)
     rng = np.random.default_rng(SEED + 3)
     t0 = time.perf_counter()
     table, deb, pip = image_table(rng)
@@ -1016,15 +1036,9 @@ def run_image_at_size(torch, tmp: str) -> tuple:
     AdvisoryTable.load(db)
     table_load_s = time.perf_counter() - t0
 
-    det, batches, secret_files, n_packages = image_path_batches(
-        torch, table, layers)
-    bank = SecretScanner(device="cuda")._bank
-    chunks, _ = ac.pack_chunks([c for _, c in secret_files], CHUNK_LEN,
-                               bank.max_kw_len - 1)
-    chunks = np.unique(chunks, axis=0)
-    if chunks.shape[0] > DEVICE_ROWS:
-        raise AssertionError(f"{chunks.shape[0]} secret rows do not fit "
-                             f"one launch of {DEVICE_ROWS}")
+    detail, secret_files = walk_image(layers)
+    batches = scan_batches(table, detail)
+    padded, bank, rows = secret_rows(secret_files)
 
     scan = ["image", "--input", docker, "--db", db, "--scanners",
             "vuln,secret"]
@@ -1049,52 +1063,555 @@ def run_image_at_size(torch, tmp: str) -> tuple:
     if secrets != expected or secrets & removed:
         raise AssertionError(f"image secrets {sorted(secrets)} != "
                              f"{sorted(expected)}")
-    launches = cold_counts["launches"]
-    if launches["shiftor"] != 1 or \
-            cold_counts["prefilter_path"] != {"cuda": 1}:
-        raise AssertionError(f"the image's secret batch did not take one "
-                             f"shift-or launch: {cold_counts}")
-    if launches["csr_join"] + launches["csr_join_compact"] < 1:
-        raise AssertionError(f"no join launch on the image: {cold_counts}")
-
     # the kernels on this image's inputs, against their plain versions
-    padded = np.zeros((next_pow2(chunks.shape[0], floor=64), CHUNK_LEN),
-                      np.uint8)
-    padded[:chunks.shape[0]] = chunks
-    at_image = {"shiftor": shiftor_case(torch, bank, padded, "image"),
-                "csr_join": [], "csr_join_compact": []}
-    n_queries = n_pairs = 0
-    # the single-call times of the kernels the scan launched: shift-or,
-    # and per batch the join the detector's routing picks (h_cap > 0:
-    # the compacted join)
-    kernel_ms = at_image["shiftor"]["ms"]
-    for label, qs in batches:
-        prep = det._prepare(qs)
-        n_queries += len(qs)
-        n_pairs += prep.n_pairs
-        dense = join_case(torch, table, det, prep, f"image_{label}")
-        at_image["csr_join"].append({"batch": label, **dense})
-        h_cap = det._hit_capacity(prep.t_pad)
-        if h_cap:
-            compact = compact_case(torch, table, det, prep, h_cap,
-                                   f"image_{label}")
-            at_image["csr_join_compact"].append({"batch": label, **compact})
-        kernel_ms += (compact if h_cap else dense)["ms"]
-    hits = sum(len(h) for h in det.detect_many([qs for _, qs in batches]))
+    figures, at_image, kernel_ms = batch_kernels(torch, table, batches,
+                                                 "image")
+    _expect_launches(cold_counts, figures, "image")
+    at_image["shiftor"] = shiftor_case(torch, bank, padded, "image")
+    kernel_ms += at_image["shiftor"]["ms"]
+    launches = cold_counts["launches"]
     phase("image", layers=len(layers), archive_bytes=os.path.getsize(docker),
           secret_bytes=sum(len(c) for _, c in secret_files),
-          secret_rows=int(chunks.shape[0]), packages=n_packages,
-          batches=len(batches), queries=n_queries, pairs=n_pairs, hits=hits,
+          secret_rows=rows, packages=len(detail.packages), batches=figures,
+          queries=sum(f["queries"] for f in figures),
+          pairs=sum(f["pairs"] for f in figures),
+          hits=sum(f.get("hits", 0) for f in figures),
           vulnerabilities=len(vulns), secrets=sorted(secrets),
           table_rows=len(table), setup_s=setup_s, startup_s=startup_s,
           table_load_s=table_load_s, kernel_ms=kernel_ms,
           kernel_share_cold=kernel_ms / 1e3 / cold_s, wall_s_cold=cold_s,
           wall_s_warm=warm_s, wall_s_cpu=cpu_s, wall_s_oci=oci_s,
           launches=launches, warm_launches=warm_counts["launches"],
-          prefilter_path=cold_counts["prefilter_path"],
-          join_ran=[k for k in ("csr_join", "csr_join_compact")
-                    if launches[k]])
+          prefilter_path=cold_counts["prefilter_path"])
     return launches, at_image
+
+
+# --- the language ecosystems: a monorepo checkout and an application image
+
+# (ecosystem, names, the label of its GitHub Security Advisory source)
+APP_ECOSYSTEMS = (("npm", 12_000, "Npm"), ("maven", 6_000, "Maven"),
+                  ("go", 4_000, "Go"), ("cargo", 3_000, "Rust"),
+                  ("rubygems", 3_000, "RubyGems"),
+                  ("composer", 2_000, "Composer"),
+                  ("nuget", 2_000, "Nuget"), ("pip", 8_000, "Pip"))
+
+
+def app_names(eco: str, n: int) -> list:
+    """n package names of an ecosystem, in its own shape; each ends
+    with its five-digit index."""
+    shape = {"npm": lambda i: (f"@scope{i % 40}/js-{i:05d}" if i % 10 == 0
+                               else f"js-lib-{i:05d}"),
+             "maven": lambda i: f"org.example{i % 100}:artifact{i:05d}",
+             "go": lambda i: f"github.com/org{i % 200}/mod{i:05d}",
+             "cargo": lambda i: f"crate-{i:05d}",
+             "rubygems": lambda i: f"gem-{i:05d}",
+             "composer": lambda i: f"vendor{i % 100}/pkg-{i:05d}",
+             "nuget": lambda i: f"Company{i % 100}.Lib{i:05d}",
+             "pip": lambda i: f"py-lib-{i:05d}"}[eco]
+    return [shape(i) for i in range(n)]
+
+
+def _lang_range(rng, eco: str, fix: str) -> str:
+    """A vulnerable range below `fix` in the ecosystem's own grammar:
+    maven intervals, semver bounds with pre-releases, and about a tenth
+    of the gem and pip ranges (a twentieth of npm and composer) in the
+    pessimistic, compatible-release and caret operators, which the
+    token encoding cannot hold, so their rows are INEXACT and every
+    pair on them takes the host recheck."""
+    major, minor, _patch = fix.split(".")
+    r = rng.random()
+    lo = f"{rng.integers(0, int(major))}.{minor}"
+    if eco == "maven":
+        return f"(,{fix})" if r < 0.2 else f"[{lo},{fix})"
+    if eco == "rubygems" and r < 0.1:
+        return f"~> {major}.{minor}.0"
+    if eco == "pip" and r < 0.1:
+        return f"~= {major}.{minor}"
+    if eco in ("npm", "composer") and r < 0.05:
+        return f"^{major}.{minor}.0"
+    if eco in ("npm", "go", "cargo", "composer") and r < 0.15:
+        return f"< {fix}-beta.{rng.integers(1, 4)}"
+    if r < 0.3:
+        return f">= {lo}.0, < {fix}"
+    return f"< {fix}"
+
+
+def apps_table(rng):
+    """The table both language phases scan against: Debian 12 (22,000
+    source names and the 4,000-row `linux` bucket) and eight language
+    ecosystems, each under its own GitHub Security Advisory source,
+    bench-shaped → (table, debian names, {ecosystem: names})."""
+    from trivy_tpu_torch.db.table import RawAdvisory, build_table
+    deb = [f"src{i:05d}" for i in range(22_000)]
+    raw = _debian_rows(rng, deb)
+    names = {}
+    for eco, n, label in APP_ECOSYSTEMS:
+        names[eco] = app_names(eco, n)
+        source = f"{eco}::GitHub Security Advisory {label}"
+        raw += _zipf_rows(rng, names[eco], lambda name, j, fix: RawAdvisory(
+            source=source, ecosystem=eco, pkg_name=name,
+            vuln_id=f"GHSA-{eco}-{name[-5:]}-{j:04d}",
+            vulnerable_ranges=_lang_range(rng, eco, fix)))
+    raw += _linux_rows(rng)
+    return build_table(raw), deb, names
+
+
+def _installed(rng, prefix: str = "") -> str:
+    """An installed version: about 5% below every fix, else above."""
+    if rng.random() < 0.05:
+        return prefix + "0.9.1"
+    return f"{prefix}9.{rng.integers(0, 31)}.0"
+
+
+def _pick(rng, names: list, n: int) -> list:
+    return [names[i] for i in rng.choice(len(names), n, replace=False)]
+
+
+def _text_files(rng, prefix: str, mib: int, planted: dict) -> dict:
+    """`mib` files of 1 MiB of filler text under `prefix`, and the
+    planted {path: rule} tokens → {path: bytes}."""
+    files = {f"{prefix}/part{i:02d}.txt": filler_text(rng, 1 << 20)
+             for i in range(mib)}
+    files.update({rel: planted_token(rng, rule)
+                  for rel, rule in planted.items()})
+    return files
+
+
+CHECKOUT_SECRETS = {"deploy/aws.env": AWS,
+                    ".github/workflows/release.yml": GITHUB,
+                    "ops/keys/id_rsa": PRIVATE_KEY}
+
+
+def checkout_files(rng, names: dict, text_mib: int = 40) -> dict:
+    """A mid-sized product's monorepo: package-lock.json v3 (1,200
+    packages, ~15% dev), a yarn workspace (800), go.mod + go.sum (150
+    modules, a pre-1.17 go.mod merged with go.sum), Cargo.lock (300),
+    poetry.lock + pyproject.toml (120), Gemfile.lock (150),
+    composer.lock (100), pom.xml (80), and `text_mib` MiB of source-like
+    text with planted tokens → {path: bytes}."""
+    files = {}
+    npm = _pick(rng, names["npm"], 2000)
+    lock_pkgs, yarn_pkgs = npm[:1200], npm[1200:]
+    dev = set(lock_pkgs[1020:])
+    packages = {"": {"name": "monorepo", "version": "1.0.0",
+                     "dependencies": {n: "*" for n in lock_pkgs[:300]},
+                     "devDependencies": {n: "*" for n in lock_pkgs[1020:
+                                                                   1060]}}}
+    for i, n in enumerate(lock_pkgs):
+        entry = {"version": _installed(rng)}
+        if n in dev:
+            entry["dev"] = True
+        if i % 7 == 0 and i + 1 < len(lock_pkgs):
+            entry["dependencies"] = {lock_pkgs[i + 1]: "*"}
+        packages[f"node_modules/{n}"] = entry
+    files["package-lock.json"] = json.dumps(
+        {"name": "monorepo", "lockfileVersion": 3, "requires": True,
+         "packages": packages}, indent=2).encode()
+    yarn = ["# yarn lockfile v1", ""]
+    for n in yarn_pkgs:
+        yarn += [f'"{n}@^1.0.0":', f'  version "{_installed(rng)}"',
+                 f'  resolved "https://registry.yarnpkg.com/{n}.tgz"', ""]
+    files["web/yarn.lock"] = "\n".join(yarn).encode()
+    files["web/package.json"] = json.dumps(
+        {"name": "web", "dependencies": {n: "^1.0.0" for n in yarn_pkgs[:700]},
+         "devDependencies": {n: "^1.0.0" for n in yarn_pkgs[700:]}},
+        indent=2).encode()
+    go = _pick(rng, names["go"], 150)
+    go_ver = {m: _installed(rng, "v") for m in go}
+    files["services/api/go.mod"] = ("module example.com/api\n\ngo 1.16\n\n"
+                                    "require (\n" + "".join(
+                                        f"\t{m} {go_ver[m]}\n"
+                                        for m in go[:120]) + ")\n").encode()
+    files["services/api/go.sum"] = "".join(
+        f"{m} {go_ver[m]} h1:x=\n{m} {go_ver[m]}/go.mod h1:y=\n"
+        for m in sorted(go)).encode()
+    files["crates/Cargo.lock"] = ("version = 3\n" + "".join(
+        f'\n[[package]]\nname = "{c}"\nversion = "{_installed(rng)}"\n'
+        for c in _pick(rng, names["cargo"], 300))).encode()
+    py = _pick(rng, names["pip"], 120)
+    files["ml/poetry.lock"] = "".join(
+        f'[[package]]\nname = "{n}"\nversion = "{_installed(rng)}"\n'
+        f'category = "{"dev" if i >= 100 else "main"}"\n\n'
+        for i, n in enumerate(py)).encode()
+    files["ml/pyproject.toml"] = ("[tool.poetry.dependencies]\n"
+                                  'python = "^3.11"\n' + "".join(
+                                      f'"{n}" = "*"\n' for n in py[:40])
+                                  ).encode()
+    files["tools/Gemfile.lock"] = (
+        "GEM\n  remote: https://rubygems.org/\n  specs:\n" + "".join(
+            f"    {g} ({_installed(rng)})\n"
+            for g in _pick(rng, names["rubygems"], 150))
+        + "\nPLATFORMS\n  ruby\n").encode()
+    php = _pick(rng, names["composer"], 100)
+    files["php/composer.lock"] = json.dumps(
+        {"packages": [{"name": n, "version": _installed(rng, "v")}
+                      for n in php[:90]],
+         "packages-dev": [{"name": n, "version": _installed(rng)}
+                          for n in php[90:]]}, indent=4).encode()
+    deps = "".join(
+        f"    <dependency><groupId>{g}</groupId><artifactId>{a}</artifactId>"
+        f"<version>{_installed(rng)}</version></dependency>\n"
+        for g, a in (m.split(":") for m in _pick(rng, names["maven"], 80)))
+    files["java/pom.xml"] = (
+        "<project>\n  <groupId>com.example</groupId>\n  <artifactId>svc"
+        "</artifactId>\n  <version>1.0.0</version>\n  <dependencies>\n"
+        + deps + "  </dependencies>\n</project>\n").encode()
+    files.update(_text_files(rng, "src/docs", text_mib, CHECKOUT_SECRETS))
+    return files
+
+
+def _jar_bytes(pom=None) -> bytes:
+    import io
+    import zipfile
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as z:
+        z.writestr("META-INF/MANIFEST.MF", "Manifest-Version: 1.0\n")
+        if pom:
+            g, a, v = pom
+            z.writestr(f"META-INF/maven/{g}/{a}/pom.properties",
+                       f"groupId={g}\nartifactId={a}\nversion={v}\n")
+    return buf.getvalue()
+
+
+IMAGE_APPS_SECRETS = {"srv/tool/aws.env": AWS,
+                      "srv/tool/ci.yml": GITHUB,
+                      "srv/tool/keys/deploy_key": PRIVATE_KEY}
+
+
+def image_apps_layers(rng, deb: list, names: dict,
+                      text_mib: int = 16) -> list:
+    """Four layers of an application image: (1) Debian 12 with a dpkg
+    status of 200 packages; (2) a Node app, 900 node_modules
+    package.json; (3) a Java service, 40 jars (30 with pom.properties,
+    10 named only by file name) and a Go binary with 150 build-info
+    deps; (4) a Ruby tool with 60 gemspecs, a cargo-auditable Rust
+    binary of 60 crates, 30 conda-meta records and `text_mib` MiB of
+    text with planted tokens → the layer tars."""
+    from trivy_tpu_torch.fanal.fixtures import (go_binary_bytes,
+                                                rust_audit_elf, tar_bytes)
+    srcs = rng.choice(len(deb), 200, replace=False)
+    base = {"etc/os-release": b'PRETTY_NAME="Debian GNU/Linux 12 '
+                              b'(bookworm)"\nID=debian\nVERSION_ID="12"\n',
+            "etc/debian_version": b"12.5\n",
+            "var/lib/dpkg/status": _dpkg_status(
+                [(f"lib{deb[s]}-{k}", deb[s], _installed(rng) + "-1")
+                 for k, s in enumerate(srcs)])}
+    node = {f"app/node_modules/{n}/package.json": json.dumps(
+        {"name": n, "version": _installed(rng), "license": "MIT"}).encode()
+        for n in _pick(rng, names["npm"], 900)}
+    java = {}
+    for i, m in enumerate(_pick(rng, names["maven"], 40)):
+        g, a = m.split(":")
+        v = _installed(rng)
+        java[f"opt/svc/lib/{a}-{v}.jar"] = _jar_bytes(
+            (g, a, v) if i < 30 else None)
+    java["usr/local/bin/svc"] = go_binary_bytes(
+        [(m, _installed(rng, "v")) for m in _pick(rng, names["go"], 150)])
+    tool = {f"usr/local/bundle/specifications/{g}-{v}.gemspec":
+            f's.name = "{g}"\ns.version = "{v}"\n'.encode()
+            for g, v in ((g, _installed(rng))
+                         for g in _pick(rng, names["rubygems"], 60))}
+    tool["usr/local/bin/rtool"] = rust_audit_elf(
+        [{"name": "rtool", "version": "1.0.0", "source": "local"}]
+        + [{"name": c, "version": _installed(rng), "source": "crates.io",
+            "kind": "runtime"} for c in _pick(rng, names["cargo"], 60)])
+    for n in _pick(rng, names["pip"], 30):
+        v = _installed(rng)
+        tool[f"opt/conda/conda-meta/{n}-{v}-py_0.json"] = json.dumps(
+            {"name": n, "version": v, "license": "BSD"}).encode()
+    tool.update(_text_files(rng, "srv/tool/docs", text_mib,
+                            IMAGE_APPS_SECRETS))
+    return [tar_bytes(layer) for layer in (base, node, java, tool)]
+
+
+def scan_batches(table, detail) -> list:
+    """[(label, queries)] of a scan's join batches in LocalScanner's
+    order: the OS batch, then each application by (file path, type),
+    its dev packages dropped."""
+    from trivy_tpu_torch.detect.engine import BatchDetector
+    from trivy_tpu_torch.detect.langpkg import LangpkgScanner
+    from trivy_tpu_torch.detect.ospkg import OspkgScanner
+    det = BatchDetector(table, device="cuda")
+    out = []
+    if detail.os.detected:
+        qs, fin = OspkgScanner(det).prepare(detail.os, detail.repository,
+                                            detail.packages)
+        if fin is not None:
+            out.append(("os", qs))
+    for app in sorted(detail.applications,
+                      key=lambda a: (a.file_path, a.type)):
+        app.packages = [p for p in app.packages if not p.dev]
+        qs, _fin = LangpkgScanner(det).prepare_app(app)
+        out.append((app.file_path or app.type, qs))
+    return out
+
+
+def secret_rows(secret_files: list):
+    """A scan's secret candidates as the engine packs them → (the
+    deduplicated rows padded to a launch's row count, the bank, rows)."""
+    from trivy_tpu_torch.ops import ac, next_pow2
+    from trivy_tpu_torch.secret.engine import (CHUNK_LEN, DEVICE_ROWS,
+                                               SecretScanner)
+    bank = SecretScanner(device="cuda")._bank
+    chunks, _ = ac.pack_chunks([c for _, c in secret_files], CHUNK_LEN,
+                               bank.max_kw_len - 1)
+    chunks = np.unique(chunks, axis=0)
+    if chunks.shape[0] > DEVICE_ROWS:
+        raise AssertionError(f"{chunks.shape[0]} secret rows do not fit "
+                             f"one launch of {DEVICE_ROWS}")
+    padded = np.zeros((next_pow2(chunks.shape[0], floor=64), CHUNK_LEN),
+                      np.uint8)
+    padded[:chunks.shape[0]] = chunks
+    return padded, bank, int(chunks.shape[0])
+
+
+def recheck_pairs(torch, table, det, prep, bits) -> int:
+    """The pairs of a batch whose join bits carry NEEDS_RECHECK: exactly
+    the pairs on INEXACT rows, checked against the table's flags."""
+    from trivy_tpu_torch.ops import constants as C
+    got = (bits[:prep.n_pairs].cpu().numpy() & C.NEEDS_RECHECK) != 0
+    _q, rows = det.pair_owners(prep, np.arange(prep.n_pairs))
+    want = (table.flags[rows] & C.INEXACT) != 0
+    if not np.array_equal(got, want):
+        raise AssertionError(f"NEEDS_RECHECK on {int(got.sum())} pairs, "
+                             f"{int(want.sum())} lie on INEXACT rows")
+    return int(got.sum())
+
+
+def batch_kernels(torch, table, batches: list, label: str) -> tuple:
+    """The joins of one scan's batches, run in this process as the CLI
+    runs them (a fresh detector, one launch per batch with pairs, the
+    hit-buffer route the detector picks), then each batch's dense join
+    and each compacted batch's compacted join against their plain
+    versions, NEEDS_RECHECK against the rows' flags → (per-batch
+    figures, {kernel: [measurements]}, kernel ms of the routes taken)."""
+    from trivy_tpu_torch.detect.engine import BatchDetector
+    from trivy_tpu_torch.ops import join as J
+    det = BatchDetector(table, device="cuda")
+    routes = []
+    pick = det._hit_capacity
+
+    def record(t_pad):
+        h_cap = pick(t_pad)
+        routes.append(h_cap)
+        return h_cap
+    det._hit_capacity = record
+    hit_lists = det.detect_many([qs for _, qs in batches])
+    det._hit_capacity = pick
+    figures, at = [], {"csr_join": [], "csr_join_compact": []}
+    kernel_ms, i = 0.0, 0
+    for (name, qs), hits in zip(batches, hit_lists):
+        prep = det._prepare(qs) if qs else None
+        if prep is None or prep.n_pairs == 0:
+            figures.append({"batch": name, "queries": len(qs), "pairs": 0})
+            continue
+        h_cap = routes[i]
+        i += 1
+        dense = join_case(torch, table, det, prep, f"{label}_{name}")
+        args, prefix = join_inputs(torch, table, det, prep)
+        recheck = recheck_pairs(torch, table, det, prep, J.csr_join_cuda(
+            *args, prep.t_pad, prefix=prefix))
+        at["csr_join"].append({"batch": name, **dense})
+        if h_cap:
+            compact = compact_case(torch, table, det, prep, h_cap,
+                                   f"{label}_{name}")
+            at["csr_join_compact"].append({"batch": name, **compact})
+        kernel_ms += (compact if h_cap else dense)["ms"]
+        figures.append({"batch": name, "ecosystem": qs[0].ecosystem,
+                        "queries": len(qs), "pairs": prep.n_pairs,
+                        "t_pad": prep.t_pad,
+                        "route": "compacted" if h_cap else "dense",
+                        "h_cap": h_cap, "hits": len(hits),
+                        "recheck_pairs": recheck,
+                        "recheck_share": recheck / prep.n_pairs})
+    if i != len(routes):
+        raise AssertionError(f"{len(routes)} launches, {i} batches with "
+                             f"pairs")
+    if not at["csr_join_compact"]:
+        # no batch took the hit buffer: hold the compacted join on the
+        # largest batch at the smallest buffer all the same
+        name, qs = max(batches, key=lambda b: len(b[1]))
+        compact = compact_case(torch, table, det, det._prepare(qs), 128,
+                               f"{label}_{name}_h128")
+        at["csr_join_compact"].append({"batch": name, "forced": True,
+                                       **compact})
+    return figures, at, kernel_ms
+
+
+def _recheck_by_ecosystem(figures: list) -> dict:
+    out = {}
+    for f in figures:
+        if f.get("pairs"):
+            e = out.setdefault(f["ecosystem"], [0, 0])
+            e[0] += f["recheck_pairs"]
+            e[1] += f["pairs"]
+    return {eco: {"recheck_pairs": r, "pairs": n, "share": r / n}
+            for eco, (r, n) in sorted(out.items())}
+
+
+def vuln_results(report: dict) -> list:
+    """The report's OS- and language-package results."""
+    return [r for r in report.get("Results", [])
+            if r.get("Class") in ("os-pkgs", "lang-pkgs")]
+
+
+def _expect_launches(counts: dict, figures: list, what: str) -> None:
+    """One shift-or launch and one join launch per batch with pairs, on
+    the route the in-process run of the same batches took."""
+    launches = counts["launches"]
+    routes = [f["route"] for f in figures if f.get("pairs")]
+    want = {"shiftor": 1, "csr_join": routes.count("dense"),
+            "csr_join_compact": routes.count("compacted")}
+    if launches != want or counts["prefilter_path"] != {"cuda": 1}:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} "
+                             f"and one cuda prefilter")
+
+
+def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
+    """The checkout through `fs` and `repo` on the card and `fs --device
+    cpu --scanners vuln` as the reference → (launch counts of the fs
+    scan, the kernels on its inputs)."""
+    from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
+                                                 AnalyzerGroup)
+    from trivy_tpu_torch.fanal.applier import apply_layers
+    from trivy_tpu_torch.fanal.walker import blob_info, walk_fs
+    rng = np.random.default_rng(SEED + 4)
+    root = os.path.join(tmp, "checkout")
+    t0 = time.perf_counter()
+    files = checkout_files(rng, names)
+    for rel, data in files.items():
+        os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        with open(os.path.join(root, rel), "wb") as f:
+            f.write(data)
+    setup_s = time.perf_counter() - t0
+    expected = set(CHECKOUT_SECRETS.items())
+
+    scan = walk_fs(root, AnalyzerGroup(disabled=INDIVIDUAL_PKG_ANALYZERS),
+                   collect_secrets=True)
+    detail = apply_layers([blob_info(scan)])
+    dev = sum(p.dev for a in detail.applications for p in a.packages)
+    batches = scan_batches(table, detail)
+    padded, bank, rows = secret_rows(scan.secret_files)
+
+    common = ["--db", db, "--scanners", "vuln,secret"]
+    fs, fs_counts, fs_s = run_port_cli(["fs", root, *common])
+    repo, repo_counts, repo_s = run_port_cli(["repo", root, *common])
+    cpu, _cpu_counts, cpu_s = run_port_cli(
+        ["fs", root, "--db", db, "--scanners", "vuln", "--device", "cpu"])
+    for what, report in (("fs", fs), ("repo", repo)):
+        if vuln_results(report) != vuln_results(cpu):
+            raise AssertionError(f"{what}: the card's vulnerability "
+                                 f"results differ from the cpu reference")
+        if findings(report)[1] != expected:
+            raise AssertionError(f"{what} secrets "
+                                 f"{sorted(findings(report)[1])}")
+    figures, at_fs, kernel_ms = batch_kernels(torch, table, batches, "fs")
+    _expect_launches(fs_counts, figures, "fs")
+    _expect_launches(repo_counts, figures, "repo")
+    at_fs["shiftor"] = shiftor_case(torch, bank, padded, "fs")
+    kernel_ms += at_fs["shiftor"]["ms"]
+    vulns, secrets = findings(fs)
+    phase("fs", files=len(files), text_bytes=sum(
+        len(c) for _, c in scan.secret_files), secret_rows=rows,
+        applications=len(detail.applications),
+        packages=sum(len(a.packages) for a in detail.applications),
+        dev_dropped=dev, batches=figures,
+        recheck_by_ecosystem=_recheck_by_ecosystem(figures),
+        vulnerabilities=len(vulns), secrets=sorted(secrets),
+        setup_s=setup_s, wall_s_fs=fs_s, wall_s_repo=repo_s,
+        wall_s_cpu=cpu_s, kernel_ms=kernel_ms,
+        kernel_share=kernel_ms / 1e3 / fs_s, launches=fs_counts["launches"],
+        repo_launches=repo_counts["launches"],
+        prefilter_path=fs_counts["prefilter_path"])
+    return fs_counts["launches"], at_fs
+
+
+def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
+                           names: dict) -> tuple:
+    """The application image, gzip docker-save, cold and warm on the
+    card and cold with `--device cpu --scanners vuln` as the reference
+    → (launch counts of the cold scan, the kernels on its inputs)."""
+    from trivy_tpu_torch.fanal.fixtures import gz_bytes, write_docker_archive
+    rng = np.random.default_rng(SEED + 5)
+    t0 = time.perf_counter()
+    layers = image_apps_layers(rng, deb, names)
+    path = os.path.join(tmp, "apps-image.tar")
+    write_docker_archive(path, [gz_bytes(b, 6) for b in layers],
+                         _diff_ids(layers),
+                         repo_tags=("synthetic/apps:1",))
+    setup_s = time.perf_counter() - t0
+
+    detail, secret_files = walk_image(layers)
+    batches = scan_batches(table, detail)
+    padded, bank, rows = secret_rows(secret_files)
+    labels = [b for b, qs in batches if qs]
+    if labels != ["os", "gemspec", "jar", "node-pkg", "usr/local/bin/rtool",
+                  "usr/local/bin/svc"]:
+        raise AssertionError(f"image batches {labels}")
+
+    scan_args = ["image", "--input", path, "--db", db]
+    cache = ["--cache-dir", os.path.join(tmp, "apps-cache")]
+    cold, cold_counts, cold_s = run_port_cli(
+        scan_args + ["--scanners", "vuln,secret"] + cache)
+    warm, warm_counts, warm_s = run_port_cli(
+        scan_args + ["--scanners", "vuln,secret"] + cache)
+    cpu, _cpu_counts, cpu_s = run_port_cli(
+        scan_args + ["--scanners", "vuln", "--device", "cpu"])
+    if vuln_results(cold) != vuln_results(cpu):
+        raise AssertionError("image_apps: the card's vulnerability results "
+                             "differ from the cpu reference")
+    if {k: v for k, v in warm.items() if k != "CreatedAt"} != \
+            {k: v for k, v in cold.items() if k != "CreatedAt"}:
+        raise AssertionError("image_apps: the warm report differs")
+    vulns, secrets = findings(cold)
+    expected = set(IMAGE_APPS_SECRETS.items())
+    if secrets != expected:
+        raise AssertionError(f"image_apps secrets {sorted(secrets)}")
+    figures, at_apps, kernel_ms = batch_kernels(torch, table, batches,
+                                                "image_apps")
+    _expect_launches(cold_counts, figures, "image_apps")
+    at_apps["shiftor"] = shiftor_case(torch, bank, padded, "image_apps")
+    kernel_ms += at_apps["shiftor"]["ms"]
+    phase("image_apps", layers=len(layers), archive_bytes=os.path.getsize(
+        path), text_bytes=sum(len(c) for _, c in secret_files),
+        secret_rows=rows, packages=len(detail.packages),
+        applications={a.type: len(a.packages) for a in detail.applications},
+        batches=figures, recheck_by_ecosystem=_recheck_by_ecosystem(figures),
+        vulnerabilities=len(vulns), secrets=sorted(secrets),
+        setup_s=setup_s, wall_s_cold=cold_s, wall_s_warm=warm_s,
+        wall_s_cpu=cpu_s, kernel_ms=kernel_ms,
+        kernel_share_cold=kernel_ms / 1e3 / cold_s,
+        launches=cold_counts["launches"],
+        warm_launches=warm_counts["launches"],
+        prefilter_path=cold_counts["prefilter_path"])
+    return cold_counts["launches"], at_apps
+
+
+def run_language_phases(torch, tmp: str) -> tuple:
+    """The `fs` and `image_apps` phases over one apps table saved as
+    .npz → ({path: launch counts}, {path: kernels on its inputs})."""
+    from trivy_tpu_torch.db.table import AdvisoryTable
+    from trivy_tpu_torch.ops.constants import INEXACT
+    rng = np.random.default_rng(SEED + 6)
+    t0 = time.perf_counter()
+    table, deb, names = apps_table(rng)
+    db = os.path.join(tmp, "apps-table.npz")
+    table.save(db)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    AdvisoryTable.load(db)
+    load_s = time.perf_counter() - t0
+    lo, hi, flags, lo_pre, hi_pre = table.device_arrays(torch.device("cuda"))
+    phase("apps_table", rows=len(table), groups=len(table.groups),
+          inexact_rows=int(((table.flags & INEXACT) != 0).sum()),
+          device_bytes=sum(t.numel() * t.element_size()
+                           for t in (lo, hi, flags, lo_pre, hi_pre)),
+          npz_bytes=os.path.getsize(db), build_s=build_s, load_s=load_s)
+    fs_launches, at_fs = run_fs_at_size(torch, tmp, table, db, names)
+    apps_launches, at_apps = run_image_apps_at_size(torch, tmp, table, db,
+                                                    deb, names)
+    return ({"fs": fs_launches, "image_apps": apps_launches},
+            {"at_fs": at_fs, "at_image_apps": at_apps})
 
 
 def main() -> int:
@@ -1145,10 +1662,12 @@ def main() -> int:
         launches = run_rootfs(root, expected_secrets)
         fixture_launches = run_image_fixture(tmp)
         image_launches, at_image = run_image_at_size(torch, tmp)
+        language_launches, at_language = run_language_phases(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_path = {"rootfs": launches, "detect": detect_launches,
-               "image_fixture": fixture_launches, "image": image_launches}
+               "image_fixture": fixture_launches, "image": image_launches,
+               **language_launches}
     rows = []
     for name, source, replaces in KERNELS[:2]:
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -1163,6 +1682,8 @@ def main() -> int:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
         row["at_image"] = at_image[row["name"]]
+        for at, kernels_at in at_language.items():
+            row[at] = kernels_at[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

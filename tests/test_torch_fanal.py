@@ -27,7 +27,8 @@ from trivy_tpu_torch.fanal import walker as port_walker
 from trivy_tpu_torch.fanal.artifact import ImageArchiveArtifact
 
 PORT_GROUP = port_an.AnalyzerGroup(disabled=port_an.LOCKFILE_ANALYZERS)
-PORT_NAMES = {a.name for a in PORT_GROUP.analyzers}
+PORT_NAMES = {a.name for a in PORT_GROUP.analyzers
+              + PORT_GROUP.post_analyzers}
 # the JAX group restricted to the analyzers the port has
 REF_GROUP = ref_an.AnalyzerGroup(disabled=tuple(
     (set(ref_an.all_analyzers()) | set(ref_an._POST_REGISTRY))

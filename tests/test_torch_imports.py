@@ -29,6 +29,11 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "trivy_tpu"))
+need = ["trivy_tpu_torch." + m for m in (
+    "jsonpos", "javadb", "fanal.analyzers.lockfiles",
+    "fanal.analyzers.lockfiles_extra", "fanal.analyzers.binaries",
+    "fanal.analyzers.python")]
+bad += [m for m in need if m not in names]
 print(len(names), bad)
 """
 
@@ -66,6 +71,10 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
                  lambda: BatchDetector(table),
                  lambda: LocalScanner(MemoryCache(), table),
                  lambda: cli.main(["rootfs", str(tmp_path),
+                                   "--scanners", "secret"]),
+                 lambda: cli.main(["fs", str(tmp_path),
+                                   "--scanners", "secret"]),
+                 lambda: cli.main(["repo", str(tmp_path),
                                    "--scanners", "secret"]),
                  lambda: cli.main(["image", "--input", image,
                                    "--scanners", "secret"])):

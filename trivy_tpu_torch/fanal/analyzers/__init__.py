@@ -4,8 +4,11 @@ Mirrors pkg/fanal/analyzer/analyzer.go: each analyzer declares the paths
 it needs (`required`) and produces a partial AnalysisResult; the group
 merges results. Analyzer versions participate in cache keys so cached
 blobs invalidate when an analyzer changes (pkg/fanal/cache/key.go:18-60).
-The port registers the OS-release, apk, dpkg, rpm, Red Hat and Python
-packaging analyzers."""
+The port registers the OS-release, apk, dpkg, rpm and Red Hat analyzers,
+the language lockfile analyzers (lockfiles.py, lockfiles_extra.py, pip)
+and the installed-package ones (python-pkg, conda-pkg, gobinary, jar,
+node-pkg, gemspec, rustbinary). license-file, executable, sbom and
+misconf are not ported."""
 
 from __future__ import annotations
 
@@ -92,7 +95,8 @@ def register_post(cls):
 
 
 def _ensure_loaded():
-    from . import apk, dpkg, os_release, python, redhat, rpm  # noqa: F401
+    from . import (apk, binaries, dpkg, lockfiles,  # noqa: F401
+                   lockfiles_extra, os_release, python, redhat, rpm)
 
 
 # analyzers that are opt-in everywhere (reference: license scanning is
@@ -100,12 +104,20 @@ def _ensure_loaded():
 # caller lists them in `enabled`
 OPTIN_ANALYZERS = ("license-file", "executable")
 
-# lockfile analyzers, which image and rootfs scans disable (reference
-# run.go:167-224, const.go TypeLockfiles)
+# analyzer groups disabled per target kind (reference run.go:167-224:
+# image disables lockfiles; fs disables individual-package + SBOM;
+# rootfs disables lockfiles; repo disables OS + individual + SBOM;
+# const.go TypeIndividualPkgs / TypeLockfiles / TypeOSes)
+INDIVIDUAL_PKG_ANALYZERS = ("gemspec", "node-pkg", "conda-pkg",
+                            "python-pkg", "gobinary", "jar", "rustbinary")
 LOCKFILE_ANALYZERS = ("bundler", "npm", "yarn", "pnpm", "pip", "pipenv",
                       "poetry", "gomod", "pom", "conan",
                       "gradle-lockfile", "cocoapods", "swift", "pub",
                       "mix-lock")
+OS_ANALYZERS = ("os-release", "alpine", "amazonlinux", "mariner",
+                "debian", "redhatbase", "ubuntu", "apk", "dpkg", "rpm",
+                "rpmqa", "apk-repo", "redhat-content-manifest",
+                "redhat-dockerfile")
 
 
 class AnalyzerGroup:

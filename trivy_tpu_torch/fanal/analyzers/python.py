@@ -1,9 +1,8 @@
-"""Python installed-package analyzer.
+"""Python installed-package analyzers.
 
-Mirrors pkg/fanal/analyzer/language/python/packaging: egg/wheel
-METADATA → Application type "python-pkg". The pip lockfile analyzer is
-a lockfile analyzer, which image and rootfs scans disable, so it is not
-ported yet."""
+Mirrors pkg/fanal/analyzer/language/python/packaging (egg/wheel METADATA →
+Application type "python-pkg") and the pip lockfile analyzer
+(requirements.txt → type "pip")."""
 
 from __future__ import annotations
 
@@ -44,3 +43,28 @@ class PythonPackagingAnalyzer(Analyzer):
         return AnalysisResult(applications=[
             T.Application(type="python-pkg", file_path=path, packages=[pkg])])
 
+
+_REQ_LINE = re.compile(r"^([A-Za-z0-9._-]+)\s*==\s*([A-Za-z0-9._!+-]+)")
+
+
+@register
+class PipRequirementsAnalyzer(Analyzer):
+    name = "pip"
+    version = 1
+
+    def required(self, path: str, size: int = -1) -> bool:
+        return path.endswith("requirements.txt")
+
+    def analyze(self, path: str, content: bytes) -> Optional[AnalysisResult]:
+        pkgs = []
+        for line in content.decode(errors="replace").splitlines():
+            m = _REQ_LINE.match(line.strip())
+            if m:
+                # requirements.txt entries carry no lockfile identity:
+                # the reference pip parser leaves ID empty
+                # (pip.json.golden packages have no "ID")
+                pkgs.append(T.Package(name=m.group(1), version=m.group(2)))
+        if not pkgs:
+            return None
+        return AnalysisResult(applications=[
+            T.Application(type="pip", file_path=path, packages=pkgs)])

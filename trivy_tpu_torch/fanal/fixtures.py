@@ -1,7 +1,10 @@
 """Deterministic image archive builders: docker-save tarballs and OCI
 image layouts, from layer blobs built with `tar_bytes` (and gzipped
 with `gz_bytes` where wanted). Zeroed tar/gzip mtimes keep the bytes
-reproducible, so the same seed gives the same image ids.
+reproducible, so the same seed gives the same image ids. Also the bytes
+of binaries the analyzers identify: a Go binary with inline build info
+(`go_binary_bytes`) and a cargo-auditable Rust binary
+(`rust_audit_elf`).
 
 The docker-save layout is the JAX package's (fanal/fixtures.py) byte for
 byte, so an archive written here scans to the same report in both
@@ -13,7 +16,9 @@ import gzip
 import hashlib
 import io
 import json
+import struct
 import tarfile
+import zlib
 
 
 def tar_bytes(files: dict) -> bytes:
@@ -118,3 +123,53 @@ def write_oci_layout(path: str, layer_blobs: list[bytes],
                        b'{"imageLayoutVersion": "1.0.0"}'),
                       ("index.json", json.dumps(index).encode())]
                + [(f"blobs/sha256/{d}", b) for d, b in blobs.items()])
+
+
+def _varint(n: int) -> bytes:
+    out = b""
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if not n:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def go_binary_bytes(deps, main: str = "example.com/app",
+                    go_version: str = "go1.21.5") -> bytes:
+    """An ELF whose Go >= 1.18 inline build info (the `\\xff Go
+    buildinf:` header with flags bit 2, then two varint-prefixed
+    strings) lists `deps`, [(module, version)], as `dep` lines."""
+    modinfo = "\n".join(
+        [f"path\t{main}", f"mod\t{main}\t(devel)\t"]
+        + [f"dep\t{name}\t{version}\th1:abc=" for name, version in deps])
+    info = (b"\xff Go buildinf:" + b"\x08" + b"\x02" + b"\x00" * 16
+            + _varint(len(go_version)) + go_version.encode()
+            + _varint(len(modinfo.encode())) + modinfo.encode())
+    return b"\x7fELF" + b"\x00" * 100 + info + b"\x00" * 50
+
+
+def rust_audit_elf(packages) -> bytes:
+    """An ELF64 with a `.dep-v0` section holding the zlib-compressed
+    cargo-auditable JSON of `packages`, [{name, version, source, kind}]
+    (the root crate has source "local")."""
+    payload = zlib.compress(json.dumps({"packages": list(packages)})
+                            .encode())
+    names = b"\x00.shstrtab\x00.dep-v0\x00"
+    names_off = 64
+    payload_off = names_off + len(names)
+    shoff = payload_off + len(payload)
+    ehdr = bytearray(64)
+    ehdr[:4] = b"\x7fELF"
+    ehdr[4] = 2  # 64-bit
+    ehdr[5] = 1  # little-endian
+    struct.pack_into("<Q", ehdr, 0x28, shoff)
+    struct.pack_into("<HHH", ehdr, 0x3A, 64, 3, 1)  # entsize, num, strndx
+
+    def shdr(name, off, size):
+        b = bytearray(64)
+        struct.pack_into("<IIQQQQ", b, 0, name, 0, 0, 0, off, size)
+        return bytes(b)
+    return (bytes(ehdr) + names + payload + shdr(0, 0, 0)
+            + shdr(1, names_off, len(names))
+            + shdr(11, payload_off, len(payload)))

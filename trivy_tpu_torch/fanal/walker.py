@@ -190,24 +190,40 @@ def _norm_rel(path: str) -> str:
 
 
 def walk_fs(root: str, group: AnalyzerGroup,
-            collect_secrets: bool = False) -> BlobScan:
+            collect_secrets: bool = False,
+            secret_config_path: str = DEFAULT_SECRET_CONFIG,
+            skip_files: tuple = (), skip_dir_globs: tuple = ()
+            ) -> BlobScan:
     """Walk a directory tree through the analyzers; per-file results
-    merge in sorted path order so the output is deterministic."""
+    merge in sorted path order so the output is deterministic. The skip
+    globs match root-relative paths; the walk-relative
+    `secret_config_path` is never a secret candidate."""
     scan = BlobScan(result=AnalysisResult())
     root = os.path.abspath(root)
+    skip_files = normalize_skip_globs(skip_files)
+    skip_dir_globs = normalize_skip_globs(skip_dir_globs)
     outputs = []
     for dirpath, dirnames, filenames in os.walk(root):
         dirnames[:] = [d for d in dirnames if d != ".git"]
+        reldir = os.path.relpath(dirpath, root).replace(os.sep, "/")
+        if skip_dir_globs:
+            # --skip-dirs matches walked relative paths (walker.go)
+            dirnames[:] = [d for d in dirnames
+                           if not skip_match(_norm_rel(f"{reldir}/{d}"),
+                                             skip_dir_globs)]
         for fn in sorted(filenames):
             full = os.path.join(dirpath, fn)
             rel = os.path.relpath(full, root).replace(os.sep, "/")
+            if skip_files and skip_match(rel, skip_files):
+                continue
             try:
                 size = os.path.getsize(full)
             except OSError:
                 continue
             wants = group.required(rel, size)
             wants_post = group.post_required(rel, size)
-            wants_secret = collect_secrets and secret_candidate(rel, size)
+            wants_secret = collect_secrets and secret_candidate(
+                rel, size, secret_config_path)
             if not (wants or wants_post or wants_secret):
                 continue
             try:

@@ -60,6 +60,11 @@ class LocalScanner:
             # Family "none" (reference local/scan.go:66-71)
             if not detail.os.detected and detail.packages:
                 detail.os = T.OS(family=T.OSFamily.NONE)
+            # dev dependencies are removed unless --include-dev-deps
+            # (reference local/scan.go:109-111 excludeDevDeps)
+            if not options.include_dev_deps:
+                for app in detail.applications:
+                    app.packages = [p for p in app.packages if not p.dev]
             details.append(detail)
 
         # phase 1: every query batch (host)

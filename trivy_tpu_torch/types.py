@@ -499,3 +499,4 @@ class ScanOptions:
     pkg_types: tuple = ("os", "library")
     scanners: tuple = (Scanner.VULN,)
     list_all_packages: bool = False
+    include_dev_deps: bool = False
