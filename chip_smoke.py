@@ -54,9 +54,12 @@ Phases, one JSON line each; any failure exits non-zero:
            packages, ~61 MiB of text with planted tokens, a whiteout and
            an opaque dir) against a bench-shaped table of ~205k rows
            (Debian 12, a 4,000-row linux bucket, pip), as an .npz. Cold
-           and warm (--cache-dir) on the card, cold with --device cpu
-           as the reference (equal reports apart from CreatedAt), and
-           the same layers as an OCI layout (equal results). Expects one
+           and warm (--cache-dir) on the card (equal reports apart
+           from CreatedAt), cold with --device cpu --scanners vuln as
+           the reference (equal vulnerability results; the secret lane
+           is held by shift-or against its plain version on the image's
+           rows), and the same layers as an OCI layout (equal results).
+           Expects one
            shift-or launch for the whole image, a join launch, exactly
            the surviving planted secrets; then each kernel on the very
            inputs this image hands it, against its plain version.
@@ -88,10 +91,32 @@ Phases, one JSON line each; any failure exits non-zero:
            the reference, with the same checks and figures as fs: one
            OS batch, the node-pkg, jar and gemspec batches, the Go and
            the Rust binary's.
+  ci       the CI command line on the fs checkout: the apps table's
+           advisories written by this script as a trivy.db (BoltDB:
+           source → package → vulnerability id → JSON, with the
+           `vulnerability` and `data-source` buckets) and `fs --db
+           trivy.db --scanners vuln,secret --severity HIGH,CRITICAL
+           --ignore-unfixed --exit-code 1 --vex vex.json` from a
+           directory that holds a .trivyignore.yaml (an entry that
+           ignores everywhere, an expired one, one scoped to a path, a
+           secret rule): first as SARIF, flattening the bolt file
+           (flatten_s, rows), then as JSON from the memo (its load
+           time), then the same flags from trivy.yaml and TRIVY_* env
+           with --cache-dir and --skip-db-update and a template, then
+           with --device cpu --scanners vuln as the reference (equal
+           vulnerability results), then with a stricter ignore file
+           (exit code 0). Checks the exit codes, the surviving findings
+           against the filters worked out here stage by stage (VEX,
+           severity, unfixed, ignore file), `convert` of the JSON report
+           into table, SARIF, GitHub, cosign-vuln and the template
+           without a table load against the direct reports, one
+           shift-or launch and one join launch per batch, and each join
+           kernel on the flattened table's batches against its plain
+           version.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
-the language phases' under "at_fs" and "at_image_apps";
+the language phases' under "at_fs", "at_image_apps" and "at_ci";
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -746,13 +771,21 @@ FIXTURE_DB = os.path.join(REPO, "tests/fixtures/db/*.yaml")
 
 def run_port_cli(args: list) -> tuple:
     """`python -m trivy_tpu_torch <args> --format json --debug-launches`
-    in a fresh process (so its launch counts start at 0) → (report,
-    {"launches", "prefilter_path"}, wall seconds)."""
+    in a fresh process (so its launch counts start at 0), with a cache
+    dir of its own unless `args` name one → (report, {"launches",
+    "prefilter_path"}, wall seconds)."""
+    cache = None if "--cache-dir" in args else \
+        tempfile.mkdtemp(prefix="chip_smoke_cache_")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "trivy_tpu_torch", *args, "--format", "json",
-         "--debug-launches"], cwd=REPO, capture_output=True, text=True,
-        timeout=900)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "trivy_tpu_torch", *args, "--format",
+             "json", "--debug-launches",
+             *(["--cache-dir", cache] if cache else [])],
+            cwd=REPO, capture_output=True, text=True, timeout=900)
+    finally:
+        if cache:
+            shutil.rmtree(cache, ignore_errors=True)
     wall_s = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"{' '.join(args[:2])} failed "
@@ -1004,7 +1037,9 @@ def compact_case(torch, table, det, prep, h_cap: int, label: str) -> dict:
 def run_image_at_size(torch, tmp: str) -> tuple:
     """The synthetic Debian 12 image, gzip docker-save and OCI layout,
     through `image --input`: cold and warm on the card, cold with
-    --device cpu as the reference, and the OCI layout cold on the card;
+    --device cpu --scanners vuln as the reference (the secret lane's
+    reference is shift-or's plain version on the image's rows, below),
+    and the OCI layout cold on the card;
     then the kernels on the very inputs this image hands them → (launch
     counts of the cold cuda scan, the kernels' measurements)."""
     from trivy_tpu_torch.db.table import AdvisoryTable
@@ -1045,7 +1080,9 @@ def run_image_at_size(torch, tmp: str) -> tuple:
     cache = ["--cache-dir", os.path.join(tmp, "image-cache")]
     cold, cold_counts, cold_s = run_port_cli(scan + cache)
     warm, warm_counts, warm_s = run_port_cli(scan + cache)
-    cpu, _cpu_counts, cpu_s = run_port_cli(scan + ["--device", "cpu"])
+    cpu, _cpu_counts, cpu_s = run_port_cli(
+        ["image", "--input", docker, "--db", db, "--scanners", "vuln",
+         "--device", "cpu"])
     oci_report, _oci_counts, oci_s = run_port_cli(
         ["image", "--input", oci, "--db", db, "--scanners", "vuln,secret",
          "--cache-dir", os.path.join(tmp, "oci-cache")])
@@ -1053,8 +1090,9 @@ def run_image_at_size(torch, tmp: str) -> tuple:
     def body(report):   # the report as written, CreatedAt left out
         return json.dumps({k: v for k, v in report.items()
                            if k != "CreatedAt"}, indent=2)
-    if body(cold) != body(cpu):
-        raise AssertionError("the cuda and cpu reports differ")
+    if vuln_results(cold) != vuln_results(cpu):
+        raise AssertionError("the cuda and cpu vulnerability results "
+                             "differ")
     if body(warm) != body(cold):
         raise AssertionError("the warm-cache report differs from the cold")
     if layerless_results(oci_report) != layerless_results(cold):
@@ -1137,10 +1175,11 @@ def _lang_range(rng, eco: str, fix: str) -> str:
 
 
 def apps_table(rng):
-    """The table both language phases scan against: Debian 12 (22,000
+    """The table the language phases scan against: Debian 12 (22,000
     source names and the 4,000-row `linux` bucket) and eight language
     ecosystems, each under its own GitHub Security Advisory source,
-    bench-shaped → (table, debian names, {ecosystem: names})."""
+    bench-shaped → (table, debian names, {ecosystem: names}, the raw
+    advisories)."""
     from trivy_tpu_torch.db.table import RawAdvisory, build_table
     deb = [f"src{i:05d}" for i in range(22_000)]
     raw = _debian_rows(rng, deb)
@@ -1153,7 +1192,7 @@ def apps_table(rng):
             vuln_id=f"GHSA-{eco}-{name[-5:]}-{j:04d}",
             vulnerable_ranges=_lang_range(rng, eco, fix)))
     raw += _linux_rows(rng)
-    return build_table(raw), deb, names
+    return build_table(raw), deb, names, raw
 
 
 def _installed(rng, prefix: str = "") -> str:
@@ -1470,7 +1509,8 @@ def _expect_launches(counts: dict, figures: list, what: str) -> None:
 def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
     """The checkout through `fs` and `repo` on the card and `fs --device
     cpu --scanners vuln` as the reference → (launch counts of the fs
-    scan, the kernels on its inputs)."""
+    scan, the kernels on its inputs, the checkout's root, the fs report,
+    its detail, its secret rows and bank)."""
     from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
                                                  AnalyzerGroup)
     from trivy_tpu_torch.fanal.applier import apply_layers
@@ -1523,7 +1563,7 @@ def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
         kernel_share=kernel_ms / 1e3 / fs_s, launches=fs_counts["launches"],
         repo_launches=repo_counts["launches"],
         prefilter_path=fs_counts["prefilter_path"])
-    return fs_counts["launches"], at_fs
+    return fs_counts["launches"], at_fs, root, fs, detail, (padded, bank)
 
 
 def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
@@ -1587,31 +1627,485 @@ def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
     return cold_counts["launches"], at_apps
 
 
+# --- the ci phase: the CI command line over a trivy.db -----------------
+
+BOLT_PAGE = 4096
+DATA_SOURCES = {"debian": ("debian", "Debian Security Tracker",
+                           "https://salsa.debian.org/security-tracker-team/"
+                           "security-tracker"),
+                "ghsa": ("ghsa", "GitHub Security Advisory {}",
+                         "https://github.com/advisories?query=type%3A"
+                         "reviewed+ecosystem%3A{}")}
+CI_NOW = "2026-10-17T00:00:00Z"
+CI_TEMPLATE = """\
+{{- range . }}{{ .Target }} [{{ .Class }}/{{ .Type }}]
+{{- range .Vulnerabilities }}
+  {{ .VulnerabilityID }} {{ .PkgName }}@{{ .InstalledVersion }} -> \
+{{ .FixedVersion }} {{ .Severity }} {{ .Title | escapeXML }}
+{{- end }}
+{{- range .Secrets }}
+  {{ .RuleID }} {{ .Severity }} line {{ .StartLine }}
+{{- end }}
+{{ end }}"""
+
+
+def advisory_tree(raw: list, rng) -> dict:
+    """The advisories as trivy-db holds them: source → package →
+    vulnerability id → advisory JSON, plus the `vulnerability` bucket
+    (a title and a severity for each language advisory; Debian rows
+    carry their own severity) and the `data-source` bucket."""
+    sev_index = {s: i + 1 for i, s in enumerate(SEVERITIES)}
+    tree, details, sources = {}, {}, {}
+    for adv in raw:
+        if adv.vulnerable_ranges:
+            value = {"VulnerableVersions": [adv.vulnerable_ranges]}
+            eco = adv.source.rsplit(" ", 1)[-1]
+            details[adv.vuln_id] = json.dumps({
+                "Title": f"{adv.pkg_name}: advisory {adv.vuln_id[-4:]}",
+                "Severity": SEVERITIES[int(rng.integers(0, 4))]}).encode()
+            ident, name, url = DATA_SOURCES["ghsa"]
+            sources[adv.source] = (ident, name.format(eco),
+                                   url.format(eco.lower()))
+        else:
+            value = {"FixedVersion": adv.fixed_version,
+                     "Severity": sev_index[adv.severity]}
+            sources[adv.source] = DATA_SOURCES["debian"]
+        tree.setdefault(adv.source, {}).setdefault(adv.pkg_name, {})[
+            adv.vuln_id] = json.dumps(value).encode()
+    tree["vulnerability"] = details
+    tree["data-source"] = {
+        src: json.dumps({"ID": i, "Name": n, "URL": u}).encode()
+        for src, (i, n, u) in sources.items()}
+    return tree
+
+
+def write_bolt_file(path: str, tree: dict, page_size: int = BOLT_PAGE) -> int:
+    """`tree` ({name: sub-tree or bytes}) as a bbolt file → its size:
+    two meta pages, a freelist page, then leaf and branch pages with
+    overflow, nested buckets, and buckets inlined into their parent's
+    leaf when they hold no sub-bucket and fit a quarter page (bbolt's
+    rule). The read side is trivy_tpu_torch/db/boltdb.py."""
+    import struct
+    hdr, meta = struct.Struct("<QHHI"), struct.Struct("<IIIIQQQQQ")
+    leaf, branch, bucket = (struct.Struct("<IIII"), struct.Struct("<IIQ"),
+                            struct.Struct("<QQ"))
+    buf = bytearray(3 * page_size)
+
+    def image(flags: int, items: list, elem, pgid: int) -> bytes:
+        """A page: header, elements (pos relative to each element), then
+        each key and value."""
+        n = len(items)
+        elems, data = bytearray(), bytearray()
+        off = hdr.size + n * elem.size
+        for i, (k, v, fields) in enumerate(items):
+            elems += elem.pack(*fields(off - hdr.size - i * elem.size))
+            data += k + v
+            off += len(k) + len(v)
+        body = bytes(elems) + bytes(data)
+        pages = -(-(hdr.size + len(body)) // page_size)
+        return hdr.pack(pgid, flags, n, pages - 1) + body
+
+    def put(flags: int, items: list, elem) -> int:
+        pgid = len(buf) // page_size
+        img = image(flags, items, elem, pgid)
+        buf.extend(img + bytes(-len(img) % page_size))
+        return pgid
+
+    def split(items: list, elem) -> list:
+        groups, cur, size = [], [], hdr.size
+        for it in items:
+            add = elem.size + len(it[0]) + len(it[1])
+            if cur and size + add > page_size:
+                groups.append(cur)
+                cur, size = [], hdr.size
+            cur.append(it)
+            size += add
+        return groups + [cur]
+
+    def leaf_items(entries) -> list:
+        return [(k, v, lambda pos, k=k, v=v, fl=fl:
+                 (fl, pos, len(k), len(v))) for k, v, fl in entries]
+
+    def build(node: dict, root: bool = False) -> bytes:
+        """→ the bucket's value in its parent's leaf."""
+        entries = []
+        for key in sorted(node, key=lambda x: x.encode()):
+            val = node[key]
+            if isinstance(val, dict):
+                entries.append((key.encode(), build(val), 1))
+            else:
+                entries.append((key.encode(), val, 0))
+        size = hdr.size + sum(leaf.size + len(k) + len(v)
+                              for k, v, _ in entries)
+        if not root and all(fl == 0 for *_x, fl in entries) and \
+                bucket.size + size <= page_size // 4:
+            return bucket.pack(0, 0) + image(0x02, leaf_items(entries),
+                                             leaf, 0)
+        level = [(group[0][0], put(0x02, leaf_items(group), leaf))
+                 for group in split(entries, leaf)]
+        while len(level) > 1:
+            items = [(k, b"", lambda pos, k=k, pg=pg: (pos, len(k), pg))
+                     for k, pg in level]
+            level = [(group[0][0], put(0x01, group, branch))
+                     for group in split(items, branch)]
+        return bucket.pack(level[0][1], 0)
+
+    root_pgid, _ = bucket.unpack_from(build(tree, root=True))
+    n_pages = len(buf) // page_size
+    for pgid in (0, 1):
+        body = meta.pack(0xED0CDAED, 2, page_size, 0, root_pgid, 0, 2,
+                         n_pages, pgid)
+        h = 0xCBF29CE484222325
+        for byte in body:
+            h = ((h ^ byte) * 0x100000001B3) & ((1 << 64) - 1)
+        page = hdr.pack(pgid, 0x04, 0, 0) + body + struct.pack("<Q", h)
+        buf[pgid * page_size:pgid * page_size + len(page)] = page
+    free = hdr.pack(2, 0x10, 0, 0)
+    buf[2 * page_size:2 * page_size + len(free)] = free
+    with open(path, "wb") as f:
+        f.write(buf)
+    return len(buf)
+
+
+def run_ci_cli(args: list, cwd: str, env: dict | None = None,
+               rc: int = 0) -> tuple:
+    """`python -m trivy_tpu_torch <args> --debug-launches` from `cwd`, as
+    a CI job runs it → ({"table", "launches", "prefilter_path"}, wall
+    seconds). Fails unless it exits with `rc`."""
+    full_env = dict(os.environ, **(env or {}), TRIVY_TPU_FAKE_NOW=CI_NOW)
+    full_env["PYTHONPATH"] = REPO + os.pathsep + full_env.get(
+        "PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "trivy_tpu_torch", *args, "--debug-launches"],
+        cwd=cwd, env=full_env, capture_output=True, text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != rc:
+        raise AssertionError(f"ci {' '.join(args[:2])}: exit "
+                             f"{proc.returncode}, expected {rc}:\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stderr.strip().splitlines()
+    return {**json.loads(lines[-2]), **json.loads(lines[-1])}, wall_s
+
+
+def ci_files(report: dict, severity: dict) -> tuple:
+    """The ignore file and the OpenVEX document of the ci phase, chosen
+    from the findings of the checkout's unfiltered report that pass the
+    severity and unfixed filters → (.trivyignore.yaml text, OpenVEX doc,
+    the entries as (kind, id, scope))."""
+    first = {}
+    for r in report["Results"]:
+        for v in r.get("Vulnerabilities", []):
+            if v.get("FixedVersion") and severity.get(
+                    v["VulnerabilityID"]) in ("HIGH", "CRITICAL"):
+                first.setdefault(v["VulnerabilityID"], (
+                    v.get("PkgPath") or r["Target"], v["VulnerabilityID"],
+                    v.get("PkgIdentifier", {}).get("PURL", "")))
+    vulns = sorted(first.values())
+    pick = vulns[::max(len(vulns) // 8, 1)][:7]
+    secret_target = next(r["Target"] for r in report["Results"]
+                         if any(s["RuleID"] == AWS
+                                for s in r.get("Secrets", [])))
+    entries = [("ignore", pick[0][1], None),         # everywhere
+               ("kept", pick[1][1], None),           # expired
+               ("ignore", pick[2][1], pick[2][0]),   # its own path
+               ("kept", pick[3][1], "no/such/dir/*"),  # another path
+               ("vex", pick[4][1], pick[4][2].split("?")[0]),  # by purl
+               ("kept", pick[5][1], None),           # status affected
+               ("vex", pick[6][1], None)]            # every package
+    ignore = (
+        "vulnerabilities:\n"
+        f"  - id: {entries[0][1]}\n"
+        "    statement: not reachable from the service\n"
+        f"  - id: {entries[1][1]}\n    expired_at: 2020-01-01\n"
+        f"  - id: {entries[2][1]}\n    paths: [\"{entries[2][2]}\"]\n"
+        f"  - id: {entries[3][1]}\n    paths: [\"{entries[3][2]}\"]\n"
+        "secrets:\n"
+        f"  - id: {AWS}\n    paths: [\"{secret_target}\"]\n")
+    vex = {"@context": "https://openvex.dev/ns/v0.2.0",
+           "@id": "https://example.com/vex/ci-1", "author": "ci",
+           "timestamp": CI_NOW, "version": 1, "statements": [
+               {"vulnerability": {"name": entries[4][1]},
+                "products": [{"@id": entries[4][2]}],
+                "status": "not_affected",
+                "justification": "vulnerable_code_not_in_execute_path"},
+               {"vulnerability": {"name": entries[5][1]},
+                "status": "affected"},
+               {"vulnerability": {"name": entries[6][1]},
+                "status": "fixed"}]}
+    return ignore, vex, entries, (secret_target, AWS)
+
+
+def expected_after_filters(report: dict, severity: dict, entries: list
+                           ) -> tuple:
+    """The ci command line's filters worked out here from the unfiltered
+    report, in the reference's order (VEX, then severity, unfixed and
+    the ignore file) → ({(target, id, package, version)} surviving,
+    {stage: findings it removed})."""
+    def hit(kind, path, vid, purl):
+        return any(k == kind and i == vid and scope in (None, path, purl)
+                   for k, i, scope in entries)
+    removed = {"vex": 0, "severity": 0, "unfixed": 0, "ignorefile": 0}
+    keep = set()
+    for r in report["Results"]:
+        for v in r.get("Vulnerabilities", []):
+            vid = v["VulnerabilityID"]
+            path = v.get("PkgPath") or r["Target"]
+            purl = v.get("PkgIdentifier", {}).get("PURL", "").split("?")[0]
+            if hit("vex", path, vid, purl):
+                removed["vex"] += 1
+            elif severity.get(vid, "UNKNOWN") not in ("HIGH", "CRITICAL"):
+                removed["severity"] += 1
+            elif not v.get("FixedVersion"):
+                removed["unfixed"] += 1
+            elif hit("ignore", path, vid, purl):
+                removed["ignorefile"] += 1
+            else:
+                keep.add((r["Target"], vid, v["PkgName"],
+                          v["InstalledVersion"]))
+    return keep, removed
+
+
+def _vuln_keys(report: dict) -> set:
+    return {(r["Target"], v["VulnerabilityID"], v["PkgName"],
+             v["InstalledVersion"]) for r in report.get("Results", [])
+            for v in r.get("Vulnerabilities", [])}
+
+
+def _convert_view(fmt: str, text: str):
+    """What of a report survives `convert`, in the reference too: the
+    table, SARIF and template bytes; GitHub's and cosign-vuln's document
+    apart from the app version (convert writes "dev"); and of the report
+    that cosign-vuln embeds, the fields `report_from_json` decodes."""
+    if fmt in ("table", "sarif", "template"):
+        return text
+    doc = json.loads(text)
+    if fmt == "github":
+        doc["detector"].pop("version")
+        return doc
+    doc["scanner"].pop("uri")
+    doc["scanner"].pop("version")
+    result = doc["scanner"].pop("result")
+    doc["results"] = [
+        (r["Target"], r.get("Class"), [
+            (v["VulnerabilityID"], v["PkgName"], v["InstalledVersion"],
+             v.get("FixedVersion", ""), v.get("Severity"), v.get("Title", ""))
+            for v in r.get("Vulnerabilities", [])],
+         [(s["RuleID"], s.get("StartLine")) for s in r.get("Secrets", [])])
+        for r in result.get("Results", [])]
+    return doc
+
+
+def run_ci_at_size(torch, tmp: str, raw: list, rows: int, root: str,
+                   fs_report: dict, detail, fs_rows: tuple) -> tuple:
+    """The CI command line on the fs phase's checkout against the apps
+    advisories written as a trivy.db → (launch counts of the first run,
+    the kernels on its inputs: the joins on its batches, shift-or on
+    the checkout's secret rows and bank `fs_rows`)."""
+    from trivy_tpu_torch.__main__ import main as port_main
+    rng = np.random.default_rng(SEED + 7)
+    base = os.path.join(tmp, "ci")
+    cache, work, work_cfg = (os.path.join(base, d)
+                             for d in ("cache", "work", "work-config"))
+    for d in (os.path.join(cache, "db"), work, work_cfg):
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    tree = advisory_tree(raw, rng)
+    bolt = os.path.join(cache, "db", "trivy.db")
+    bolt_bytes = write_bolt_file(bolt, tree)
+    bolt_s = time.perf_counter() - t0
+    with open(os.path.join(cache, "db", "metadata.json"), "w") as f:
+        json.dump({"Version": 2, "NextUpdate": "2999-01-01T00:00:00Z",
+                   "UpdatedAt": CI_NOW, "DownloadedAt": CI_NOW}, f)
+    severity = {vid: json.loads(v)["Severity"]
+                for vid, v in tree["vulnerability"].items()}
+    ignore, vex, entries, secret_ignored = ci_files(fs_report, severity)
+    for d in (work, work_cfg):
+        with open(os.path.join(d, ".trivyignore.yaml"), "w") as f:
+            f.write(ignore)
+        with open(os.path.join(d, "vex.json"), "w") as f:
+            json.dump(vex, f)
+    with open(os.path.join(work_cfg, "ci.tpl"), "w") as f:
+        f.write(CI_TEMPLATE)
+    with open(os.path.join(work_cfg, "trivy.yaml"), "w") as f:
+        f.write("scan:\n  scanners: [vuln, secret]\n"
+                "vulnerability:\n  ignore-unfixed: true\n"
+                "vex: vex.json\nformat: template\ntemplate: \"@ci.tpl\"\n"
+                "output: out.tpl\n")
+    flags = ["--scanners", "vuln,secret", "--severity", "HIGH,CRITICAL",
+             "--ignore-unfixed", "--exit-code", "1", "--vex", "vex.json",
+             "--cache-dir", cache]
+    out = {name: os.path.join(work, name) for name in
+           ("out.sarif", "out.json", "cpu.json", "strict.json")}
+    # 1. flattens the bolt file; 2. loads the memo
+    a, a_s = run_ci_cli(["fs", root, "--db", bolt, *flags, "--format",
+                         "sarif", "-o", out["out.sarif"]], work, rc=1)
+    b, b_s = run_ci_cli(["fs", root, "--db", bolt, *flags, "--format",
+                         "json", "-o", out["out.json"]], work, rc=1)
+    # 3. the same from trivy.yaml and TRIVY_* env, the cached DB
+    c, c_s = run_ci_cli(["fs", root], work_cfg, env={
+        "TRIVY_SEVERITY": "HIGH,CRITICAL", "TRIVY_EXIT_CODE": "1",
+        "TRIVY_CACHE_DIR": cache, "TRIVY_SKIP_DB_UPDATE": "true"}, rc=1)
+    # 4. the reference: the plain versions on the CPU
+    d, d_s = run_ci_cli(["fs", root, "--db", bolt, *flags, "--scanners",
+                         "vuln", "--format", "json", "-o", out["cpu.json"],
+                         "--device", "cpu"], work, rc=1)
+    with open(out["out.json"]) as f:
+        report = json.load(f)
+    with open(out["cpu.json"]) as f:
+        cpu = json.load(f)
+    if vuln_results(report) != vuln_results(cpu):
+        raise AssertionError("ci: the card's vulnerability results differ "
+                             "from the cpu reference")
+    want, removed = expected_after_filters(fs_report, severity, entries)
+    if _vuln_keys(report) != want:
+        raise AssertionError(f"ci: {len(_vuln_keys(report))} findings "
+                             f"survive the filters, {len(want)} expected")
+    got_ids = {k[1] for k in want}
+    absent = {entries[i][1] for i in (0, 6)}
+    kept = {entries[i][1] for i in (1, 3, 5)}
+    # the checkout may hold no finding without a fix above the severity
+    # floor, so the unfixed stage alone may remove nothing
+    if got_ids & absent or not kept <= got_ids or 0 in (
+            removed["vex"], removed["severity"], removed["ignorefile"]):
+        raise AssertionError(f"ci: an ignore or VEX entry had the wrong "
+                             f"effect: {removed}")
+    if any(v["Severity"] not in ("HIGH", "CRITICAL")
+           for r in report["Results"] for v in r.get("Vulnerabilities", [])):
+        raise AssertionError("ci: a finding below HIGH survived")
+    secrets = findings(report)[1]
+    if secrets != set(CHECKOUT_SECRETS.items()) - {secret_ignored}:
+        raise AssertionError(f"ci: secrets {sorted(secrets)}")
+    for what, counts in (("ci", a), ("ci config", c)):
+        if counts["launches"] != a["launches"]:
+            raise AssertionError(f"{what}: launches {counts['launches']}")
+
+    # In this process, sharing one load of the memo (these runs check
+    # report bytes and exit codes, not the load): a stricter ignore file
+    # holding every finding of the checkout in place of .trivyignore.yaml
+    # (exit code 0); the direct table, GitHub and cosign-vuln reports of
+    # the command line; then convert of the JSON report into each format,
+    # which must not load the table.
+    import trivy_tpu_torch.__main__ as port_cli
+    load_table, loaded = port_cli.load_table, {}
+
+    def load_once(spec, **kw):
+        if spec not in loaded:
+            loaded[spec] = load_table(spec, **kw)
+        return loaded[spec]
+
+    def no_table(*_a, **_k):
+        raise AssertionError("convert loaded the table")
+    strict = os.path.join(work, "strict.yaml")
+    every = {k[1] for k in _vuln_keys(fs_report)}
+    with open(strict, "w") as f:
+        f.write("vulnerabilities:\n" + "".join(
+            f"  - id: {i}\n" for i in sorted(every)) + "secrets:\n" +
+            "".join(f"  - id: {rule}\n" for rule in sorted(
+                {r for _t, r in findings(fs_report)[1]})))
+    direct = {"sarif": out["out.sarif"],
+              "template": os.path.join(work_cfg, "out.tpl")}
+    prev_cwd, prev_now = os.getcwd(), os.environ.get("TRIVY_TPU_FAKE_NOW")
+    os.environ["TRIVY_TPU_FAKE_NOW"] = CI_NOW
+    os.chdir(work)
+    port_cli.load_table = load_once
+    try:
+        t0 = time.perf_counter()
+        if port_main(["fs", root, "--db", bolt, *flags, "--ignorefile",
+                      strict, "--format", "json", "-o",
+                      out["strict.json"]]) != 0:
+            raise AssertionError("ci: the strict ignore file's exit code")
+        with open(out["strict.json"]) as f:
+            strict_report = json.load(f)
+        if _vuln_keys(strict_report) or findings(strict_report)[1]:
+            raise AssertionError("ci: findings survived the strict file")
+        for fmt in ("table", "github", "cosign-vuln"):
+            direct[fmt] = os.path.join(work, f"direct.{fmt}")
+            if port_main(["fs", root, "--db", bolt, *flags, "--format", fmt,
+                          "-o", direct[fmt]]) != 1:
+                raise AssertionError(f"ci: direct {fmt} exit code")
+        direct_s = time.perf_counter() - t0
+        port_cli.load_table = no_table
+        t0 = time.perf_counter()
+        for fmt in ("table", "sarif", "github", "cosign-vuln", "template"):
+            tpl = ["--template", "@" + os.path.join(work_cfg, "ci.tpl")] \
+                if fmt == "template" else []
+            conv = os.path.join(work, f"convert.{fmt}")
+            port_main(["convert", out["out.json"], "--format", fmt, "-o",
+                       conv, *tpl])
+            with open(conv) as f1, open(direct[fmt]) as f2:
+                if _convert_view(fmt, f1.read()) != \
+                        _convert_view(fmt, f2.read()):
+                    raise AssertionError(f"ci: convert to {fmt} differs "
+                                         f"from the scan's")
+        convert_s = time.perf_counter() - t0
+    finally:
+        port_cli.load_table = load_table
+        os.chdir(prev_cwd)
+        if prev_now is None:
+            os.environ.pop("TRIVY_TPU_FAKE_NOW", None)
+        else:
+            os.environ["TRIVY_TPU_FAKE_NOW"] = prev_now
+
+    # the kernels on this run's inputs: the joins on its batches against
+    # the flattened table as the CLI loads it, shift-or on its rows
+    table = loaded[bolt]
+    if len(table) != rows or a["table"]["rows"] != rows:
+        raise AssertionError(f"ci: the trivy.db flattened to {len(table)} "
+                             f"rows, {rows} expected")
+    batches = scan_batches(table, detail)
+    figures, at_ci, _kernel_ms = batch_kernels(torch, table, batches, "ci")
+    _expect_launches(a, figures, "ci")
+    at_ci["shiftor"] = shiftor_case(torch, fs_rows[1], fs_rows[0], "ci")
+    phase("ci", bolt_bytes=bolt_bytes, bolt_write_s=bolt_s,
+          advisories=len(raw), rows=a["table"]["rows"],
+          flatten_s=a["table"]["flatten_s"],
+          flatten_walk_s=a["table"]["walk_s"],
+          flatten_build_s=a["table"]["build_s"],
+          memo_save_s=a["table"]["save_s"],
+          memo_load_s=b["table"]["load_s"], hash_s=b["table"]["hash_s"],
+          table_s={"flatten": a["table"]["table_s"],
+                   "memo": b["table"]["table_s"],
+                   "config": c["table"]["table_s"],
+                   "cpu": d["table"]["table_s"]},
+          wall_s={"flatten_sarif": a_s, "memo_json": b_s,
+                  "config_template": c_s, "cpu_json": d_s},
+          exit_codes={"findings": 1, "strict": 0},
+          unfiltered=len(_vuln_keys(fs_report)), without_fix=sum(
+              not v.get("FixedVersion") for r in fs_report["Results"]
+              for v in r.get("Vulnerabilities", [])),
+          removed=removed, surviving=len(want), secrets=sorted(secrets),
+          in_process_s=direct_s, convert_s=convert_s, batches=figures,
+          launches=a["launches"], prefilter_path=a["prefilter_path"])
+    return a["launches"], at_ci
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
-    """The `fs` and `image_apps` phases over one apps table saved as
-    .npz → ({path: launch counts}, {path: kernels on its inputs})."""
-    from trivy_tpu_torch.db.table import AdvisoryTable
+    """The `fs`, `image_apps` and `ci` phases over one apps table, saved
+    as .npz for the first two and written as a trivy.db for the last →
+    ({path: launch counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.ops.constants import INEXACT
     rng = np.random.default_rng(SEED + 6)
     t0 = time.perf_counter()
-    table, deb, names = apps_table(rng)
+    table, deb, names, raw = apps_table(rng)
     db = os.path.join(tmp, "apps-table.npz")
     table.save(db)
     build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    AdvisoryTable.load(db)
-    load_s = time.perf_counter() - t0
     lo, hi, flags, lo_pre, hi_pre = table.device_arrays(torch.device("cuda"))
     phase("apps_table", rows=len(table), groups=len(table.groups),
           inexact_rows=int(((table.flags & INEXACT) != 0).sum()),
           device_bytes=sum(t.numel() * t.element_size()
                            for t in (lo, hi, flags, lo_pre, hi_pre)),
-          npz_bytes=os.path.getsize(db), build_s=build_s, load_s=load_s)
-    fs_launches, at_fs = run_fs_at_size(torch, tmp, table, db, names)
+          npz_bytes=os.path.getsize(db), build_s=build_s)
+    fs_launches, at_fs, root, fs_report, detail, secrets = run_fs_at_size(
+        torch, tmp, table, db, names)
     apps_launches, at_apps = run_image_apps_at_size(torch, tmp, table, db,
                                                     deb, names)
-    return ({"fs": fs_launches, "image_apps": apps_launches},
-            {"at_fs": at_fs, "at_image_apps": at_apps})
+    ci_launches, at_ci = run_ci_at_size(torch, tmp, raw, len(table), root,
+                                        fs_report, detail, secrets)
+    return ({"fs": fs_launches, "image_apps": apps_launches,
+             "ci": ci_launches},
+            {"at_fs": at_fs, "at_image_apps": at_apps, "at_ci": at_ci})
 
 
 def main() -> int:

@@ -211,7 +211,8 @@ def _run_both(capsys, tmp_path, argv) -> tuple:
     assert ref_cli.main(argv + ["--cache-dir",
                                 str(tmp_path / "ref-cache")]) == 0
     ref = capsys.readouterr().out
-    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert cli.main(argv + ["--device", "cpu", "--cache-dir",
+                            str(tmp_path / "port-cache")]) == 0
     return ref, capsys.readouterr().out
 
 

@@ -309,7 +309,8 @@ def _run_both(capsys, tmp_path, image: str, extra=()) -> tuple:
     assert ref_cli.main(argv + ["--cache-dir",
                                 str(tmp_path / "ref-cache")]) == 0
     ref = capsys.readouterr().out
-    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert cli.main(argv + ["--device", "cpu", "--cache-dir",
+                            str(tmp_path / "port-cache")]) == 0
     port = capsys.readouterr().out
     return ref, port
 
@@ -410,7 +411,8 @@ def test_oci_and_docker_give_the_same_results(in_tmp, capsys):
         assert cli.main(["image", "--input",
                          _write(in_tmp, "alpine_flask", kind),
                          "--db", DB, "--scanners", "vuln,secret",
-                         "--device", "cpu"]) == 0
+                         "--device", "cpu", "--cache-dir",
+                         str(in_tmp / f"cache-{kind}")]) == 0
         reports.append(json.loads(capsys.readouterr().out))
     docker, oci = reports
     assert chip_smoke.layerless_results(docker) == \

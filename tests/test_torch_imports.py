@@ -32,7 +32,10 @@ bad = sorted(m for m in sys.modules
 need = ["trivy_tpu_torch." + m for m in (
     "jsonpos", "javadb", "fanal.analyzers.lockfiles",
     "fanal.analyzers.lockfiles_extra", "fanal.analyzers.binaries",
-    "fanal.analyzers.python")]
+    "fanal.analyzers.python", "result.filter", "result.ignore", "vex",
+    "flagcfg", "db.boltdb", "db.download", "report.tables", "report.sarif",
+    "report.github", "report.predicate", "report.gotemplate",
+    "report.template")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """
@@ -77,7 +80,8 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
                  lambda: cli.main(["repo", str(tmp_path),
                                    "--scanners", "secret"]),
                  lambda: cli.main(["image", "--input", image,
-                                   "--scanners", "secret"])):
+                                   "--scanners", "secret", "--cache-dir",
+                                   str(tmp_path / "cache")])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert D.resolve_device("cpu") == torch.device("cpu")

@@ -1,26 +1,34 @@
 """Command line of the port:
 
-    python -m trivy_tpu_torch image --input ARCHIVE --db SPEC [...]
-    python -m trivy_tpu_torch rootfs DIR --db SPEC [...]
-    python -m trivy_tpu_torch fs DIR --db SPEC [...]
-    python -m trivy_tpu_torch repo DIR --db SPEC [...]
+    python -m trivy_tpu_torch image --input ARCHIVE [...]
+    python -m trivy_tpu_torch rootfs DIR [...]
+    python -m trivy_tpu_torch fs DIR [...]          (alias: filesystem)
+    python -m trivy_tpu_torch repo DIR [...]        (alias: repository)
+    python -m trivy_tpu_torch convert REPORT.json --format F [...]
 
-Mirrors `python -m trivy_tpu.cli image --input`, `rootfs`, `fs` and
-`repo` (a local path) for the scanners `vuln` and `secret`, with the
-JSON format: the report is the same byte for byte, apart from CreatedAt,
-on every target whose contents the ported analyzers cover. `image` reads
-docker-save and OCI-layout archives (plain or gzip layers, whiteouts,
-opaque dirs). The analyzers cover OS releases of every family the
-detector knows, the apk, dpkg and rpm package databases, the language
-lockfiles (npm, yarn, pnpm, gomod, cargo, poetry, pipenv, pip, bundler,
-composer, pom, gradle, nuget, dotnet, packages-props, conan, mix, swift,
-cocoapods, pub, julia) and installed packages (Python, conda, Go and
-Rust binaries, jars, node_modules, gems). Each command disables the
-analyzers the reference disables for it (run.go:167-224): image and
-rootfs the lockfiles, fs the installed packages, repo the installed
-packages and the OS. Registry, daemon and containerd image sources and
-remote repositories are not ported. Runs on CUDA unless `--device cpu`
-is given.
+Mirrors `python -m trivy_tpu.cli` for these commands and the scanners
+`vuln` and `secret`: the same flags (`--severity`, `--ignore-unfixed`,
+`--ignore-status`, `--ignorefile` or the working directory's
+`.trivyignore.yaml`/`.trivyignore`, `--vex`, `--exit-code`, `--output`,
+`--cache-dir`, `--db`, `--config`, ...), each also read from a `TRIVY_*`
+env var and from `trivy.yaml` (flagcfg), and the same reports in the
+json, table, sarif, template, github and cosign-vuln formats, byte for
+byte apart from CreatedAt. `TRIVY_TPU_FAKE_NOW` fixes the clock of the
+detection (EOSL, Ubuntu ESM) and of CreatedAt, as in the reference.
+
+`--db` takes a fixture YAML glob, a columnar `.npz` saved by either
+package, or a `trivy.db` BoltDB file, flattened once into a `.npz` memo
+beside it. Without `--db` the cached `<cache-dir>/db/trivy.db` is used
+when its metadata says it will do; the DB download is not ported.
+
+`image` reads docker-save and OCI-layout archives; registry, daemon and
+containerd sources and remote repositories are not ported. Each command
+disables the analyzers the reference disables for it (run.go:167-224):
+image and rootfs the lockfiles, fs the installed packages, repo the
+installed packages and the OS. Runs on CUDA unless `--device cpu` is
+given; `--device` and `--debug-launches` come from the command line
+only. Not ported: `--ignore-policy` (rego, ROADMAP A4) and the SBOM
+formats (ROADMAP A2); both are refused.
 """
 
 from __future__ import annotations
@@ -31,10 +39,12 @@ import glob
 import json
 import os
 import sys
+import time
 
-from . import javadb
+from . import __version__, javadb
 from . import types as T
 from .db import AdvisoryTable, build_table
+from .db.download import DEFAULT_REPO, DBError, cached_db, flatten_db
 from .db.fixtures import load_fixture_files
 from .device import resolve_device
 from .fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS, LOCKFILE_ANALYZERS,
@@ -42,23 +52,53 @@ from .fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS, LOCKFILE_ANALYZERS,
 from .fanal.artifact import FilesystemArtifact, ImageArchiveArtifact
 from .fanal.cache import MemoryCache, open_cache
 from .fanal.walker import DEFAULT_SECRET_CONFIG
+from .flagcfg import apply_flag_sources, generate_default_config
 from .report import build_report, write_report
-from .scanner import LocalScanner, filter_results
+from .report.writer import SBOM_FORMATS, render_json_report
+from .result import FilterOptions, filter_results, parse_ignore_file
+from .scanner import LocalScanner
 
 _SCANNER_ALIASES = {"vulnerability": "vuln", "secrets": "secret"}
 SUPPORTED_SCANNERS = ("vuln", "secret")
+DEFAULT_CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache",
+                                 "trivy-tpu")
+FORMATS = ["json", "table", "sarif", "cyclonedx", "spdx-json", "template",
+           "github", "cosign-vuln"]
 
 
-def load_table(spec: str) -> AdvisoryTable:
-    """--db: a columnar .npz saved by either package, or a fixture YAML
-    glob."""
-    if spec.endswith(".npz"):
-        return AdvisoryTable.load(spec)
-    paths = sorted(glob.glob(spec)) or [spec]
-    advisories, details, sources = load_fixture_files(paths)
-    return build_table(advisories, details,
-                       aux={"Red Hat CPE": sources["Red Hat CPE"]}
-                       if "Red Hat CPE" in sources else None)
+def load_table(spec: str, cache_dir: str = "", repository: str = "",
+               skip_update: bool = False,
+               stats: dict | None = None) -> AdvisoryTable:
+    """--db: a columnar .npz saved by either package, a trivy.db (through
+    its flatten memo), or a fixture YAML glob; with none, the cached
+    `<cache_dir>/db/trivy.db` if it will do. `stats` (a dict) receives
+    the flatten or load figures."""
+    stats = {} if stats is None else stats
+    t0 = time.perf_counter()
+    if not spec:
+        try:
+            spec = cached_db(cache_dir or ".", repository or DEFAULT_REPO,
+                             skip_update=skip_update)
+        except DBError as e:
+            raise SystemExit(
+                f"DB unavailable: {e}\n"
+                "(pass --db with a trivy.db file, columnar .npz, or "
+                "fixture YAML glob when the registry is unreachable)") \
+                from None
+    if spec.endswith(".db"):
+        table, flat = flatten_db(spec)
+        stats.update(flat)
+    elif spec.endswith(".npz"):
+        table = AdvisoryTable.load(spec)
+    else:
+        paths = sorted(glob.glob(spec)) or [spec]
+        advisories, details, sources = load_fixture_files(paths)
+        table = build_table(advisories, details,
+                            aux={"Red Hat CPE": sources["Red Hat CPE"]}
+                            if "Red Hat CPE" in sources else None)
+    stats.update(source=spec, rows=len(table),
+                 table_s=time.perf_counter() - t0)
+    return table
 
 
 def normalize_scanners(spec: str) -> tuple:
@@ -80,41 +120,97 @@ def launch_counts() -> dict:
             "csr_join_compact": csr_join_compact_cuda.launches}
 
 
-def _scan(args, make_artifact, cache, artifact_type: str,
+def fake_now() -> dt.datetime | None:
+    """The clock `TRIVY_TPU_FAKE_NOW` pins (ISO 8601), as the reference's
+    test harness injects one (cli.py:668); None for the wall clock."""
+    raw = os.environ.get("TRIVY_TPU_FAKE_NOW", "")
+    return dt.datetime.fromisoformat(raw.replace("Z", "+00:00")) \
+        if raw else None
+
+
+def _refuse_unported(args) -> None:
+    if args.format in SBOM_FORMATS:
+        raise SystemExit(f"--format {args.format}: SBOM output is not "
+                         f"ported yet (ROADMAP A2, the next slice of the "
+                         f"port)")
+    if args.ignore_policy:
+        raise SystemExit("--ignore-policy needs the rego interpreter, "
+                         "which is not ported yet (ROADMAP A4)")
+
+
+def _scan(args, make_artifact, cache_for, artifact_type: str,
           disabled: tuple, name: str = "") -> int:
-    """The steps every command shares: the artifact's walk into the
-    cache, the scan from the cache, filtering and the report.
-    make_artifact(cache, group, scanners, device) → the artifact."""
+    """The steps every scan command shares (reference
+    _scan_common_inner, cli.py:648-719): the artifact's walk into the
+    cache, the scan from the cache, VEX, the filters, the report and the
+    exit code. make_artifact(cache, group, scanners, device) → the
+    artifact; cache_for() → the cache, opened once the device is
+    known."""
+    _refuse_unported(args)
     device = resolve_device(args.device)
     scanners = normalize_scanners(args.scanners)
-    if "vuln" in scanners and not args.db:
-        raise SystemExit("--db is required for vulnerability scanning "
-                         "(a fixture YAML glob or a columnar .npz)")
-    table = load_table(args.db) if "vuln" in scanners else build_table([])
-    javadb.init(path=args.java_db)
+    table_stats: dict = {}
+    table = load_table(args.db, cache_dir=args.cache_dir,
+                       repository=args.db_repository,
+                       skip_update=args.skip_db_update,
+                       stats=table_stats) \
+        if "vuln" in scanners else build_table([])
+    javadb.init(cache_dir=args.cache_dir, path=args.java_db)
+    cache = cache_for()
     art = make_artifact(cache, AnalyzerGroup(disabled=disabled), scanners,
                         device)
     ref = art.inspect()
     if name:
         ref.name = name
+    now = fake_now()
     results, os_info = LocalScanner(cache, table, device).scan(
         ref.name, ref.id, ref.blob_ids,
         T.ScanOptions(scanners=scanners,
                       list_all_packages=args.list_all_pkgs,
                       include_dev_deps=args.include_dev_deps,
-                      pkg_types=tuple(args.pkg_types.split(","))))
+                      pkg_types=tuple(args.pkg_types.split(","))),
+        now=now)
+    if args.vex:
+        from .vex import apply_vex, load_vex_file
+        apply_vex(results, load_vex_file(args.vex))
+    results = filter_results(results, FilterOptions(
+        severities=[s.strip().upper() for s in args.severity.split(",")],
+        ignore_unfixed=args.ignore_unfixed,
+        ignore_statuses=[s for s in args.ignore_status.split(",") if s],
+        ignore_file=parse_ignore_file(args.ignorefile)
+        if args.ignorefile else _auto_ignore_file()))
     report = build_report(
-        ref.name, artifact_type, filter_results(results), os_info,
+        ref.name, artifact_type, results, os_info,
         metadata=ref.image_metadata,
-        created_at=dt.datetime.now(dt.timezone.utc).isoformat())
-    write_report(report, args.format, sys.stdout)
+        created_at=(now or dt.datetime.now(dt.timezone.utc)).isoformat())
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        write_report(report, args.format, out, template=args.template,
+                     app_version=__version__)
+    finally:
+        if args.output:
+            out.close()
     if args.debug_launches:
+        # the table load's figures, then the launch counts as the last line
+        print(json.dumps({"table": table_stats}), file=sys.stderr)
         secrets = art.secret_scanner
         print(json.dumps({
             "launches": launch_counts(),
             "prefilter_path": dict(secrets.prefilter_path)
             if secrets is not None else {}}), file=sys.stderr)
+    if args.exit_code and any(r.vulnerabilities or r.secrets
+                              or r.misconfigurations for r in results):
+        return args.exit_code
     return 0
+
+
+def _auto_ignore_file():
+    """The working directory's ignore file, when --ignorefile is not
+    given (reference cli.py:722)."""
+    for cand in (".trivyignore.yaml", ".trivyignore"):
+        if os.path.exists(cand):
+            return parse_ignore_file(cand)
+    return None
 
 
 def cmd_image(args) -> int:
@@ -123,17 +219,15 @@ def cmd_image(args) -> int:
                          "archives")
 
     def artifact(cache, group, scanners, device):
-        from .secret import SecretScanner
+        secrets, secret_cfg = _secret_scanner(args, scanners, device)
         return ImageArchiveArtifact(
             args.input, cache, group=group, scanners=scanners,
-            secret_scanner=SecretScanner(device=device)
-            if "secret" in scanners else None,
+            secret_scanner=secrets, secret_config_path=secret_cfg,
             skip_files=args.skip_files, skip_dirs=args.skip_dirs)
-    cache = open_cache("fs", args.cache_dir) if args.cache_dir \
-        else open_cache("memory")
     # lockfile analyzers are off for image scans (run.go:167)
-    return _scan(args, artifact, cache, T.ArtifactType.CONTAINER_IMAGE,
-                 LOCKFILE_ANALYZERS, name=args.image_name)
+    return _scan(args, artifact, lambda: open_cache("fs", args.cache_dir),
+                 T.ArtifactType.CONTAINER_IMAGE, LOCKFILE_ANALYZERS,
+                 name=args.image_name)
 
 
 def cmd_fs(args) -> int:
@@ -142,7 +236,7 @@ def cmd_fs(args) -> int:
     if args.command == "rootfs":
         disabled = LOCKFILE_ANALYZERS
         artifact_type = T.ArtifactType.FILESYSTEM
-    elif args.command == "repo":
+    elif args.command in ("repo", "repository"):
         if not os.path.exists(args.target):
             raise SystemExit(f"{args.target}: no such path; remote "
                              f"repositories are not ported")
@@ -154,13 +248,27 @@ def cmd_fs(args) -> int:
         artifact_type = T.ArtifactType.FILESYSTEM
 
     def artifact(cache, group, scanners, device):
-        secrets, secret_cfg = _secret_scanner(args, scanners, device)
+        secrets, secret_cfg = _secret_scanner(args, scanners, device,
+                                              root=args.target)
         return FilesystemArtifact(
             args.target, cache, group=group, scanners=scanners,
             secret_scanner=secrets, secret_config_path=secret_cfg,
             skip_files=_rel_globs(args.skip_files, args.target),
             skip_dirs=_rel_globs(args.skip_dirs, args.target))
-    return _scan(args, artifact, MemoryCache(), artifact_type, disabled)
+    return _scan(args, artifact, MemoryCache, artifact_type, disabled)
+
+
+def cmd_convert(args) -> int:
+    """A saved JSON report in another format (reference cli.py:1137),
+    with no table load and no scan."""
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        render_json_report(args.report, args.format, out,
+                           template=args.template)
+    finally:
+        if args.output:
+            out.close()
+    return 0
 
 
 def _rel_globs(globs, root: str) -> tuple:
@@ -178,11 +286,13 @@ def _rel_globs(globs, root: str) -> tuple:
     return tuple(out)
 
 
-def _secret_scanner(args, scanners, device):
+def _secret_scanner(args, scanners, device, root: str = ""):
     """→ (SecretScanner or None, the walk-relative path of the rule
     file). Rules come from --secret-config when that file exists
     (reference pkg/fanal/secret/scanner.go ParseConfig); the file itself,
-    compared by path and not by name (secret.go:137), is not scanned."""
+    compared by path and not by name (secret.go:137), is not scanned.
+    With a root (fs, rootfs, repo) the path is made relative to it; an
+    image's layers are matched against the path as given."""
     from .secret import SecretScanner
     from .secret.rules import load_secret_config
     if "secret" not in scanners:
@@ -190,9 +300,11 @@ def _secret_scanner(args, scanners, device):
     cfg = args.secret_config
     if not cfg:
         return SecretScanner(device=device), DEFAULT_SECRET_CONFIG
-    rel = os.path.relpath(os.path.abspath(cfg), os.path.abspath(args.target))
-    outside = rel == ".." or rel.startswith(".." + os.sep)
-    walk_cfg = "" if outside else rel.replace(os.sep, "/")
+    walk_cfg = cfg
+    if root:
+        rel = os.path.relpath(os.path.abspath(cfg), os.path.abspath(root))
+        outside = rel == ".." or rel.startswith(".." + os.sep)
+        walk_cfg = "" if outside else rel.replace(os.sep, "/")
     if not os.path.exists(cfg):
         return SecretScanner(device=device), walk_cfg
     rules, allow, exclude = load_secret_config(cfg)
@@ -200,30 +312,82 @@ def _secret_scanner(args, scanners, device):
                          exclude_regexes=exclude, device=device), walk_cfg
 
 
-def _common_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--db", default="",
-                   help="advisory DB: columnar .npz or fixture YAML glob")
-    p.add_argument("--scanners", default="vuln",
+def _scan_flags(p: argparse.ArgumentParser) -> None:
+    """The reference's scan flags (cli.py:25-99) that the port serves,
+    with their defaults, and the port's own --device and
+    --debug-launches."""
+    p.add_argument("--config", "-c", default="",
+                   help="trivy.yaml config file (flag > TRIVY_* env > "
+                        "file > default)")
+    p.add_argument("--scanners", "--security-checks", default="vuln",
                    help="comma-separated, of: vuln, secret")
-    p.add_argument("--format", "-f", default="json", choices=["json"])
+    p.add_argument("--format", "-f", default="json", choices=FORMATS,
+                   help="cyclonedx and spdx-json are refused: SBOM output "
+                        "is not ported yet")
+    p.add_argument("--template", "-t", default="",
+                   help="output template ('...' inline or @path)")
+    p.add_argument("--output", "-o", default="",
+                   help="write the report to this file")
+    p.add_argument("--severity", "-s", default=",".join(T.SEVERITIES))
+    p.add_argument("--ignore-unfixed", action="store_true")
+    p.add_argument("--ignore-status", default="",
+                   help="comma-separated statuses to hide")
+    p.add_argument("--ignorefile", default="",
+                   help="ignore file; without it .trivyignore.yaml or "
+                        ".trivyignore in the working directory")
+    p.add_argument("--vex", default="",
+                   help="OpenVEX, CycloneDX VEX or CSAF file")
     p.add_argument("--list-all-pkgs", action="store_true",
                    help="list every package in the report, and keep "
                         "language-package results without findings")
+    p.add_argument("--include-dev-deps", action="store_true",
+                   help="keep the dev dependencies of lockfiles")
+    p.add_argument("--secret-config", default=DEFAULT_SECRET_CONFIG,
+                   help="secret rules file; the file itself is never "
+                        "scanned")
     p.add_argument("--skip-files", action="append", default=[],
                    help="glob of files to leave out (repeatable)")
     p.add_argument("--skip-dirs", action="append", default=[],
                    help="glob of directories to leave out (repeatable)")
+    p.add_argument("--exit-code", type=int, default=0,
+                   help="exit with this code when findings survive the "
+                        "filters")
+    p.add_argument("--cache-dir", default=DEFAULT_CACHE_DIR,
+                   help="the layer cache of image scans, the cached "
+                        "db/trivy.db and javadb/trivy-java.db")
+    p.add_argument("--db", default="",
+                   help="advisory DB: a trivy.db (BoltDB) file, a "
+                        "columnar .npz, or a fixture YAML glob; without "
+                        "it <cache-dir>/db/trivy.db")
+    p.add_argument("--db-repository", default=DEFAULT_REPO,
+                   help="OCI repository of the DB (its download is not "
+                        "ported)")
+    p.add_argument("--skip-db-update", action="store_true",
+                   help="use the cached DB without checking freshness")
+    p.add_argument("--pkg-types", default="os,library",
+                   help="comma-separated package types to detect, of: "
+                        "os, library")
+    p.add_argument("--ignore-policy", default="",
+                   help="refused: a rego ignore policy needs the rego "
+                        "interpreter, not ported yet")
+    p.add_argument("--java-db", default="",
+                   help="a local trivy-java.db (jar sha1 → GAV); "
+                        "defaults to <cache-dir>/javadb/trivy-java.db "
+                        "when present")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no automatic "
-                        "fallback to the CPU")
+                        "fallback to the CPU, and no env or config key")
     p.add_argument("--debug-launches", action="store_true",
-                   help="print the kernels' launch counts and the secret "
-                        "prefilter paths as JSON on stderr")
+                   help="print the table load's figures, then the "
+                        "kernels' launch counts and the secret prefilter "
+                        "paths, as JSON lines on stderr")
 
 
 def build_parser() -> argparse.ArgumentParser:
+    # allow_abbrev=False everywhere: flagcfg tells explicit flags by
+    # exact match, so prefix abbreviations must not parse
     ap = argparse.ArgumentParser(
-        prog="trivy_tpu_torch",
+        prog="trivy_tpu_torch", allow_abbrev=False,
         description="Vulnerability (OS and language packages) and secret "
                     "scanning of image archives, root filesystems and "
                     "source trees, with the advisory join and the secret "
@@ -237,37 +401,39 @@ def build_parser() -> argparse.ArgumentParser:
                         "containerd sources are not ported")
     p.add_argument("--input", default="",
                    help="docker-save or OCI-layout tarball to scan")
-    p.add_argument("--cache-dir", default="",
-                   help="layer cache directory (FS cache); without it "
-                        "the cache lives in memory for this scan only")
-    _common_flags(p)
-    p.set_defaults(func=cmd_image, include_dev_deps=False,
-                   pkg_types="os,library", java_db="")
-    for name, what in (("rootfs", "a root filesystem tree"),
-                       ("fs", "a directory tree, with its lockfiles"),
-                       ("repo", "a local repository checkout (language "
-                                "packages only)")):
-        p = sub.add_parser(name, help=f"scan {what}")
+    _scan_flags(p)
+    p.set_defaults(func=cmd_image)
+    for name, aliases, what in (
+            ("filesystem", ["fs"], "a directory tree, with its lockfiles"),
+            ("rootfs", [], "a root filesystem tree"),
+            ("repository", ["repo"], "a local repository checkout "
+                                     "(language packages only)")):
+        p = sub.add_parser(name, aliases=aliases, help=f"scan {what}")
         p.add_argument("target")
-        p.add_argument("--secret-config", default=DEFAULT_SECRET_CONFIG,
-                       help="secret rules file; the file itself is never "
-                            "scanned")
-        p.add_argument("--include-dev-deps", action="store_true",
-                       help="keep the dev dependencies of lockfiles")
-        p.add_argument("--pkg-types", default="os,library",
-                       help="comma-separated package types to detect, of: "
-                            "os, library")
-        p.add_argument("--java-db", default="",
-                       help="a local trivy-java.db (jar sha1 → GAV); "
-                            "without it jars are named by pom.properties "
-                            "and file name")
-        _common_flags(p)
+        _scan_flags(p)
         p.set_defaults(func=cmd_fs)
+    p = sub.add_parser("convert", help="re-render a saved JSON report")
+    p.add_argument("report")
+    p.add_argument("--format", "-f", default="table",
+                   choices=["json", "table", "sarif", "template", "github",
+                            "cosign-vuln"])
+    p.add_argument("--template", "-t", default="")
+    p.add_argument("--output", "-o", default="")
+    p.set_defaults(func=cmd_convert)
+    for sp in sub.choices.values():
+        sp.allow_abbrev = False
     return ap
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    parser = build_parser()
+    if argv and argv[0] == "--generate-default-config":
+        print(generate_default_config(parser))
+        return 0
+    args = parser.parse_args(argv)
+    # flag > TRIVY_* env > trivy.yaml > default (reference pkg/flag)
+    args = apply_flag_sources(args, parser, argv)
     return args.func(args)
 
 

@@ -160,9 +160,25 @@ class AdvisoryTable:
 
     def save(self, path: str) -> None:
         """Write the columnar `.npz` that `load` (and the JAX package's
-        AdvisoryTable.load) reads."""
+        AdvisoryTable.load) reads, to a temporary file of its own first
+        and then renamed into place: a crash never leaves a truncated
+        file under the name, and two writers never share a temp file."""
+        import os
+        import tempfile
+        dest = path if path.endswith(".npz") else path + ".npz"
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(dest) or ".",
+                                   prefix=os.path.basename(dest) + ".tmp.")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                self._savez(f)
+        except BaseException:
+            os.unlink(tmp)
+            raise
+        os.replace(tmp, dest)
+
+    def _savez(self, f) -> None:
         np.savez(
-            path, hash=self.hash, lo_tok=self.lo_tok, hi_tok=self.hi_tok,
+            f, hash=self.hash, lo_tok=self.lo_tok, hi_tok=self.hi_tok,
             flags=self.flags, group=self.group,
             meta=np.frombuffer(json.dumps({
                 "window": self.window,

@@ -58,6 +58,7 @@ class _ImageInspectMixin(_Artifact):
 
     skip_files: tuple = ()
     skip_dir_globs: tuple = ()
+    secret_config_path: str = DEFAULT_SECRET_CONFIG
 
     @staticmethod
     def _created_by(config: dict, diff_ids: list) -> list:
@@ -95,7 +96,8 @@ class _ImageInspectMixin(_Artifact):
                     layer_tf, self.group,
                     collect_secrets=self.want_secrets,
                     skip_files=self.skip_files,
-                    skip_dir_globs=self.skip_dir_globs)
+                    skip_dir_globs=self.skip_dir_globs,
+                    secret_config_path=self.secret_config_path)
             bi = blob_info(scan, diff_id=diff_id, created_by=cb)
             if layer_digests:
                 bi.digest = layer_digests[i]
@@ -134,11 +136,13 @@ class ImageArchiveArtifact(_ImageInspectMixin):
     def __init__(self, path: str, cache,
                  group: Optional[AnalyzerGroup] = None,
                  scanners: tuple = ("vuln",), secret_scanner=None,
-                 skip_files: tuple = (), skip_dirs: tuple = ()):
+                 skip_files: tuple = (), skip_dirs: tuple = (),
+                 secret_config_path: str = DEFAULT_SECRET_CONFIG):
         super().__init__(cache, group, scanners, secret_scanner)
         self.path = path
         self.skip_files = tuple(skip_files)
         self.skip_dir_globs = tuple(skip_dirs)
+        self.secret_config_path = secret_config_path
 
     def inspect(self) -> ArtifactReference:
         with tarfile.open(self.path) as tf:

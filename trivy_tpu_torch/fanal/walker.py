@@ -75,11 +75,13 @@ def _parent_dirs(path: str):
 
 def classify_member(member: tarfile.TarInfo, group: AnalyzerGroup,
                     collect_secrets: bool, skip_files: tuple = (),
-                    skip_dir_globs: tuple = ()):
+                    skip_dir_globs: tuple = (),
+                    secret_config_path: str = DEFAULT_SECRET_CONFIG):
     """One tar member's routing → (kind, path, wants): kind is 'skip',
     'opaque', 'whiteout' or 'file', and wants (file only) is the
     (analyze, post, secret) triple. Globs must already be normalized
-    (normalize_skip_globs)."""
+    (normalize_skip_globs); the file at `secret_config_path` is never a
+    secret candidate."""
     path = _norm_rel(member.name)
     if not path:
         return ("skip", "", None)
@@ -98,7 +100,8 @@ def classify_member(member: tarfile.TarInfo, group: AnalyzerGroup,
         return ("skip", path, None)
     wants = group.required(path, member.size)
     wants_post = group.post_required(path, member.size)
-    wants_secret = collect_secrets and secret_candidate(path, member.size)
+    wants_secret = collect_secrets and secret_candidate(
+        path, member.size, secret_config_path)
     if not (wants or wants_post or wants_secret):
         return ("skip", path, None)
     return ("file", path, (wants, wants_post, wants_secret))
@@ -106,7 +109,9 @@ def classify_member(member: tarfile.TarInfo, group: AnalyzerGroup,
 
 def walk_layer_tar(tf: tarfile.TarFile, group: AnalyzerGroup,
                    collect_secrets: bool = False, skip_files: tuple = (),
-                   skip_dir_globs: tuple = ()) -> BlobScan:
+                   skip_dir_globs: tuple = (),
+                   secret_config_path: str = DEFAULT_SECRET_CONFIG
+                   ) -> BlobScan:
     """Walk one layer's tar in archive order. --skip-files/--skip-dirs
     apply to layers too (reference walker.go CleanSkipPaths)."""
     skip_files = normalize_skip_globs(skip_files)
@@ -114,7 +119,8 @@ def walk_layer_tar(tf: tarfile.TarFile, group: AnalyzerGroup,
     scan = BlobScan(result=AnalysisResult())
     for member in tf:
         kind, path, wants3 = classify_member(
-            member, group, collect_secrets, skip_files, skip_dir_globs)
+            member, group, collect_secrets, skip_files, skip_dir_globs,
+            secret_config_path)
         if kind == "opaque":
             scan.opaque_dirs.append(path)
             continue

@@ -1,3 +1,3 @@
-"""Report writers (JSON)."""
+"""Report writers (reference pkg/report/writer.go format switch)."""
 
-from .writer import build_report, to_json, write_report  # noqa: F401
+from .writer import build_report, to_json, to_table, write_report  # noqa: F401

@@ -153,19 +153,6 @@ PKG_TARGETS = {
 }
 
 
-def filter_results(results: list[T.Result]) -> list[T.Result]:
-    """Reference pkg/result/filter.go Filter:39 at its defaults: findings
-    of every severity stay; empty results drop, except OS- and
-    language-package results, which the reference keeps."""
-    sev = set(T.SEVERITIES)
-    for res in results:
-        res.vulnerabilities = [v for v in res.vulnerabilities
-                               if v.severity in sev]
-        res.secrets = [s for s in res.secrets if s.severity in sev]
-    return [r for r in results if not r.is_empty() or r.clazz in
-            (T.ResultClass.OS_PKGS, T.ResultClass.LANG_PKGS)]
-
-
 def _vuln_sort_key(v: T.DetectedVulnerability):
     """(pkg name, installed version, severity desc, vuln id, pkg path) —
     reference types.BySeverity (pkg/types/vulnerability.go:42-58)."""

@@ -435,7 +435,65 @@ class DetectedVulnerability(JsonMixin):
         return self.vulnerability.severity or "UNKNOWN"
 
 
+@dataclass
+class DetectedLicense(JsonMixin):
+    """Reference pkg/types/license.go. The port detects no licenses yet;
+    `convert` reads them from a saved report."""
+    severity: str = ""
+    category: str = ""
+    pkg_name: str = ""
+    file_path: str = ""
+    name: str = ""
+    text: str = ""
+    confidence: float = 1.0
+    link: str = ""
+    _json_names = {"pkg_name": "PkgName", "file_path": "FilePath"}
+    _keep_zero = ("severity", "category", "pkg_name", "file_path", "name",
+                  "confidence", "link")
+
+
+@dataclass
+class CauseMetadata(JsonMixin):
+    provider: str = ""
+    service: str = ""
+    start_line: int = 0
+    end_line: int = 0
+    code: "Code" = field(default_factory=lambda: Code())
+
+
+@dataclass
+class DetectedMisconfiguration(JsonMixin):
+    """Reference pkg/types/misconfiguration.go. The port detects no
+    misconfigurations yet; `convert` reads them from a saved report."""
+    type: str = ""
+    id: str = ""
+    avd_id: str = ""
+    title: str = ""
+    description: str = ""
+    message: str = ""
+    namespace: str = ""
+    query: str = ""
+    resolution: str = ""
+    severity: str = ""
+    primary_url: str = ""
+    references: list = field(default_factory=list)
+    status: str = ""
+    layer: Layer = field(default_factory=Layer)
+    cause_metadata: CauseMetadata = field(default_factory=CauseMetadata)
+    _json_names = {"id": "ID", "avd_id": "AVDID", "primary_url": "PrimaryURL"}
+    _keep_zero = ("type", "id", "title", "description", "message",
+                  "namespace", "query", "resolution", "severity", "status")
+
+
 # --- result / report ---
+
+@dataclass
+class MisconfSummary(JsonMixin):
+    successes: int = 0
+    failures: int = 0
+    exceptions: int = 0
+    _keep_zero = ("successes", "failures", "exceptions")
+
 
 @dataclass
 class Result(JsonMixin):
@@ -444,12 +502,22 @@ class Result(JsonMixin):
     type: str = ""
     packages: list = field(default_factory=list)
     vulnerabilities: list = field(default_factory=list)
+    misconf_summary: Optional[MisconfSummary] = None
+    misconfigurations: list = field(default_factory=list)
     secrets: list = field(default_factory=list)
+    licenses: list = field(default_factory=list)
     _json_names = {"clazz": "Class"}
     _keep_zero = ("target",)
 
     def is_empty(self) -> bool:
-        return not (self.packages or self.vulnerabilities or self.secrets)
+        # a config result whose checks all passed or were excepted still
+        # carries its summary (reference local/scan.go:214-258)
+        has_summary = self.misconf_summary is not None and (
+            self.misconf_summary.successes
+            or self.misconf_summary.exceptions)
+        return not (self.packages or self.vulnerabilities
+                    or self.misconfigurations or self.secrets
+                    or self.licenses or has_summary)
 
 
 @dataclass
