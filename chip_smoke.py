@@ -91,6 +91,20 @@ Phases, one JSON line each; any failure exits non-zero:
            the reference, with the same checks and figures as fs: one
            OS batch, the node-pkg, jar and gemspec batches, the Go and
            the Rust binary's.
+  sbom     SBOMs out and in, over the apps table: the image_apps image
+           through `image --scanners vuln,secret --format cyclonedx`
+           and that document through `sbom`, the clock and the UUIDs
+           fixed; per result type the vulnerability keys of both scans,
+           asserted equal on ROUND_TRIP_TYPES (where the CPU tests show
+           the JAX package keeps them). Then a syft-style CycloneDX 1.5
+           document of 20,000 components (Debian 12 and eight
+           ecosystems by purl, licenses on ~80%, no trivy properties)
+           through `sbom --scanners vuln` on the card and with --device
+           cpu (equal reports), its batches' joins against their plain
+           versions (queries, pairs, t_pad, route of each), and `sbom
+           --scanners license` (no table load, no launch; the count per
+           category). Per run: wall, start-up, table load, decode,
+           components, batches and launches.
   ci       the CI command line on the fs checkout: the apps table's
            advisories written by this script as a trivy.db (BoltDB:
            source → package → vulnerability id → JSON, with the
@@ -116,7 +130,8 @@ Phases, one JSON line each; any failure exits non-zero:
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
-the language phases' under "at_fs", "at_image_apps" and "at_ci";
+the language phases' under "at_fs", "at_image_apps", "at_sbom" and
+"at_ci";
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -769,20 +784,25 @@ def ptxas_report() -> dict:
 FIXTURE_DB = os.path.join(REPO, "tests/fixtures/db/*.yaml")
 
 
-def run_port_cli(args: list) -> tuple:
-    """`python -m trivy_tpu_torch <args> --format json --debug-launches`
-    in a fresh process (so its launch counts start at 0), with a cache
-    dir of its own unless `args` name one → (report, {"launches",
-    "prefilter_path"}, wall seconds)."""
+def run_port_cli(args: list, env: dict | None = None,
+                 raw: bool = False) -> tuple:
+    """`python -m trivy_tpu_torch <args> --debug-launches` in a fresh
+    process (so its launch counts start at 0), `--format json` unless
+    `args` name a format, with a cache dir of its own unless `args` name
+    one, and `env` added to the environment → (report, or its text when
+    `raw`; {"launches", "prefilter_path", "table", "inspect_s",
+    "scan_s"}, wall seconds)."""
     cache = None if "--cache-dir" in args else \
         tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    fmt = [] if "--format" in args else ["--format", "json"]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [sys.executable, "-m", "trivy_tpu_torch", *args, "--format",
-             "json", "--debug-launches",
+            [sys.executable, "-m", "trivy_tpu_torch", *args, *fmt,
+             "--debug-launches",
              *(["--cache-dir", cache] if cache else [])],
-            cwd=REPO, capture_output=True, text=True, timeout=900)
+            cwd=REPO, capture_output=True, text=True, timeout=900,
+            env={**os.environ, **(env or {})})
     finally:
         if cache:
             shutil.rmtree(cache, ignore_errors=True)
@@ -790,8 +810,9 @@ def run_port_cli(args: list) -> tuple:
     if proc.returncode != 0:
         raise AssertionError(f"{' '.join(args[:2])} failed "
                              f"({proc.returncode}):\n{proc.stderr[-4000:]}")
-    counts = json.loads(proc.stderr.strip().splitlines()[-1])
-    return json.loads(proc.stdout), counts, wall_s
+    lines = proc.stderr.strip().splitlines()
+    counts = {**json.loads(lines[-2]), **json.loads(lines[-1])}
+    return (proc.stdout if raw else json.loads(proc.stdout)), counts, wall_s
 
 
 def findings(report: dict) -> tuple[set, set]:
@@ -1174,18 +1195,19 @@ def _lang_range(rng, eco: str, fix: str) -> str:
     return f"< {fix}"
 
 
-def apps_table(rng):
+def apps_table(rng, shrink: int = 1):
     """The table the language phases scan against: Debian 12 (22,000
     source names and the 4,000-row `linux` bucket) and eight language
     ecosystems, each under its own GitHub Security Advisory source,
-    bench-shaped → (table, debian names, {ecosystem: names}, the raw
-    advisories)."""
+    bench-shaped, with every name count divided by `shrink` (the CPU
+    tests' small copy) → (table, debian names, {ecosystem: names}, the
+    raw advisories)."""
     from trivy_tpu_torch.db.table import RawAdvisory, build_table
-    deb = [f"src{i:05d}" for i in range(22_000)]
+    deb = [f"src{i:05d}" for i in range(22_000 // shrink)]
     raw = _debian_rows(rng, deb)
     names = {}
     for eco, n, label in APP_ECOSYSTEMS:
-        names[eco] = app_names(eco, n)
+        names[eco] = app_names(eco, n // shrink)
         source = f"{eco}::GitHub Security Advisory {label}"
         raw += _zipf_rows(rng, names[eco], lambda name, j, fix: RawAdvisory(
             source=source, ecosystem=eco, pkg_name=name,
@@ -1361,6 +1383,14 @@ def image_apps_layers(rng, deb: list, names: dict,
     tool.update(_text_files(rng, "srv/tool/docs", text_mib,
                             IMAGE_APPS_SECRETS))
     return [tar_bytes(layer) for layer in (base, node, java, tool)]
+
+
+# the result types of the image_apps image whose vulnerability keys the
+# JAX package keeps through `image --format cyclonedx` and `sbom`
+# (tests/test_torch_sbom_golden.py::test_image_cyclonedx_round_trip
+# derives them on the CPU); the sbom phase asserts on exactly these
+ROUND_TRIP_TYPES = ("debian", "gemspec", "gobinary", "jar", "node-pkg",
+                    "rustbinary")
 
 
 def scan_batches(table, detail) -> list:
@@ -1624,7 +1654,211 @@ def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
         launches=cold_counts["launches"],
         warm_launches=warm_counts["launches"],
         prefilter_path=cold_counts["prefilter_path"])
-    return cold_counts["launches"], at_apps
+    return cold_counts["launches"], at_apps, path, cold, (padded, bank)
+
+
+# --- the sbom phase: SBOMs out and in ----------------------------------
+
+SBOM_NOW = "2026-10-17T00:00:00Z"
+SBOM_ENV = {"TRIVY_TPU_FAKE_NOW": SBOM_NOW,
+            "TRIVY_TPU_FAKE_UUID": "3ff14136-e09f-4df9-80ea-%012d"}
+# (purl type, ecosystem of apps_table's names, components) of the
+# third-party document: 20,000 components beside the OS one. Without
+# file paths every ecosystem decodes to an application at path "", and
+# the applier (the JAX package's, copied) keeps one application per
+# path: the last. npm comes last, so its 8,000 packages are the batch
+# detected; the other ecosystems are decoded and dropped, in both
+# packages (ROADMAP C).
+SBOM_COMPONENTS = (("deb", "debian", 2000), ("maven", "maven", 2500),
+                   ("golang", "go", 2000), ("cargo", "cargo", 1500),
+                   ("pypi", "pip", 2000), ("gem", "rubygems", 1000),
+                   ("composer", "composer", 500), ("nuget", "nuget", 500),
+                   ("npm", "npm", 8000))
+SBOM_LICENSES = ("MIT", "Apache-2.0", "BSD-3-Clause", "ISC", "GPL-2.0-only",
+                 "LGPL-2.1-only", "MPL-2.0", "AGPL-3.0", "Unlicense",
+                 "MIT OR Apache-2.0", "Apache-2.0 AND BSD-2-Clause")
+
+
+def third_party_sbom(rng, deb: list, names: dict) -> dict:
+    """A CycloneDX 1.5 document as syft or cdxgen write one for a Debian
+    12 application image: one operating-system component, then purls,
+    versions and licenses (an SPDX id or an expression, on about 80% of
+    the components) and no trivy properties; about 5% of the versions
+    below a fix."""
+    comps = [{"bom-ref": "os-debian-12", "type": "operating-system",
+              "name": "debian", "version": "12"}]
+    for ptype, eco, n in SBOM_COMPONENTS:
+        pool = deb if eco == "debian" else names[eco]
+        for i, name in enumerate(_pick(rng, pool, n)):
+            ver = _installed(rng, "v" if eco == "go" else "")
+            c = {"type": "library", "name": name, "version": ver}
+            if ptype == "deb":
+                c["version"] = ver + "-1"
+                purl = (f"pkg:deb/debian/{name}@{ver}-1"
+                        f"?arch=amd64&distro=debian-12")
+            elif ptype in ("maven", "composer") or name.startswith("@"):
+                group, _, base = name.rpartition(
+                    ":" if ptype == "maven" else "/")
+                c["group"], c["name"] = group, base
+                ns = group.replace("@", "%40")
+                purl = f"pkg:{ptype}/{ns}/{base}@{ver}"
+            else:
+                purl = f"pkg:{ptype}/{name}@{ver}"
+            c["purl"] = purl
+            c["bom-ref"] = f"{purl}#{i}"
+            if rng.random() < 0.8:
+                lic = SBOM_LICENSES[int(rng.integers(len(SBOM_LICENSES)))]
+                c["licenses"] = [{"expression": lic} if " " in lic
+                                 else {"license": {"id": lic}}]
+            comps.append(c)
+    return {"bomFormat": "CycloneDX", "specVersion": "1.5",
+            "serialNumber": "urn:uuid:6a1a4a7e-7d1c-4c6e-9b8a-5e0b1c2d3e4f",
+            "version": 1,
+            "metadata": {"timestamp": SBOM_NOW,
+                         "tools": {"components": [{
+                             "type": "application", "name": "syft",
+                             "version": "1.0.0"}]},
+                         "component": {"type": "container",
+                                       "name": "synthetic/apps:1"}},
+            "components": comps}
+
+
+def _keys_by_type(report: dict) -> dict:
+    out: dict = {}
+    for r in vuln_results(report):
+        out.setdefault(r.get("Type", ""), set()).update(
+            (v["VulnerabilityID"], v["PkgName"], v["InstalledVersion"])
+            for v in r.get("Vulnerabilities", []))
+    return out
+
+
+def _run_figures(counts: dict, wall_s: float, **kw) -> dict:
+    """One CLI run's wall, start-up (the wall outside the command's own
+    scan: interpreter, imports), table load and decode → a phase entry."""
+    return {"wall_s": wall_s, "startup_s": wall_s - counts["scan_s"],
+            "table_load_s": counts["table"].get("table_s", 0.0),
+            "decode_s": counts["inspect_s"], "launches": counts["launches"],
+            **kw}
+
+
+def run_sbom_at_size(torch, tmp: str, table, db: str, deb: list,
+                     names: dict, apps_image: str, apps_report: dict,
+                     apps_rows) -> tuple:
+    """SBOMs out and in: the application image through `image --format
+    cyclonedx` and that document through `sbom` (the round trip, held to
+    the image's own JSON scan on ROUND_TRIP_TYPES); a 20,000-component
+    third-party document through `sbom` on the card and with `--device
+    cpu` (equal reports, the clock fixed), its batches' kernels against
+    their plain versions; and its license scan → (launch counts of the
+    phase's card runs, summed; the kernels on the document's batches)."""
+    from trivy_tpu_torch.fanal.applier import apply_layers
+    from trivy_tpu_torch.fanal.cache import MemoryCache
+    from trivy_tpu_torch.sbom.artifact import SBOMArtifact
+    runs = {}
+    # 1. the round trip
+    doc, cdx_counts, cdx_s = run_port_cli(
+        ["image", "--input", apps_image, "--db", db, "--scanners",
+         "vuln,secret", "--format", "cyclonedx"], env=SBOM_ENV, raw=True)
+    rt_path = os.path.join(tmp, "apps.cdx.json")
+    with open(rt_path, "w") as f:
+        f.write(doc)
+    rt, rt_counts, rt_s = run_port_cli(["sbom", rt_path, "--db", db],
+                                       env=SBOM_ENV)
+    runs["image_cyclonedx"] = _run_figures(
+        cdx_counts, cdx_s, components=len(json.loads(doc)["components"]))
+    runs["round_trip_sbom"] = _run_figures(rt_counts, rt_s)
+    want, got = _keys_by_type(apps_report), _keys_by_type(rt)
+    by_type = {t: {"image": len(want.get(t, ())), "sbom": len(got.get(t, ())),
+                   "equal": want.get(t) == got.get(t),
+                   "asserted": t in ROUND_TRIP_TYPES}
+               for t in sorted(set(want) | set(got))}
+    phase("sbom_round_trip", by_type=by_type, runs=runs)
+    bad = [t for t in ROUND_TRIP_TYPES
+           if want.get(t, set()) != got.get(t, set())]
+    if bad:
+        raise AssertionError(f"sbom round trip: the keys of {bad} differ "
+                             f"from the image scan's")
+
+    # 2. a third-party SBOM at scale
+    t0 = time.perf_counter()
+    bom = third_party_sbom(np.random.default_rng(SEED + 7), deb, names)
+    raw = json.dumps(bom, indent=2).encode()
+    big = os.path.join(tmp, "third-party.cdx.json")
+    with open(big, "wb") as f:
+        f.write(raw)
+    setup_s = time.perf_counter() - t0
+    card, card_counts, card_s = run_port_cli(
+        ["sbom", big, "--db", db, "--scanners", "vuln"], env=SBOM_ENV,
+        raw=True)
+    cpu, cpu_counts, cpu_s = run_port_cli(
+        ["sbom", big, "--db", db, "--scanners", "vuln", "--device", "cpu"],
+        env=SBOM_ENV, raw=True)
+    if card != cpu:
+        raise AssertionError("sbom: the card's report differs from the "
+                             "--device cpu report")
+    cache = MemoryCache()
+    t0 = time.perf_counter()
+    ref = SBOMArtifact(raw, cache, name=big).inspect()
+    blob = cache.get_blob(ref.id)
+    decode_s = time.perf_counter() - t0
+    if blob.ingest_errors:
+        raise AssertionError(f"sbom: {blob.ingest_errors}")
+    detail = apply_layers([blob])
+    batches = scan_batches(table, detail)
+    shapes = [(b, len(qs)) for b, qs in batches]
+    if shapes != [("os", 2000), ("node-pkg", 8000)]:
+        raise AssertionError(f"sbom batches {shapes}")
+    figures, at_sbom, kernel_ms = batch_kernels(torch, table, batches,
+                                                "sbom")
+    routes = [f["route"] for f in figures if f.get("pairs")]
+    want_launches = {"shiftor": 0, "csr_join": routes.count("dense"),
+                     "csr_join_compact": routes.count("compacted")}
+    if card_counts["launches"] != want_launches or \
+            card_counts["prefilter_path"]:
+        raise AssertionError(f"sbom launches {card_counts}, expected "
+                             f"{want_launches} and no prefilter")
+    components = len(bom["components"])
+    runs["sbom"] = _run_figures(card_counts, card_s, components=components,
+                                batches=len(figures))
+    runs["sbom_cpu"] = _run_figures(cpu_counts, cpu_s,
+                                    components=components)
+    report = json.loads(card)
+
+    # 3. its licenses: host work, no table load
+    lic, lic_counts, lic_s = run_port_cli(
+        ["sbom", big, "--scanners", "license"], env=SBOM_ENV)
+    if lic_counts["table"] or any(lic_counts["launches"].values()):
+        raise AssertionError(f"sbom --scanners license loaded a table or "
+                             f"launched a kernel: {lic_counts}")
+    categories: dict = {}
+    for r in lic.get("Results", []):
+        for li in r.get("Licenses", []):
+            categories[li["Category"]] = categories.get(li["Category"], 0) + 1
+    runs["license"] = _run_figures(lic_counts, lic_s, components=components)
+    licensed = sum(1 for c in bom["components"] if c.get("licenses"))
+    declared = sum(len(p.licenses) for p in detail.packages) + sum(
+        len(p.licenses) for a in detail.applications for p in a.packages)
+    if sum(categories.values()) != declared:
+        raise AssertionError(f"sbom licenses: {categories} for {declared} "
+                             f"declared on the detected packages")
+
+    at_sbom["shiftor"] = shiftor_case(torch, apps_rows[1], apps_rows[0],
+                                      "sbom_round_trip")
+    launches = {k: cdx_counts["launches"][k] + rt_counts["launches"][k]
+                + card_counts["launches"][k] for k in card_counts["launches"]}
+    if not all(launches.values()) or cdx_counts["launches"]["shiftor"] != 1:
+        raise AssertionError(f"sbom: a kernel of the path did not run: "
+                             f"{launches}")
+    phase("sbom", doc_bytes=len(raw),
+          components=components, setup_s=setup_s, decode_s=decode_s,
+          os_packages=len(detail.packages),
+          applications={a.type: len(a.packages) for a in detail.applications},
+          batches=figures, recheck_by_ecosystem=_recheck_by_ecosystem(figures),
+          vulnerabilities=sum(len(r.get("Vulnerabilities", []))
+                              for r in vuln_results(report)),
+          licenses=categories, licensed_components=licensed, runs=runs,
+          kernel_ms=kernel_ms, launches=launches)
+    return launches, at_sbom
 
 
 # --- the ci phase: the CI command line over a trivy.db -----------------
@@ -2081,8 +2315,9 @@ def run_ci_at_size(torch, tmp: str, raw: list, rows: int, root: str,
 
 
 def run_language_phases(torch, tmp: str) -> tuple:
-    """The `fs`, `image_apps` and `ci` phases over one apps table, saved
-    as .npz for the first two and written as a trivy.db for the last →
+    """The `fs`, `image_apps`, `sbom` and `ci` phases over one apps
+    table, saved as .npz for the first three and written as a trivy.db
+    for the last →
     ({path: launch counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.ops.constants import INEXACT
     rng = np.random.default_rng(SEED + 6)
@@ -2099,13 +2334,17 @@ def run_language_phases(torch, tmp: str) -> tuple:
           npz_bytes=os.path.getsize(db), build_s=build_s)
     fs_launches, at_fs, root, fs_report, detail, secrets = run_fs_at_size(
         torch, tmp, table, db, names)
-    apps_launches, at_apps = run_image_apps_at_size(torch, tmp, table, db,
-                                                    deb, names)
+    apps_launches, at_apps, apps_image, apps_report, apps_rows = \
+        run_image_apps_at_size(torch, tmp, table, db, deb, names)
+    sbom_launches, at_sbom = run_sbom_at_size(
+        torch, tmp, table, db, deb, names, apps_image, apps_report,
+        apps_rows)
     ci_launches, at_ci = run_ci_at_size(torch, tmp, raw, len(table), root,
                                         fs_report, detail, secrets)
     return ({"fs": fs_launches, "image_apps": apps_launches,
-             "ci": ci_launches},
-            {"at_fs": at_fs, "at_image_apps": at_apps, "at_ci": at_ci})
+             "sbom": sbom_launches, "ci": ci_launches},
+            {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
+             "at_ci": at_ci})
 
 
 def main() -> int:

@@ -13,7 +13,7 @@ included:
 - the filter and exit flags (`--severity`, `--ignore-unfixed`,
   `--ignore-status`, `--ignorefile`, `--vex`, `--exit-code`, `--output`,
   `--config`, `TRIVY_*` env): the same report and the same exit code;
-- what the port refuses: `--ignore-policy` and the SBOM formats."""
+- what the port refuses: `--ignore-policy` and `--sbom-sources rekor`."""
 
 import contextlib
 import hashlib
@@ -344,11 +344,12 @@ def test_output_writes_the_file_and_nothing_to_stdout(ci_dir, capsys):
 
 # --- refused ---------------------------------------------------------
 
-@pytest.mark.parametrize("flags,match", [
-    (["--ignore-policy", "p.rego"], "ROADMAP A4"),
-    (["--format", "cyclonedx"], "ROADMAP A2"),
-    (["--format", "spdx-json"], "ROADMAP A2")])
-def test_unported_options_are_refused(flags, match, ci_dir):
+@pytest.mark.parametrize("command,flags,match", [
+    ("rootfs", ["--ignore-policy", "p.rego"], "ROADMAP A4"),
+    ("image", ["--sbom-sources", "rekor"], "ROADMAP A5")])
+def test_unported_options_are_refused(command, flags, match, ci_dir):
+    target = ["--input", str(ci_dir / "none.tar")] if command == "image" \
+        else [_rootfs(ci_dir)]
     with pytest.raises(SystemExit, match=match):
-        cli.main(["rootfs", _rootfs(ci_dir), "--db", DB, "--device", "cpu",
+        cli.main([command, *target, "--db", DB, "--device", "cpu",
                   "--cache-dir", str(ci_dir / "c"), *flags])

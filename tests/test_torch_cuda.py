@@ -263,3 +263,34 @@ def test_detector_and_secrets_on_cuda_equal_cpu(cuda, monkeypatch):
     assert [s.to_json() for s in gpu.scan_files(files)] == \
         [s.to_json() for s in cpu.scan_files(files)]
     assert dict(gpu.prefilter_path) == {"cuda": 1}
+
+
+def test_sbom_on_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
+    """`sbom` of the reference's CentOS 7 CycloneDX document on the card
+    gives the `--device cpu` report, byte for byte with the clock fixed,
+    through the join kernel."""
+    import contextlib
+    import io
+    import os
+
+    from trivy_tpu_torch import __main__ as cli
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TRIVY_TPU_FAKE_NOW", "2021-08-25T12:20:30Z")
+    before = J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches
+    outs = []
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / f"{device}.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main([
+                "sbom", os.path.join(gold, "inputs",
+                                     "centos-7-cyclonedx.json"),
+                "--db", os.path.join(gold, "db", "*.yaml"),
+                "--device", device, "--cache-dir", str(tmp_path / device),
+                "--output", out]) == 0
+        with open(out, "rb") as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and b"CVE-2019-18276" in outs[0]
+    assert J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches \
+        > before

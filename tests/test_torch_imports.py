@@ -35,7 +35,10 @@ need = ["trivy_tpu_torch." + m for m in (
     "fanal.analyzers.python", "result.filter", "result.ignore", "vex",
     "flagcfg", "db.boltdb", "db.download", "report.tables", "report.sarif",
     "report.github", "report.predicate", "report.gotemplate",
-    "report.template")]
+    "report.template", "attestation", "license_expr", "licensing",
+    "sbom", "sbom.cyclonedx", "sbom.spdx", "sbom.io", "sbom.artifact",
+    "fanal.ingest", "fanal.analyzers.sbom", "fanal.analyzers.license_file",
+    "detect.libscan")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """
@@ -81,7 +84,9 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
                                    "--scanners", "secret"]),
                  lambda: cli.main(["image", "--input", image,
                                    "--scanners", "secret", "--cache-dir",
-                                   str(tmp_path / "cache")])):
+                                   str(tmp_path / "cache")]),
+                 lambda: cli.main(["sbom", image, "--scanners", "license",
+                                   "--cache-dir", str(tmp_path / "cache")])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert D.resolve_device("cpu") == torch.device("cpu")

@@ -493,9 +493,14 @@ def test_registry_matches_reference():
     assert port_an.LOCKFILE_ANALYZERS == ref_an.LOCKFILE_ANALYZERS
     assert port_an.OS_ANALYZERS == ref_an.OS_ANALYZERS
     assert PORT_GROUP.versions() == REF_GROUP.versions()
-    # every JAX analyzer the port leaves out is one ROADMAP defers
-    assert set(REF_OFF) == {"sbom", "misconf", "helm", "terraform",
+    # every JAX analyzer the default group leaves out is one ROADMAP
+    # defers (misconf A4, executable A5) or the opt-in license-file one
+    assert set(REF_OFF) == {"misconf", "helm", "terraform",
                             "license-file", "executable"}
+    full = ("license-file",)
+    assert port_an.AnalyzerGroup(enabled=full).versions() == \
+        ref_an.AnalyzerGroup(disabled=tuple(set(REF_OFF) - set(full)),
+                             enabled=full).versions()
 
 
 JSON_DOCS = [

@@ -4,17 +4,26 @@
     python -m trivy_tpu_torch rootfs DIR [...]
     python -m trivy_tpu_torch fs DIR [...]          (alias: filesystem)
     python -m trivy_tpu_torch repo DIR [...]        (alias: repository)
+    python -m trivy_tpu_torch sbom FILE [...]
     python -m trivy_tpu_torch convert REPORT.json --format F [...]
 
 Mirrors `python -m trivy_tpu.cli` for these commands and the scanners
-`vuln` and `secret`: the same flags (`--severity`, `--ignore-unfixed`,
-`--ignore-status`, `--ignorefile` or the working directory's
-`.trivyignore.yaml`/`.trivyignore`, `--vex`, `--exit-code`, `--output`,
-`--cache-dir`, `--db`, `--config`, ...), each also read from a `TRIVY_*`
-env var and from `trivy.yaml` (flagcfg), and the same reports in the
-json, table, sarif, template, github and cosign-vuln formats, byte for
-byte apart from CreatedAt. `TRIVY_TPU_FAKE_NOW` fixes the clock of the
-detection (EOSL, Ubuntu ESM) and of CreatedAt, as in the reference.
+`vuln`, `secret` and `license`: the same flags (`--severity`,
+`--ignore-unfixed`, `--ignore-status`, `--ignorefile` or the working
+directory's `.trivyignore.yaml`/`.trivyignore`, `--vex`, `--exit-code`,
+`--output`, `--cache-dir`, `--db`, `--config`, ...), each also read from
+a `TRIVY_*` env var and from `trivy.yaml` (flagcfg), and the same reports
+in the json, table, sarif, template, github, cosign-vuln, cyclonedx and
+spdx-json formats, byte for byte apart from CreatedAt.
+`TRIVY_TPU_FAKE_NOW` fixes the clock of the detection (EOSL, Ubuntu ESM)
+and of CreatedAt, and `TRIVY_TPU_FAKE_UUID` the serial numbers of SBOM
+output, as in the reference.
+
+`sbom` scans a CycloneDX JSON, SPDX JSON or tag-value document, bare or
+in an in-toto attestation (DSSE envelope); a malformed or over-budget
+document gives an "Ingest Degradations" result, not an error.
+`--scanners license` reports the packages' declared licenses, and
+`--license-full` also classifies license files.
 
 `--db` takes a fixture YAML glob, a columnar `.npz` saved by either
 package, or a `trivy.db` BoltDB file, flattened once into a `.npz` memo
@@ -25,10 +34,11 @@ when its metadata says it will do; the DB download is not ported.
 containerd sources and remote repositories are not ported. Each command
 disables the analyzers the reference disables for it (run.go:167-224):
 image and rootfs the lockfiles, fs the installed packages, repo the
-installed packages and the OS. Runs on CUDA unless `--device cpu` is
-given; `--device` and `--debug-launches` come from the command line
-only. Not ported: `--ignore-policy` (rego, ROADMAP A4) and the SBOM
-formats (ROADMAP A2); both are refused.
+installed packages and the OS; fs and repo also the in-image `sbom`
+analyzer. Runs on CUDA unless `--device cpu` is given; `--device` and
+`--debug-launches` come from the command line only. Not ported, and
+refused: `--ignore-policy` (rego, ROADMAP A4) and `--sbom-sources rekor`
+(ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -58,8 +68,9 @@ from .report.writer import SBOM_FORMATS, render_json_report
 from .result import FilterOptions, filter_results, parse_ignore_file
 from .scanner import LocalScanner
 
-_SCANNER_ALIASES = {"vulnerability": "vuln", "secrets": "secret"}
-SUPPORTED_SCANNERS = ("vuln", "secret")
+_SCANNER_ALIASES = {"vulnerability": "vuln", "secrets": "secret",
+                    "licenses": "license"}
+SUPPORTED_SCANNERS = ("vuln", "secret", "license")
 DEFAULT_CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache",
                                  "trivy-tpu")
 FORMATS = ["json", "table", "sarif", "cyclonedx", "spdx-json", "template",
@@ -129,10 +140,10 @@ def fake_now() -> dt.datetime | None:
 
 
 def _refuse_unported(args) -> None:
-    if args.format in SBOM_FORMATS:
-        raise SystemExit(f"--format {args.format}: SBOM output is not "
-                         f"ported yet (ROADMAP A2, the next slice of the "
-                         f"port)")
+    if "rekor" in getattr(args, "sbom_sources", ""):
+        raise SystemExit("--sbom-sources rekor needs the Rekor client and "
+                         "the executable analyzer, which are not ported "
+                         "yet (ROADMAP A5)")
     if args.ignore_policy:
         raise SystemExit("--ignore-policy needs the rego interpreter, "
                          "which is not ported yet (ROADMAP A4)")
@@ -145,7 +156,8 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
     cache, the scan from the cache, VEX, the filters, the report and the
     exit code. make_artifact(cache, group, scanners, device) → the
     artifact; cache_for() → the cache, opened once the device is
-    known."""
+    known. An empty artifact_type takes the artifact's own (sbom)."""
+    t_scan = time.perf_counter()
     _refuse_unported(args)
     device = resolve_device(args.device)
     scanners = normalize_scanners(args.scanners)
@@ -157,16 +169,23 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
         if "vuln" in scanners else build_table([])
     javadb.init(cache_dir=args.cache_dir, path=args.java_db)
     cache = cache_for()
-    art = make_artifact(cache, AnalyzerGroup(disabled=disabled), scanners,
-                        device)
+    # license files are classified only under --license-full
+    group = AnalyzerGroup(disabled=disabled, enabled=("license-file",)
+                          if args.license_full else ())
+    art = make_artifact(cache, group, scanners, device)
+    t_inspect = time.perf_counter()
     ref = art.inspect()
+    inspect_s = time.perf_counter() - t_inspect
     if name:
         ref.name = name
     now = fake_now()
     results, os_info = LocalScanner(cache, table, device).scan(
         ref.name, ref.id, ref.blob_ids,
         T.ScanOptions(scanners=scanners,
-                      list_all_packages=args.list_all_pkgs,
+                      # SBOM output lists every package (reference
+                      # run.go forces ListAllPkgs for SBOM formats)
+                      list_all_packages=args.list_all_pkgs
+                      or args.format in SBOM_FORMATS,
                       include_dev_deps=args.include_dev_deps,
                       pkg_types=tuple(args.pkg_types.split(","))),
         now=now)
@@ -180,7 +199,7 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
         ignore_file=parse_ignore_file(args.ignorefile)
         if args.ignorefile else _auto_ignore_file()))
     report = build_report(
-        ref.name, artifact_type, results, os_info,
+        ref.name, artifact_type or ref.type, results, os_info,
         metadata=ref.image_metadata,
         created_at=(now or dt.datetime.now(dt.timezone.utc)).isoformat())
     out = open(args.output, "w") if args.output else sys.stdout
@@ -191,9 +210,13 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
         if args.output:
             out.close()
     if args.debug_launches:
-        # the table load's figures, then the launch counts as the last line
-        print(json.dumps({"table": table_stats}), file=sys.stderr)
-        secrets = art.secret_scanner
+        # the table load's figures, the artifact's inspect (the walk, or
+        # an SBOM's decode) and the whole command after start-up, then
+        # the launch counts as the last line
+        print(json.dumps({"table": table_stats, "inspect_s": inspect_s,
+                          "scan_s": time.perf_counter() - t_scan}),
+              file=sys.stderr)
+        secrets = getattr(art, "secret_scanner", None)
         print(json.dumps({
             "launches": launch_counts(),
             "prefilter_path": dict(secrets.prefilter_path)
@@ -230,6 +253,17 @@ def cmd_image(args) -> int:
                  name=args.image_name)
 
 
+def cmd_sbom(args) -> int:
+    """An SBOM document as the artifact (reference cli.py:1129): no walk,
+    an in-memory cache, and the report typed by the document's format."""
+    from .sbom.artifact import SBOMArtifact
+
+    def artifact(cache, group, scanners, device):
+        with open(args.target, "rb") as f:
+            return SBOMArtifact(f.read(), cache, name=args.target)
+    return _scan(args, artifact, MemoryCache, "", ())
+
+
 def cmd_fs(args) -> int:
     """rootfs, fs and repo (a local path): one tree as one blob, with the
     analyzers the reference disables per command (run.go:167-224)."""
@@ -240,11 +274,11 @@ def cmd_fs(args) -> int:
         if not os.path.exists(args.target):
             raise SystemExit(f"{args.target}: no such path; remote "
                              f"repositories are not ported")
-        disabled = INDIVIDUAL_PKG_ANALYZERS + OS_ANALYZERS
+        disabled = INDIVIDUAL_PKG_ANALYZERS + OS_ANALYZERS + ("sbom",)
         artifact_type = T.ArtifactType.REPOSITORY
         args.pkg_types = "library"  # repo scans only language packages
     else:
-        disabled = INDIVIDUAL_PKG_ANALYZERS
+        disabled = INDIVIDUAL_PKG_ANALYZERS + ("sbom",)
         artifact_type = T.ArtifactType.FILESYSTEM
 
     def artifact(cache, group, scanners, device):
@@ -254,7 +288,9 @@ def cmd_fs(args) -> int:
             args.target, cache, group=group, scanners=scanners,
             secret_scanner=secrets, secret_config_path=secret_cfg,
             skip_files=_rel_globs(args.skip_files, args.target),
-            skip_dirs=_rel_globs(args.skip_dirs, args.target))
+            skip_dirs=_rel_globs(args.skip_dirs, args.target),
+            # SPDX records each lockfile's sha1 (reference FileChecksum)
+            file_checksum=args.format == "spdx-json")
     return _scan(args, artifact, MemoryCache, artifact_type, disabled)
 
 
@@ -320,10 +356,8 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
                    help="trivy.yaml config file (flag > TRIVY_* env > "
                         "file > default)")
     p.add_argument("--scanners", "--security-checks", default="vuln",
-                   help="comma-separated, of: vuln, secret")
-    p.add_argument("--format", "-f", default="json", choices=FORMATS,
-                   help="cyclonedx and spdx-json are refused: SBOM output "
-                        "is not ported yet")
+                   help="comma-separated, of: vuln, secret, license")
+    p.add_argument("--format", "-f", default="json", choices=FORMATS)
     p.add_argument("--template", "-t", default="",
                    help="output template ('...' inline or @path)")
     p.add_argument("--output", "-o", default="",
@@ -345,6 +379,9 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--secret-config", default=DEFAULT_SECRET_CONFIG,
                    help="secret rules file; the file itself is never "
                         "scanned")
+    p.add_argument("--license-full", action="store_true",
+                   help="also classify license FILES by full text "
+                        "(LICENSE/COPYING/NOTICE)")
     p.add_argument("--skip-files", action="append", default=[],
                    help="glob of files to leave out (repeatable)")
     p.add_argument("--skip-dirs", action="append", default=[],
@@ -378,9 +415,10 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
                    help="cuda (default) or cpu; there is no automatic "
                         "fallback to the CPU, and no env or config key")
     p.add_argument("--debug-launches", action="store_true",
-                   help="print the table load's figures, then the "
-                        "kernels' launch counts and the secret prefilter "
-                        "paths, as JSON lines on stderr")
+                   help="print the table load's figures and the "
+                        "inspect and scan times, then the kernels' launch "
+                        "counts and the secret prefilter paths, as JSON "
+                        "lines on stderr")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -388,10 +426,10 @@ def build_parser() -> argparse.ArgumentParser:
     # exact match, so prefix abbreviations must not parse
     ap = argparse.ArgumentParser(
         prog="trivy_tpu_torch", allow_abbrev=False,
-        description="Vulnerability (OS and language packages) and secret "
-                    "scanning of image archives, root filesystems and "
-                    "source trees, with the advisory join and the secret "
-                    "prefilter on CUDA.")
+        description="Vulnerability (OS and language packages), secret "
+                    "and license scanning of image archives, root "
+                    "filesystems, source trees and SBOMs, with the "
+                    "advisory join and the secret prefilter on CUDA.")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser(
         "image", help="scan a docker-save or OCI-layout image archive")
@@ -401,6 +439,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "containerd sources are not ported")
     p.add_argument("--input", default="",
                    help="docker-save or OCI-layout tarball to scan")
+    p.add_argument("--sbom-sources", default="",
+                   help="refused: external SBOM sources (rekor) are not "
+                        "ported yet")
     _scan_flags(p)
     p.set_defaults(func=cmd_image)
     for name, aliases, what in (
@@ -412,6 +453,11 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("target")
         _scan_flags(p)
         p.set_defaults(func=cmd_fs)
+    p = sub.add_parser("sbom", help="scan an SBOM (CycloneDX or SPDX, bare "
+                                    "or in an in-toto attestation)")
+    p.add_argument("target")
+    _scan_flags(p)
+    p.set_defaults(func=cmd_sbom)
     p = sub.add_parser("convert", help="re-render a saved JSON report")
     p.add_argument("report")
     p.add_argument("--format", "-f", default="table",

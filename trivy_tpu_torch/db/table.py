@@ -21,6 +21,7 @@ verification, report strings) and a vulnerability-detail dict for FillInfo
 
 from __future__ import annotations
 
+import hashlib
 import json
 from dataclasses import dataclass, field
 from typing import Optional
@@ -100,6 +101,7 @@ class AdvisoryTable:
         self.sources = sorted({g.source for g in groups})
         self._device: dict | None = None   # torch.device → tensors
         self._hash_u64 = None
+        self._digest: Optional[str] = None
 
     def sources_for_prefix(self, prefix: str) -> list[str]:
         """Buckets matching an ecosystem prefix — the columnar equivalent
@@ -109,6 +111,26 @@ class AdvisoryTable:
 
     def __len__(self):
         return self.hash.shape[0]
+
+    def content_digest(self) -> str:
+        """Deterministic digest of everything that feeds a result: the
+        join arrays, the groups' report metadata, the FillInfo details
+        and the side tables; the same value as the JAX package's table
+        gives for the same rows. Computed once."""
+        if self._digest is None:
+            h = hashlib.sha256()
+            for arr in (self.hash, self.lo_tok, self.hi_tok,
+                        self.flags, self.group):
+                h.update(str(arr.shape).encode())
+                h.update(np.ascontiguousarray(arr).tobytes())
+            for g in self.groups:
+                h.update(f"{g.source}|{g.pkg_name}|{g.vuln_id}|"
+                         f"{g.fixed_version}|{g.status}|{g.severity}|"
+                         f"{g.raw_specs}\n".encode())
+            h.update(json.dumps(self.details, sort_keys=True).encode())
+            h.update(json.dumps(self.aux, sort_keys=True).encode())
+            self._digest = "sha256:" + h.hexdigest()
+        return self._digest
 
     @property
     def hash_u64(self) -> np.ndarray:

@@ -7,8 +7,9 @@ blobs invalidate when an analyzer changes (pkg/fanal/cache/key.go:18-60).
 The port registers the OS-release, apk, dpkg, rpm and Red Hat analyzers,
 the language lockfile analyzers (lockfiles.py, lockfiles_extra.py, pip)
 and the installed-package ones (python-pkg, conda-pkg, gobinary, jar,
-node-pkg, gemspec, rustbinary). license-file, executable, sbom and
-misconf are not ported."""
+node-pkg, gemspec, rustbinary), the in-image `sbom` analyzer and the
+opt-in `license-file` one. executable (ROADMAP A5) and misconf (A4) are
+not ported."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class AnalysisResult:
     repository: Optional[T.Repository] = None
     package_infos: list = field(default_factory=list)
     applications: list = field(default_factory=list)
+    licenses: list = field(default_factory=list)   # [DetectedLicense]
     # files owned by the OS package manager; consumed by the system-file
     # filter post-handler (reference analyzer.AnalysisResult
     # SystemInstalledFiles)
@@ -42,6 +44,7 @@ class AnalysisResult:
             self.repository = other.repository
         self.package_infos.extend(other.package_infos)
         self.applications.extend(other.applications)
+        self.licenses.extend(other.licenses)
         self.system_installed_files.extend(other.system_installed_files)
         if other.build_info is not None:
             if self.build_info is None:
@@ -95,8 +98,9 @@ def register_post(cls):
 
 
 def _ensure_loaded():
-    from . import (apk, binaries, dpkg, lockfiles,  # noqa: F401
-                   lockfiles_extra, os_release, python, redhat, rpm)
+    from . import (apk, binaries, dpkg, license_file,  # noqa: F401
+                   lockfiles, lockfiles_extra, os_release, python,
+                   redhat, rpm, sbom)
 
 
 # analyzers that are opt-in everywhere (reference: license scanning is

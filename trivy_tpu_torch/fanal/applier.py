@@ -6,7 +6,9 @@ accumulated subtree (docker.go:96-104); later OS detections win; package
 and application files replace by path; every final element is attributed
 to its origin layer — the FIRST layer that contained the same package
 (lookupOriginLayerForPkg, docker.go:40) — and PURLs are attached from
-the detected OS (docker.go:219-244). A filesystem tree is one blob."""
+the detected OS (docker.go:219-244). Loose-file licenses and ingest
+annotations are carried from every blob in layer order. A filesystem
+tree is one blob."""
 
 from __future__ import annotations
 
@@ -68,6 +70,11 @@ def apply_layers(blobs: list[T.BlobInfo]) -> T.ArtifactDetail:
         for finding in sec.findings:
             finding.layer = layer
         detail.secrets.append(sec)
+    for blob in blobs:
+        detail.licenses.extend(blob.licenses)
+        # degradation annotations squash additively in layer order: a
+        # later complete layer cannot mask an earlier degraded one
+        detail.ingest_errors.extend(blob.ingest_errors)
 
     detail.packages.sort(key=lambda p: (p.name, p.version, p.file_path))
     _fill_identifiers(detail)

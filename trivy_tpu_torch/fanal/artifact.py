@@ -211,26 +211,30 @@ class FilesystemArtifact(_Artifact):
     """A directory tree as one synthetic blob
     (pkg/fanal/artifact/local/fs.go:114): walk → post-analyzers over the
     whole tree → blob info → secret scan → content-addressed cache key →
-    cache put. The skip globs and `secret_config_path` are relative to
+    cache put. `file_checksum` stamps lockfile packages with their
+    file's sha1 (the SPDX formats). The skip globs and `secret_config_path` are relative to
     the root (the CLI's `_rel_globs` makes them so)."""
 
     def __init__(self, root: str, cache,
                  group: Optional[AnalyzerGroup] = None,
                  scanners: tuple = ("vuln",), secret_scanner=None,
                  secret_config_path: str = DEFAULT_SECRET_CONFIG,
-                 skip_files: tuple = (), skip_dirs: tuple = ()):
+                 skip_files: tuple = (), skip_dirs: tuple = (),
+                 file_checksum: bool = False):
         super().__init__(cache, group, scanners, secret_scanner)
         self.root = root
         self.secret_config_path = secret_config_path
         self.skip_files = tuple(skip_files)
         self.skip_dir_globs = tuple(skip_dirs)
+        self.file_checksum = file_checksum
 
     def inspect(self) -> ArtifactReference:
         scan = walk_fs(self.root, self.group,
                        collect_secrets=self.want_secrets,
                        secret_config_path=self.secret_config_path,
                        skip_files=self.skip_files,
-                       skip_dir_globs=self.skip_dir_globs)
+                       skip_dir_globs=self.skip_dir_globs,
+                       file_checksum=self.file_checksum)
         bi = blob_info(scan)
         if self.want_secrets and scan.secret_files:
             bi.secrets = self.secret_scanner.scan_files(scan.secret_files)

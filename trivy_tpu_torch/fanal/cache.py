@@ -226,8 +226,20 @@ def blob_from_json(j: dict) -> T.BlobInfo:
             packages=[_pkg_from_json(p) for p in a.get("Packages", [])])
             for a in j.get("Applications", [])],
         secrets=[_secret_from_json(s) for s in j.get("Secrets", [])],
+        licenses=[T.DetectedLicense(
+            severity=li.get("Severity", ""),
+            category=li.get("Category", ""),
+            pkg_name=li.get("PkgName", ""),
+            file_path=li.get("FilePath", ""),
+            name=li.get("Name", ""), text=li.get("Text", ""),
+            confidence=li.get("Confidence", 1.0),
+            link=li.get("Link", ""))
+            for li in j.get("Licenses", [])],
         build_info=T.BuildInfo(content_sets=bi_j.get("ContentSets", []),
                                nvr=bi_j.get("Nvr", ""),
                                arch=bi_j.get("Arch", ""))
         if bi_j else None,
+        # partial-scan annotations survive the cache round trip, so a
+        # warm scan of a partial blob still reports them
+        ingest_errors=j.get("IngestErrors", []),
     )

@@ -10,6 +10,7 @@ order."""
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 import tarfile
@@ -198,12 +199,14 @@ def _norm_rel(path: str) -> str:
 def walk_fs(root: str, group: AnalyzerGroup,
             collect_secrets: bool = False,
             secret_config_path: str = DEFAULT_SECRET_CONFIG,
-            skip_files: tuple = (), skip_dir_globs: tuple = ()
-            ) -> BlobScan:
+            skip_files: tuple = (), skip_dir_globs: tuple = (),
+            file_checksum: bool = False) -> BlobScan:
     """Walk a directory tree through the analyzers; per-file results
     merge in sorted path order so the output is deterministic. The skip
     globs match root-relative paths; the walk-relative
-    `secret_config_path` is never a secret candidate."""
+    `secret_config_path` is never a secret candidate. With
+    `file_checksum` (the SPDX formats), each package of an application
+    file gets that file's sha1 as its digest."""
     scan = BlobScan(result=AnalysisResult())
     root = os.path.abspath(root)
     skip_files = normalize_skip_globs(skip_files)
@@ -241,6 +244,8 @@ def walk_fs(root: str, group: AnalyzerGroup,
             if wants:
                 result = AnalysisResult()
                 group.analyze_file(rel, content, result)
+                if file_checksum:
+                    _stamp_sha1(result, rel, content)
             outputs.append((rel, result, content if wants_post else None,
                             content if wants_secret
                             and not looks_binary(content) else None))
@@ -253,6 +258,17 @@ def walk_fs(root: str, group: AnalyzerGroup,
             scan.secret_files.append((rel, secret))
     group.post_analyze(scan.post_files, scan.result)
     return scan
+
+
+def _stamp_sha1(result: AnalysisResult, rel: str, content: bytes) -> None:
+    """The reference's FileChecksum artifact option: SPDX output records
+    the sha1 of the file each package came from."""
+    digest = "sha1:" + hashlib.sha1(content).hexdigest()
+    for app in result.applications:
+        if app.file_path == rel:
+            for pkg in app.packages:
+                if not pkg.digest:
+                    pkg.digest = digest
 
 
 def blob_info(scan: BlobScan, diff_id: str = "",
@@ -268,6 +284,7 @@ def blob_info(scan: BlobScan, diff_id: str = "",
         repository=r.repository,
         package_infos=sorted(r.package_infos, key=lambda p: p.file_path),
         applications=sorted(r.applications, key=lambda a: a.file_path),
+        licenses=r.licenses,
         build_info=r.build_info,
     )
     post_handle(r, bi)

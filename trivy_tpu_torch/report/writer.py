@@ -4,9 +4,10 @@ JSON matches the reference schema (pkg/types/report.go SchemaVersion 2,
 Go PascalCase field names with omitempty), byte for byte what the JAX
 package writes for the same results; so do the table, SARIF, template,
 GitHub and cosign-vuln writers, which are the port's copies of the JAX
-package's. `report_from_json` decodes a saved JSON report for
-`convert`, the same subset of fields the JAX package decodes. The SBOM
-formats (CycloneDX, SPDX) are not ported yet (ROADMAP A2)."""
+package's, and the SBOM formats (`sbom/io.write_sbom`: CycloneDX, and
+SPDX JSON for both `spdx-json` and `spdx`). `report_from_json` decodes a
+saved JSON report for `convert`, the same subset of fields the JAX
+package decodes."""
 
 from __future__ import annotations
 
@@ -253,7 +254,7 @@ def write_report(report: T.Report, fmt: str = "json", output=None,
         from .predicate import write_cosign_vuln
         write_cosign_vuln(report, out, version=app_version)
     elif fmt in SBOM_FORMATS:
-        raise ValueError(f"--format {fmt}: SBOM output is not ported yet "
-                         f"(ROADMAP A2, the next slice of the port)")
+        from ..sbom.io import write_sbom
+        write_sbom(report, fmt, out, app_version=app_version)
     else:
         raise ValueError(f"unsupported format {fmt!r}")

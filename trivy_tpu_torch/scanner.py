@@ -5,7 +5,9 @@ FillInfo → result assembly, with detection as batched device joins.
 Same (target, artifact id, blob ids, options) → (results, os) contract
 as the JAX package's LocalScanner: the blobs come from the cache, every
 target's OS and per-application query batches are built on the host,
-and ONE detect_many call joins them all (one join launch per batch)."""
+and ONE detect_many call joins them all (one join launch per batch).
+Then come the results that need no join: the ingest degradations, the
+secrets and, under the license scanner, the license results."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from .detect.fill import fill_info
 from .detect.langpkg import LangpkgScanner
 from .detect.ospkg import OspkgScanner
 from .fanal.applier import apply_layers
+from .licensing import scan_license_name
 
 
 class LocalScanner:
@@ -119,16 +122,29 @@ class LocalScanner:
             if keep:
                 vuln_results.setdefault(idx, []).append(res)
 
-        out = []
-        for idx, detail in enumerate(details):
-            results = vuln_results.get(idx, [])
-            if T.Scanner.SECRET in options.scanners:
-                for sec in detail.secrets:
-                    results.append(T.Result(
-                        target=sec.file_path, clazz=T.ResultClass.SECRET,
-                        secrets=sec.findings))
-            out.append((results, detail.os))
-        return out
+        return [(self._finish_item(details[idx], vuln_results.get(idx, []),
+                                   options), details[idx].os)
+                for idx in range(len(items))]
+
+    @staticmethod
+    def _finish_item(detail: T.ArtifactDetail, results: list,
+                     options: T.ScanOptions) -> list[T.Result]:
+        """The results after the vulnerability ones, in the reference's
+        order: the ingest degradations, the secrets, the licenses."""
+        # a degraded analysis (a malformed or over-budget SBOM) says
+        # what is missing and why, instead of under-reporting in silence
+        if detail.ingest_errors:
+            results.append(T.Result(
+                target="Ingest Degradations", clazz=T.ResultClass.INGEST,
+                ingest_errors=list(detail.ingest_errors)))
+        if T.Scanner.SECRET in options.scanners:
+            for sec in detail.secrets:
+                results.append(T.Result(
+                    target=sec.file_path, clazz=T.ResultClass.SECRET,
+                    secrets=sec.findings))
+        if T.Scanner.LICENSE in options.scanners:
+            results.extend(_license_results(detail))
+        return results
 
     def _vuln_result(self, vulns, target: str, clazz, rtype, packages,
                      options: T.ScanOptions) -> T.Result:
@@ -142,6 +158,34 @@ class LocalScanner:
             res.packages = sorted(packages,
                                   key=lambda p: (p.name, p.version))
         return res
+
+
+def _license_results(detail: T.ArtifactDetail) -> list[T.Result]:
+    """Reference scanLicenses (local/scan.go:280-360): one result for the
+    OS packages, one per application and one for the loose license
+    files, each emitted even when empty."""
+    out = [T.Result(target="OS Packages", clazz=T.ResultClass.LICENSE,
+                    licenses=[_declared(pkg, lic)
+                              for pkg in detail.packages
+                              for lic in pkg.licenses])]
+    for app in detail.applications:
+        out.append(T.Result(
+            target=app.file_path or PKG_TARGETS.get(app.type, app.type),
+            clazz=T.ResultClass.LICENSE,
+            licenses=[_declared(lib, lic, lib.file_path or app.file_path)
+                      for lib in app.packages for lic in lib.licenses]))
+    out.append(T.Result(
+        target="Loose File License(s)", clazz=T.ResultClass.LICENSE_FILE,
+        licenses=sorted(detail.licenses,
+                        key=lambda li: (li.file_path, li.name))))
+    return out
+
+
+def _declared(pkg: T.Package, lic: str,
+              file_path: str = "") -> T.DetectedLicense:
+    cat, sev = scan_license_name(lic)
+    return T.DetectedLicense(severity=sev, category=cat, pkg_name=pkg.name,
+                             name=lic, file_path=file_path, confidence=1.0)
 
 
 # friendly targets for aggregated individual-package results

@@ -334,8 +334,15 @@ class BlobInfo(JsonMixin):
     package_infos: list = field(default_factory=list)   # [PackageInfo]
     applications: list = field(default_factory=list)    # [Application]
     secrets: list = field(default_factory=list)         # [Secret]
+    licenses: list = field(default_factory=list)        # [DetectedLicense]
     build_info: Optional[BuildInfo] = None
-    _json_names = {"diff_id": "DiffID", "os": "OS"}
+    # per-stage degradation annotations (fanal/ingest.py); a non-empty
+    # list marks this blob a PARTIAL analysis, cached only under a
+    # salted partial id and surfaced in the report
+    ingest_errors: list = field(default_factory=list)
+    _json_names = {"diff_id": "DiffID", "os": "OS",
+                   "ingest_errors": "IngestErrors"}
+    _json_raw = ("ingest_errors",)
 
 
 @dataclass
@@ -356,7 +363,12 @@ class ArtifactDetail(JsonMixin):
     packages: list = field(default_factory=list)      # [Package]
     applications: list = field(default_factory=list)  # [Application]
     secrets: list = field(default_factory=list)       # [Secret]
-    _json_names = {"os": "OS"}
+    licenses: list = field(default_factory=list)      # [DetectedLicense]
+    # the blobs' annotations squashed in layer order (applier.py); the
+    # scanner surfaces them as one ResultClass.INGEST result
+    ingest_errors: list = field(default_factory=list)
+    _json_names = {"os": "OS", "ingest_errors": "IngestErrors"}
+    _json_raw = ("ingest_errors",)
 
 
 # --- db / vulnerability types (trivy-db pkg/types) ---
@@ -437,8 +449,7 @@ class DetectedVulnerability(JsonMixin):
 
 @dataclass
 class DetectedLicense(JsonMixin):
-    """Reference pkg/types/license.go. The port detects no licenses yet;
-    `convert` reads them from a saved report."""
+    """Reference pkg/types/license.go."""
     severity: str = ""
     category: str = ""
     pkg_name: str = ""
@@ -506,7 +517,10 @@ class Result(JsonMixin):
     misconfigurations: list = field(default_factory=list)
     secrets: list = field(default_factory=list)
     licenses: list = field(default_factory=list)
-    _json_names = {"clazz": "Class"}
+    # degradation annotations (ResultClass.INGEST results)
+    ingest_errors: list = field(default_factory=list)
+    _json_names = {"clazz": "Class", "ingest_errors": "IngestErrors"}
+    _json_raw = ("ingest_errors",)
     _keep_zero = ("target",)
 
     def is_empty(self) -> bool:
@@ -517,7 +531,8 @@ class Result(JsonMixin):
             or self.misconf_summary.exceptions)
         return not (self.packages or self.vulnerabilities
                     or self.misconfigurations or self.secrets
-                    or self.licenses or has_summary)
+                    or self.licenses or self.ingest_errors
+                    or has_summary)
 
 
 @dataclass
