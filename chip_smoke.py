@@ -127,11 +127,32 @@ Phases, one JSON line each; any failure exits non-zero:
            shift-or launch and one join launch per batch, and each join
            kernel on the flattened table's batches against its plain
            version.
+  image_remote
+           `image NAME` as users type it: the image_apps image served by
+           an in-process registry on 127.0.0.1 with token auth
+           (fanal.fixtures.OCIRegistry), `image http://127.0.0.1:PORT/
+           apps:1 --image-src remote` against the apps table, its layers
+           streamed through the ingest pipeline: cold, warm (every layer
+           a cache hit, the same report) and with --ingest-serial, each
+           with the image_apps --input run's vulnerability results and
+           secrets; per run the wall, start-up, table load and walk
+           seconds and the walkers used; one shift-or launch and one join
+           launch per batch, each kernel on the image's inputs against
+           its plain version; the pull of every blob alone and its share
+           of the cold wall. Then a hostile image against the fixture DB
+           (a well-formed Alpine layer, a decompression bomb, a member
+           flood under --ingest-max-members, a file over
+           --ingest-max-file-bytes): the Alpine findings and one "Ingest
+           Degradations" annotation of the pinned kind per hostile layer,
+           and a second run that walks the three partial layers again.
+           Then no --db: a small trivy.db pulled from --db-repository into
+           a fresh cache dir, flattened and scanned (equal to --db on the
+           same file), and a tampered DB blob refused and quarantined.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
-the language phases' under "at_fs", "at_image_apps", "at_sbom" and
-"at_ci";
+the language phases' under "at_fs", "at_image_apps", "at_sbom",
+"at_ci" and "at_image_remote";
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -142,12 +163,14 @@ there is no CUDA device or no port beside it.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 
@@ -852,6 +875,28 @@ def run_rootfs(root: str, expected_secrets: set) -> dict:
 def _diff_ids(layers: list[bytes]) -> list[str]:
     from trivy_tpu_torch.fanal.fixtures import sha256_hex
     return ["sha256:" + sha256_hex(b) for b in layers]
+
+
+# the ingest budgets the hostile image runs under, and the annotation
+# kind each of its layers 1-3 gets (tests/test_torch_pipeline.py pins
+# the same on the CPU)
+HOSTILE_FLAGS = ["--ingest-max-members", "1000",
+                 "--ingest-max-file-bytes", str(1 << 20)]
+HOSTILE_KINDS = {1: "bomb", 2: "budget.members", 3: "budget.file_bytes"}
+
+
+def hostile_layers() -> list[bytes]:
+    """The uncompressed tars of a hostile image: a well-formed Alpine
+    layer, a decompression bomb (32 MiB of zeros), a flood of 1,500
+    empty members, and a 2 MiB file of seeded random bytes."""
+    from trivy_tpu_torch.fanal.fixtures import tar_bytes
+    rng = np.random.default_rng(SEED + 7)
+    return [tar_bytes({"etc/os-release": ALPINE_OS_RELEASE,
+                       "lib/apk/db/installed": APK_INSTALLED}),
+            tar_bytes({"boom/zeros.bin": bytes(32 << 20)}),
+            tar_bytes({f"flood/f{i:05d}": b"" for i in range(1500)}),
+            tar_bytes({"lib/apk/db/installed":
+                       APK_INSTALLED + rng.bytes(2 << 20)})]
 
 
 def run_image_fixture(tmp: str) -> dict:
@@ -1654,7 +1699,8 @@ def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
         launches=cold_counts["launches"],
         warm_launches=warm_counts["launches"],
         prefilter_path=cold_counts["prefilter_path"])
-    return cold_counts["launches"], at_apps, path, cold, (padded, bank)
+    return (cold_counts["launches"], at_apps, path, cold, (padded, bank),
+            batches)
 
 
 # --- the sbom phase: SBOMs out and in ----------------------------------
@@ -2314,6 +2360,198 @@ def run_ci_at_size(torch, tmp: str, raw: list, rows: int, root: str,
     return a["launches"], at_ci
 
 
+# --- the image_remote phase: `image NAME` from a registry ----------------
+
+def serve_archive(reg, repo: str, tag: str, archive: str) -> str:
+    """A docker-save archive's layer blobs and config served by `reg` as
+    repo:tag → the manifest's digest."""
+    with tarfile.open(archive) as tf:
+        manifest = json.load(tf.extractfile("manifest.json"))[0]
+        config = json.load(tf.extractfile(manifest["Config"]))
+        blobs = [tf.extractfile(p).read() for p in manifest["Layers"]]
+    return reg.put_image(repo, tag, blobs, config["rootfs"]["diff_ids"],
+                         [h["created_by"] for h in config["history"]])
+
+
+def small_db_tree() -> dict:
+    """A trivy.db tree for the Alpine fixture: musl, and openssl (the
+    source package of libssl3 and libcrypto3)."""
+    adv = {"alpine 3.17": {
+        "musl": {"CVE-2025-26519": {"FixedVersion": "1.2.3-r9"}},
+        "openssl": {"CVE-2023-0286": {"FixedVersion": "3.0.8-r0"}}}}
+    tree = {src: {pkg: {v: json.dumps(a).encode() for v, a in vulns.items()}
+                  for pkg, vulns in pkgs.items()}
+            for src, pkgs in adv.items()}
+    tree["vulnerability"] = {
+        "CVE-2025-26519": json.dumps({"Severity": "HIGH"}).encode(),
+        "CVE-2023-0286": json.dumps({"Severity": "HIGH"}).encode()}
+    return tree
+
+
+REMOTE_DB_VULNS = {("musl", "CVE-2025-26519"), ("libssl3", "CVE-2023-0286"),
+                   ("libcrypto3", "CVE-2023-0286")}
+
+
+def _untargeted(report: dict) -> list:
+    """The vulnerability results without what names the source: the OS
+    result's target (the artifact's name) and each finding's layer (a
+    registry's manifest adds the layer digests)."""
+    return [{**{k: v for k, v in r.items() if k != "Target"},
+             "Vulnerabilities": [{k: v for k, v in f.items() if k != "Layer"}
+                                 for f in r.get("Vulnerabilities", [])]}
+            for r in vuln_results(report)]
+
+
+def _failing_cli(args: list) -> str:
+    """A port CLI run that must fail → its stderr."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "trivy_tpu_torch", *args], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode == 0:
+        raise AssertionError(f"{' '.join(args[:2])} did not fail")
+    return proc.stderr
+
+
+def run_image_remote_at_size(torch, tmp: str, table, db: str,
+                             apps_image: str, apps_report: dict,
+                             batches: list, apps_rows) -> tuple:
+    """`image NAME --image-src remote`: the image_apps image served by the
+    in-process registry (token auth) and scanned cold, warm and with
+    --ingest-serial against the apps table, held to the image_apps
+    `--input` run; the registry pull alone; a hostile image under the
+    ingest budgets, twice; and the DB pulled from --db-repository, also
+    tampered → (launch counts of the cold run, the kernels on its
+    inputs)."""
+    from trivy_tpu_torch.fanal.fixtures import OCIRegistry, gz_bytes
+    from trivy_tpu_torch.fanal.fixtures import sha256_hex
+    from trivy_tpu_torch.oci import MT_TRIVY_DB, RegistryClient, parse_ref
+    runs = {}
+    with OCIRegistry(token="chip-smoke") as reg:
+        base = f"http://127.0.0.1:{reg.port}"
+        serve_archive(reg, "apps", "1", apps_image)
+        name = f"{base}/apps:1"
+        cache = ["--cache-dir", os.path.join(tmp, "remote-cache")]
+        scan = ["image", name, "--image-src", "remote", "--db", db,
+                "--scanners", "vuln,secret"]
+        reports = {}
+        for run, extra in (("cold", cache), ("warm", cache),
+                           ("serial", ["--ingest-serial"])):
+            reports[run], counts, wall_s = run_port_cli(scan + extra)
+            runs[run] = {**_run_figures(counts, wall_s),
+                         "walk_s": counts["inspect_s"],
+                         "ingest": counts["ingest"],
+                         "prefilter_path": counts["prefilter_path"]}
+            if run == "cold":
+                cold_counts = counts
+            if _untargeted(reports[run]) != _untargeted(apps_report) or \
+                    findings(reports[run])[1] != findings(apps_report)[1]:
+                raise AssertionError(f"image_remote {run}: results differ "
+                                     f"from the image_apps --input run")
+        if {k: v for k, v in reports["warm"].items() if k != "CreatedAt"} \
+                != {k: v for k, v in reports["cold"].items()
+                    if k != "CreatedAt"}:
+            raise AssertionError("image_remote: the warm report differs")
+        ingest = {r: runs[r]["ingest"] for r in runs}
+        if not (ingest["cold"]["pipelined"]
+                and ingest["cold"]["layers_walked"] == 4
+                and ingest["cold"]["partial_layers"] == 0
+                and ingest["warm"]["layers_walked"] == 0
+                and not ingest["serial"]["pipelined"]):
+            raise AssertionError(f"image_remote walks {ingest}")
+        # the pull alone: every blob of the image off the registry, in
+        # this process, as the streaming walk reads them
+        client, ref = RegistryClient(), parse_ref(name)
+        t0 = time.perf_counter()
+        man = client.manifest(ref)
+        pulled = sum(len(client.blob(ref, d["digest"]))
+                     for d in [man["config"], *man["layers"]])
+        pull_s = time.perf_counter() - t0
+
+        # the hostile image: each of layers 1-3 an annotated partial
+        tars = hostile_layers()
+        reg.put_image("hostile", "1", [gz_bytes(t, 6) for t in tars],
+                      _diff_ids(tars))
+        hostile_cache = ["--cache-dir", os.path.join(tmp, "hostile-cache")]
+        hostile = []
+        for _ in range(2):
+            report, counts, wall_s = run_port_cli(
+                ["image", f"{base}/hostile:1", "--image-src", "remote",
+                 "--db", FIXTURE_DB, *HOSTILE_FLAGS, *hostile_cache])
+            ingest_res = [r for r in report["Results"]
+                          if r.get("Class") == "ingest"]
+            kinds = {e["Layer"]: e["Kind"]
+                     for r in ingest_res for e in r["IngestErrors"]}
+            if findings(report)[0] != EXPECTED_VULNS or \
+                    kinds != HOSTILE_KINDS:
+                raise AssertionError(f"hostile image: {kinds}, "
+                                     f"{sorted(findings(report)[0])}")
+            hostile.append({"wall_s": wall_s, "kinds": kinds,
+                            "ingest": counts["ingest"]})
+        if [h["ingest"]["layers_walked"] for h in hostile] != [4, 3]:
+            raise AssertionError(f"hostile walks {hostile}")
+
+        # the DB from --db-repository into a fresh cache dir
+        bolt = os.path.join(tmp, "small-trivy.db")
+        write_bolt_file(bolt, small_db_tree())
+        with open(bolt, "rb") as f:
+            bolt_bytes = f.read()
+        meta = json.dumps({"Version": 2,
+                           "NextUpdate": "2999-01-01T00:00:00Z"}).encode()
+        buf = io.BytesIO()
+        with tarfile.open(fileobj=buf, mode="w:gz") as tf:
+            for member, data in (("trivy.db", bolt_bytes),
+                                 ("metadata.json", meta)):
+                ti = tarfile.TarInfo(member)
+                ti.size = len(data)
+                tf.addfile(ti, io.BytesIO(data))
+        layer = buf.getvalue()
+        reg.put_artifact("trivy-db", "2", [(MT_TRIVY_DB, layer)])
+        # a manifest naming one body, served another
+        tampered = layer + b"\0"
+        reg.put_artifact("trivy-db", "tampered", [(MT_TRIVY_DB, tampered)])
+        reg.blobs["sha256:" + sha256_hex(tampered)] = layer
+        reg.put_image("alpine", "1", [gz_bytes(tars[0], 6)],
+                      _diff_ids(tars[:1]))
+        db_cache = os.path.join(tmp, "db-cache")
+        alpine = ["image", f"{base}/alpine:1", "--image-src", "remote"]
+        pulled_report, db_counts, db_s = run_port_cli(
+            alpine + ["--db-repository", f"{base}/trivy-db:2",
+                      "--cache-dir", db_cache])
+        direct, _c, direct_s = run_port_cli(alpine + ["--db", bolt])
+        if findings(pulled_report)[0] != REMOTE_DB_VULNS or \
+                vuln_results(pulled_report) != vuln_results(direct) or \
+                not os.path.exists(os.path.join(db_cache, "db",
+                                                "trivy.db.npz")):
+            raise AssertionError("the pulled DB's scan differs")
+        bad_cache = os.path.join(tmp, "bad-db-cache")
+        err = _failing_cli(alpine + [
+            "--db-repository", f"{base}/trivy-db:tampered",
+            "--cache-dir", bad_cache])
+        quarantined = os.listdir(os.path.join(bad_cache, "db", "quarantine"))
+        if "blob digest mismatch" not in err or not quarantined or \
+                os.path.exists(os.path.join(bad_cache, "db", "trivy.db")):
+            raise AssertionError(f"tampered DB: {err[-600:]}")
+
+    figures, at_remote, kernel_ms = batch_kernels(torch, table, batches,
+                                                  "image_remote")
+    _expect_launches(cold_counts, figures, "image_remote")
+    padded, bank = apps_rows
+    at_remote["shiftor"] = shiftor_case(torch, bank, padded, "image_remote")
+    kernel_ms += at_remote["shiftor"]["ms"]
+    phase("image_remote", runs=runs, pulled_bytes=pulled, pull_s=pull_s,
+          pull_share_of_cold=pull_s / runs["cold"]["wall_s"],
+          pull_share_of_walk=pull_s / runs["cold"]["walk_s"],
+          batches=figures, kernel_ms=kernel_ms,
+          kernel_share_cold=kernel_ms / 1e3 / runs["cold"]["wall_s"],
+          hostile=hostile,
+          db_pull={"wall_s": db_s, "table": db_counts["table"],
+                   "direct_wall_s": direct_s,
+                   "vulnerabilities": sorted(findings(pulled_report)[0]),
+                   "tampered_quarantined": len(quarantined)},
+          launches=cold_counts["launches"])
+    return cold_counts["launches"], at_remote
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
     """The `fs`, `image_apps`, `sbom` and `ci` phases over one apps
     table, saved as .npz for the first three and written as a trivy.db
@@ -2334,17 +2572,22 @@ def run_language_phases(torch, tmp: str) -> tuple:
           npz_bytes=os.path.getsize(db), build_s=build_s)
     fs_launches, at_fs, root, fs_report, detail, secrets = run_fs_at_size(
         torch, tmp, table, db, names)
-    apps_launches, at_apps, apps_image, apps_report, apps_rows = \
-        run_image_apps_at_size(torch, tmp, table, db, deb, names)
+    apps_launches, at_apps, apps_image, apps_report, apps_rows, \
+        apps_batches = run_image_apps_at_size(torch, tmp, table, db, deb,
+                                              names)
     sbom_launches, at_sbom = run_sbom_at_size(
         torch, tmp, table, db, deb, names, apps_image, apps_report,
         apps_rows)
     ci_launches, at_ci = run_ci_at_size(torch, tmp, raw, len(table), root,
                                         fs_report, detail, secrets)
+    remote_launches, at_remote = run_image_remote_at_size(
+        torch, tmp, table, db, apps_image, apps_report, apps_batches,
+        apps_rows)
     return ({"fs": fs_launches, "image_apps": apps_launches,
-             "sbom": sbom_launches, "ci": ci_launches},
+             "sbom": sbom_launches, "ci": ci_launches,
+             "image_remote": remote_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
-             "at_ci": at_ci})
+             "at_ci": at_ci, "at_image_remote": at_remote})
 
 
 def main() -> int:

@@ -253,24 +253,39 @@ def test_cli_cached_db_like_reference(tmp_path, monkeypatch):
     assert os.path.exists(download.db_path(caches["port"]) + ".npz")
 
 
+def _closed_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def test_cli_without_a_db_is_refused(tmp_path, monkeypatch):
-    """Nothing cached: the reference's "DB unavailable" message, since
-    the download is not ported; with --skip-db-update the reference's
-    own reason. The JAX CLI runs only with --skip-db-update here, which
-    never reaches its download."""
+    """Nothing cached and a --db-repository that does not answer (a
+    closed port on 127.0.0.1): both CLIs' "DB unavailable" message, the
+    download's failure; with --skip-db-update the reference's own
+    reason, without a download."""
+    from trivy_tpu.resilience import RetryPolicy
+    from trivy_tpu_torch import oci
     root = _rootfs(tmp_path)
     monkeypatch.chdir(tmp_path)
-    argv = ["rootfs", root, "--cache-dir", str(tmp_path / "empty")]
-    with pytest.raises(SystemExit, match="DB unavailable: no current DB") \
-            as e:
-        cli.main(argv + ["--device", "cpu"])
-    assert "ROADMAP A5" in str(e.value)
-    with pytest.raises(SystemExit) as port_e:
-        cli.main(argv + ["--device", "cpu", "--skip-db-update"])
-    with pytest.raises(SystemExit) as ref_e:
-        ref_cli.main(argv + ["--skip-db-update"])
-    assert str(port_e.value) == str(ref_e.value)
-    assert str(port_e.value).startswith(
+    fast = dict(attempts=2, base_delay_s=0.001, max_delay_s=0.002)
+    monkeypatch.setattr(download, "DOWNLOAD_RETRY", oci.RetryPolicy(**fast))
+    monkeypatch.setattr(ref_download, "DOWNLOAD_RETRY", RetryPolicy(**fast))
+    repo = f"http://127.0.0.1:{_closed_port()}/aquasecurity/trivy-db:2"
+    argv = ["rootfs", root, "--cache-dir", str(tmp_path / "empty"),
+            "--db-repository", repo]
+    msgs = {}
+    for skip in ([], ["--skip-db-update"]):
+        with pytest.raises(SystemExit) as port_e:
+            cli.main(argv + ["--device", "cpu"] + skip)
+        with pytest.raises(SystemExit) as ref_e:
+            ref_cli.main(argv + skip)
+        assert str(port_e.value) == str(ref_e.value)
+        msgs[bool(skip)] = str(port_e.value)
+    assert msgs[False].startswith(
+        "DB unavailable: trivy-db download from 127.0.0.1:")
+    assert msgs[True].startswith(
         "DB unavailable: --skip-db-update requested but no DB in cache")
 
 

@@ -294,3 +294,51 @@ def test_sbom_on_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
     assert outs[0] == outs[1] and b"CVE-2019-18276" in outs[0]
     assert J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches \
         > before
+
+
+def test_registry_scan_on_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
+    """`image NAME --image-src remote` from the in-process registry,
+    layers walked by the ingest pipeline, on the card: the `--device
+    cpu` report byte for byte (the clock fixed), with one shift-or
+    launch for the image and the join kernel launched."""
+    import contextlib
+    import io
+    import os
+
+    import chip_smoke
+    from trivy_tpu_torch import __main__ as cli
+    from trivy_tpu_torch.fanal.fixtures import (OCIRegistry, gz_bytes,
+                                                sha256_hex, tar_bytes)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TRIVY_TPU_FAKE_NOW", "2026-10-17T00:00:00Z")
+    import numpy as np
+    rng = np.random.default_rng(3)
+    text = chip_smoke.filler_text(rng, 3 << 20) \
+        + chip_smoke.planted_token(rng, "github-pat")
+    layers = [tar_bytes({"etc/os-release": chip_smoke.ALPINE_OS_RELEASE,
+                         "lib/apk/db/installed": chip_smoke.APK_INSTALLED}),
+              tar_bytes({"srv/app/settings.txt": text})]
+    db = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "fixtures", "db", "*.yaml")
+    outs = []
+    with OCIRegistry(token="t") as reg:
+        reg.put_image("alpine", "1", [gz_bytes(b) for b in layers],
+                      ["sha256:" + sha256_hex(b) for b in layers])
+        for device in ("cuda", "cpu"):
+            before = (so.shiftor_cuda.launches, J.csr_join_cuda.launches
+                      + J.csr_join_compact_cuda.launches)
+            out = str(tmp_path / f"{device}.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert cli.main([
+                    "image", f"http://127.0.0.1:{reg.port}/alpine:1",
+                    "--image-src", "remote", "--db", db, "--scanners",
+                    "vuln,secret", "--device", device, "--cache-dir",
+                    str(tmp_path / device), "--output", out]) == 0
+            if device == "cuda":
+                assert so.shiftor_cuda.launches == before[0] + 1
+                assert J.csr_join_cuda.launches \
+                    + J.csr_join_compact_cuda.launches > before[1]
+            with open(out, "rb") as f:
+                outs.append(f.read())
+    assert outs[0] == outs[1]
+    assert b"CVE-2025-26519" in outs[0] and b"github-pat" in outs[0]

@@ -449,9 +449,21 @@ def test_warm_cache_walks_no_layer(in_tmp, capsys, monkeypatch):
     assert _strip(capsys.readouterr().out) == _strip(cold)
 
 
-def test_image_name_without_input_is_refused(in_tmp):
-    with pytest.raises(SystemExit, match="--input <archive> is required"):
-        cli.main(["image", "alpine:3.17", "--device", "cpu"])
+def test_image_name_without_input_is_refused(in_tmp, monkeypatch):
+    """Neither --input nor a name is refused; a name that none of the
+    local sources holds fails with each source's reason (the registry is
+    left out of the chain here: it would leave this machine)."""
+    with pytest.raises(SystemExit,
+                       match="image name or --input <archive> required"):
+        cli.main(["image", "--device", "cpu"])
+    monkeypatch.setenv("DOCKER_HOST", "unix:///nonexistent/docker.sock")
+    monkeypatch.setenv("XDG_RUNTIME_DIR", str(in_tmp / "xdg"))
+    monkeypatch.setenv("CONTAINERD_ROOT", str(in_tmp / "containerd"))
+    with pytest.raises(SystemExit, match=(
+            "image acquisition failed: docker: .*; containerd: no "
+            "containerd store at .*; podman: ")):
+        cli.main(["image", "alpine:3.17", "--image-src",
+                  "docker,containerd,podman", "--device", "cpu"])
 
 
 def test_image_cli_identical_to_reference_in_subprocesses(tmp_path):

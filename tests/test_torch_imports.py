@@ -38,7 +38,8 @@ need = ["trivy_tpu_torch." + m for m in (
     "report.template", "attestation", "license_expr", "licensing",
     "sbom", "sbom.cyclonedx", "sbom.spdx", "sbom.io", "sbom.artifact",
     "fanal.ingest", "fanal.analyzers.sbom", "fanal.analyzers.license_file",
-    "detect.libscan")]
+    "detect.libscan", "fanal.pipeline", "oci", "fanal.daemon",
+    "fanal.containerd")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """
@@ -86,6 +87,14 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
                                    "--scanners", "secret", "--cache-dir",
                                    str(tmp_path / "cache")]),
                  lambda: cli.main(["sbom", image, "--scanners", "license",
+                                   "--cache-dir", str(tmp_path / "cache")]),
+                 # an image by name raises before any source is tried
+                 # (this name would go to a registry on 127.0.0.1)
+                 lambda: cli.main(["image", "http://127.0.0.1:1/a:1",
+                                   "--image-src", "remote", "--cache-dir",
+                                   str(tmp_path / "cache")]),
+                 lambda: cli.main(["image", "alpine:3.19", "--image-src",
+                                   "docker,containerd,podman",
                                    "--cache-dir", str(tmp_path / "cache")])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

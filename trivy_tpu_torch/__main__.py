@@ -27,11 +27,17 @@ document gives an "Ingest Degradations" result, not an error.
 
 `--db` takes a fixture YAML glob, a columnar `.npz` saved by either
 package, or a `trivy.db` BoltDB file, flattened once into a `.npz` memo
-beside it. Without `--db` the cached `<cache-dir>/db/trivy.db` is used
-when its metadata says it will do; the DB download is not ported.
+beside it. Without `--db` the DB is pulled from `--db-repository` into
+`<cache-dir>/db/` when the cached one will not do (`--skip-db-update`:
+use the cached one as it is), then flattened.
 
-`image` reads docker-save and OCI-layout archives; registry, daemon and
-containerd sources and remote repositories are not ported. Each command
+`image` reads docker-save and OCI-layout archives (`--input`), or an
+image by name from the sources of `--image-src` in order: the docker
+and podman daemons' sockets, a containerd store, and a registry, whose
+layers stream into the walk. Image layers walk through the ingest
+pipeline (`--ingest-*` budgets; `--ingest-serial` walks them one by
+one); a hostile layer becomes an "Ingest Degradations" result. Remote
+repositories are not ported. Each command
 disables the analyzers the reference disables for it (run.go:167-224):
 image and rootfs the lockfiles, fs the installed packages, repo the
 installed packages and the OS; fs and repo also the in-image `sbom`
@@ -49,12 +55,13 @@ import glob
 import json
 import os
 import sys
+import tempfile
 import time
 
 from . import __version__, javadb
 from . import types as T
 from .db import AdvisoryTable, build_table
-from .db.download import DEFAULT_REPO, DBError, cached_db, flatten_db
+from .db.download import DEFAULT_REPO, DBError, ensure_db, flatten_db
 from .db.fixtures import load_fixture_files
 from .device import resolve_device
 from .fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS, LOCKFILE_ANALYZERS,
@@ -81,21 +88,25 @@ def load_table(spec: str, cache_dir: str = "", repository: str = "",
                skip_update: bool = False,
                stats: dict | None = None) -> AdvisoryTable:
     """--db: a columnar .npz saved by either package, a trivy.db (through
-    its flatten memo), or a fixture YAML glob; with none, the cached
-    `<cache_dir>/db/trivy.db` if it will do. `stats` (a dict) receives
-    the flatten or load figures."""
+    its flatten memo), or a fixture YAML glob; with none, the DB of
+    `<cache_dir>/db/`, pulled from `repository` when it will not do.
+    `stats` (a dict) receives the download, flatten or load figures."""
     stats = {} if stats is None else stats
     t0 = time.perf_counter()
     if not spec:
         try:
-            spec = cached_db(cache_dir or ".", repository or DEFAULT_REPO,
-                             skip_update=skip_update)
+            table, flat = ensure_db(cache_dir or ".",
+                                    repository or DEFAULT_REPO,
+                                    skip_update=skip_update)
         except DBError as e:
             raise SystemExit(
                 f"DB unavailable: {e}\n"
                 "(pass --db with a trivy.db file, columnar .npz, or "
                 "fixture YAML glob when the registry is unreachable)") \
                 from None
+        stats.update(flat, source="db-repository", rows=len(table),
+                     table_s=time.perf_counter() - t0)
+        return table
     if spec.endswith(".db"):
         table, flat = flatten_db(spec)
         stats.update(flat)
@@ -211,10 +222,11 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
             out.close()
     if args.debug_launches:
         # the table load's figures, the artifact's inspect (the walk, or
-        # an SBOM's decode) and the whole command after start-up, then
-        # the launch counts as the last line
+        # an SBOM's decode), the whole command after start-up and how the
+        # layers walked, then the launch counts as the last line
         print(json.dumps({"table": table_stats, "inspect_s": inspect_s,
-                          "scan_s": time.perf_counter() - t_scan}),
+                          "scan_s": time.perf_counter() - t_scan,
+                          "ingest": getattr(art, "ingest_figures", {})}),
               file=sys.stderr)
         secrets = getattr(art, "secret_scanner", None)
         print(json.dumps({
@@ -236,21 +248,115 @@ def _auto_ignore_file():
     return None
 
 
-def cmd_image(args) -> int:
-    if not args.input:
-        raise SystemExit("--input <archive> is required: this port scans "
-                         "archives")
+IMAGE_SOURCES = ("docker", "containerd", "podman", "remote")
+_INGEST_FLAG_FIELDS = ("walkers", "analyzers", "max_file_bytes",
+                       "max_layer_bytes", "max_members",
+                       "layer_deadline_ms", "max_inflight_bytes",
+                       "tenant_walker_share", "tenant_byte_share")
 
-    def artifact(cache, group, scanners, device):
-        secrets, secret_cfg = _secret_scanner(args, scanners, device)
-        return ImageArchiveArtifact(
-            args.input, cache, group=group, scanners=scanners,
-            secret_scanner=secrets, secret_config_path=secret_cfg,
-            skip_files=args.skip_files, skip_dirs=args.skip_dirs)
-    # lockfile analyzers are off for image scans (run.go:167)
-    return _scan(args, artifact, lambda: open_cache("fs", args.cache_dir),
-                 T.ArtifactType.CONTAINER_IMAGE, LOCKFILE_ANALYZERS,
-                 name=args.image_name)
+
+def _ingest_options(args):
+    """The ingest pipeline's options from the --ingest-* flags, also
+    installed as the process default (reference cli.py:770)."""
+    from .fanal.pipeline import IngestOptions, set_default_ingest
+    opts = IngestOptions(
+        enabled=not args.ingest_serial,
+        **{f: getattr(args, "ingest_" + f) for f in _INGEST_FLAG_FIELDS})
+    set_default_ingest(opts)
+    return opts
+
+
+def _acquire_image(args) -> tuple:
+    """An image name through the sources of --image-src, strictly in
+    their order (reference image.go:42-56, cli.py:801-880) → (source,
+    what its artifact needs, a temporary archive to remove or None)."""
+    if not args.image_name:
+        raise SystemExit("image name or --input <archive> required")
+    sources = [s.strip() for s in args.image_src.split(",") if s.strip()]
+    unknown = [s for s in sources if s not in IMAGE_SOURCES]
+    if unknown or not sources:
+        raise SystemExit(
+            f"unknown --image-src {','.join(unknown or ['(empty)'])!r}"
+            " (valid: docker, containerd, podman, remote)")
+    errors = []
+    for src in sources:
+        if src == "containerd":
+            from .fanal.containerd import ContainerdError, ContainerdStore
+            store = ContainerdStore()
+            try:
+                if not store.available():
+                    raise ContainerdError(
+                        f"no containerd store at {store.root}")
+                return src, (store, store.resolve(args.image_name)), None
+            except ContainerdError as e:
+                errors.append(f"containerd: {e}")
+        elif src in ("docker", "podman"):
+            from .fanal.daemon import DaemonError, save_from_any_daemon
+            fd, tmp = tempfile.mkstemp(suffix=".tar")
+            os.close(fd)
+            try:
+                save_from_any_daemon(args.image_name, tmp, sources=(src,))
+                return src, tmp, tmp
+            except DaemonError as e:
+                errors.append(f"{src}: {e}")
+                os.unlink(tmp)
+        else:
+            from .oci import OCIError, default_client, parse_ref
+            try:
+                # the client and manifest serve the artifact too (one
+                # token handshake)
+                client = default_client()
+                return src, (client, client.manifest(
+                    parse_ref(args.image_name),
+                    args.platform or "linux/amd64")), None
+            except OCIError as e:
+                errors.append(f"remote: {e}")
+    raise SystemExit("image acquisition failed: " + "; ".join(errors))
+
+
+def cmd_image(args) -> int:
+    """An image archive (--input), or an image by name from the first
+    source of --image-src that has it."""
+    from .oci import OCIError
+    resolve_device(args.device)   # before any source is tried
+    _refuse_unported(args)
+    source, target, tmp = ("archive", args.input, None) if args.input \
+        else _acquire_image(args)
+    platform = args.platform or "linux/amd64"
+    try:
+        ingest = _ingest_options(args)
+
+        def artifact(cache, group, scanners, device):
+            secrets, secret_cfg = _secret_scanner(args, scanners, device)
+            kw = dict(group=group, scanners=scanners,
+                      secret_scanner=secrets, secret_config_path=secret_cfg,
+                      skip_files=args.skip_files, skip_dirs=args.skip_dirs)
+            if source == "remote":
+                from .fanal.artifact import RegistryArtifact
+                client, manifest = target
+                return RegistryArtifact(
+                    args.image_name, cache, platform=platform,
+                    client=client, manifest=manifest, ingest=ingest, **kw)
+            if source == "containerd":
+                from .fanal.containerd import ContainerdArtifact
+                store, resolved = target
+                return ContainerdArtifact(
+                    args.image_name, cache, platform=platform, store=store,
+                    target=resolved, **kw)
+            return ImageArchiveArtifact(target, cache, ingest=ingest, **kw)
+        # lockfile analyzers are off for image scans (run.go:167)
+        return _scan(args, artifact,
+                     lambda: open_cache("fs", args.cache_dir),
+                     T.ArtifactType.CONTAINER_IMAGE, LOCKFILE_ANALYZERS,
+                     name=args.image_name)
+    except OCIError as e:
+        if source != "remote":
+            raise
+        raise SystemExit(f"image acquisition failed: remote: {e}") \
+            from None
+    finally:
+        if tmp is not None:
+            os.unlink(tmp)
 
 
 def cmd_sbom(args) -> int:
@@ -397,8 +503,8 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
                         "columnar .npz, or a fixture YAML glob; without "
                         "it <cache-dir>/db/trivy.db")
     p.add_argument("--db-repository", default=DEFAULT_REPO,
-                   help="OCI repository of the DB (its download is not "
-                        "ported)")
+                   help="OCI repository the DB is pulled from when "
+                        "--db is not given")
     p.add_argument("--skip-db-update", action="store_true",
                    help="use the cached DB without checking freshness")
     p.add_argument("--pkg-types", default="os,library",
@@ -411,6 +517,42 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
                    help="a local trivy-java.db (jar sha1 → GAV); "
                         "defaults to <cache-dir>/javadb/trivy-java.db "
                         "when present")
+    # the ingest pipeline of image sources: budgets bind as the layer
+    # tar streams; a trip gives an annotated partial result
+    p.add_argument("--ingest-serial", action="store_true",
+                   help="walk layers one by one through the serial "
+                        "walker (equal results on well-formed input; no "
+                        "budgets, no containment)")
+    p.add_argument("--ingest-walkers", type=int, default=0,
+                   help="concurrent per-layer walkers (0 = auto: one "
+                        "per core, max 8)")
+    p.add_argument("--ingest-analyzers", type=int, default=0,
+                   help="analyzer pool width for batched dispatch "
+                        "(0 = auto)")
+    p.add_argument("--ingest-max-file-bytes", type=int, default=128 << 20,
+                   help="per-file content cap; larger members are "
+                        "skipped with an annotation (default 128MiB)")
+    p.add_argument("--ingest-max-layer-bytes", type=int, default=2 << 30,
+                   help="per-layer decompressed byte cap, enforced "
+                        "mid-stream (default 2GiB)")
+    p.add_argument("--ingest-max-members", type=int, default=200000,
+                   help="per-layer tar member cap (default 200000)")
+    p.add_argument("--ingest-layer-deadline-ms", type=float,
+                   default=120000.0,
+                   help="per-layer walk deadline; a wedged walk trips "
+                        "the ingest walk breaker and the layer degrades "
+                        "to an annotated partial (default 120000)")
+    p.add_argument("--ingest-max-inflight-bytes", type=int,
+                   default=256 << 20,
+                   help="pipeline-wide cap on file content in the "
+                        "analysis window (default 256MiB)")
+    p.add_argument("--ingest-tenant-walker-share", type=float, default=1.0,
+                   help="largest share of the walker pool one tenant may "
+                        "hold (1.0 = off); untenanted work, every CLI "
+                        "scan, is exempt")
+    p.add_argument("--ingest-tenant-byte-share", type=float, default=1.0,
+                   help="largest share of the in-flight byte window one "
+                        "tenant may hold (1.0 = off)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no automatic "
                         "fallback to the CPU, and no env or config key")
@@ -432,13 +574,17 @@ def build_parser() -> argparse.ArgumentParser:
                     "advisory join and the secret prefilter on CUDA.")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser(
-        "image", help="scan a docker-save or OCI-layout image archive")
+        "image", help="scan a container image by name, or an archive")
     p.add_argument("image_name", nargs="?", default="",
-                   help="name to report for the archive; an image name "
-                        "alone is refused, since registry, daemon and "
-                        "containerd sources are not ported")
+                   help="the image (from the sources of --image-src), or "
+                        "the name to report for --input")
     p.add_argument("--input", default="",
                    help="docker-save or OCI-layout tarball to scan")
+    p.add_argument("--platform", default="",
+                   help="os/arch for registry pulls (default linux/amd64)")
+    p.add_argument("--image-src", default=",".join(IMAGE_SOURCES),
+                   help="image source fallback order "
+                        "(docker,containerd,podman,remote)")
     p.add_argument("--sbom-sources", default="",
                    help="refused: external SBOM sources (rekor) are not "
                         "ported yet")

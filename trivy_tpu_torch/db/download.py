@@ -1,12 +1,13 @@
-"""The cached trivy-db: where it lives, whether it will do, and its
-flatten memo.
+"""The trivy-db lifecycle: the OCI download, the staleness gate and the
+flatten memo. The port's copy of the JAX package's db/download.py.
 
-The port's copy of the functions of the JAX package's db/download.py
-that need no network. The reference (pkg/db/db.go) keeps `trivy.db` and
-`metadata.json` under `<cache-dir>/db`; `needs_update` is its staleness
-gate (`NeedsUpdate`, :96). The OCI download itself (`download_db`,
-`ensure_db`) is not ported (ROADMAP A5): when the cache holds no DB that
-will do, the caller reports the DB unavailable.
+The reference (pkg/db/db.go) keeps `trivy.db` and `metadata.json` under
+`<cache-dir>/db`; `needs_update` is its staleness gate (`NeedsUpdate`,
+:96), and `download_db` its `Download` (:153): the OCI artifact of
+`--db-repository` (media type
+application/vnd.aquasec.trivy.db.layer.v1.tar+gzip), its blob checked
+against the manifest's digest, untarred into `<cache-dir>/db`.
+`ensure_db` downloads when the gate says so, then flattens.
 
 `flatten_db` is the step the reference does not need, since it reads
 BoltDB by random access: trivy.db → the columnar AdvisoryTable, saved
@@ -89,15 +90,106 @@ def needs_update(cache_dir: str, skip: bool = False,
     return True
 
 
-def cached_db(cache_dir: str, repository: str = DEFAULT_REPO,
-              skip_update: bool = False) -> str:
-    """→ the path of the cached trivy.db when `needs_update` says it
-    will do; DBError otherwise, since the download is not ported."""
-    if needs_update(cache_dir, skip=skip_update):
-        raise DBError(f"no current DB in {db_dir(cache_dir)}, and the "
-                      f"download from {repository} is not ported "
-                      f"(ROADMAP A5)")
+# the retry of the whole pull: a reset mid-blob surfaces as one
+# OCIError, beneath which oci.py retries each HTTP call
+DOWNLOAD_RETRY = None
+
+
+def _download_retry():
+    global DOWNLOAD_RETRY
+    if DOWNLOAD_RETRY is None:
+        from ..oci import RetryPolicy
+        DOWNLOAD_RETRY = RetryPolicy(attempts=3, base_delay_s=1.0,
+                                     max_delay_s=10.0, budget_s=60.0)
+    return DOWNLOAD_RETRY
+
+
+def _quarantine_blob(cache_dir: str, blob: bytes, want: str,
+                     got: str) -> None:
+    """Keep a body whose digest does not match for inspection, never
+    install it."""
+    qdir = os.path.join(db_dir(cache_dir), "quarantine")
+    path = os.path.join(qdir, f"trivy-db-{got.split(':')[-1][:16]}.blob")
+    try:
+        os.makedirs(qdir, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, path)
+    except OSError:
+        path = "(quarantine write failed)"
+    print(f"trivy-db blob digest mismatch: manifest says {want}, body is "
+          f"{got}; quarantined to {path} and retrying", file=sys.stderr)
+
+
+def download_db(cache_dir: str, repository: str = DEFAULT_REPO,
+                client=None) -> str:
+    """Pull the trivy-db OCI artifact into <cache-dir>/db → the trivy.db
+    path. The blob's sha256 is checked against the manifest's digest
+    before the atomic install; a mismatch is quarantined and the pull
+    retried. A client with only `download_artifact_layer` installs
+    without the check, as in the JAX package."""
+    from ..oci import (MT_TRIVY_DB, OCIError, default_client, parse_ref,
+                       retry_on, untar_gz_members)
+    client = client or default_client()
+    ref = parse_ref(repository)
+    verifiable = hasattr(client, "manifest") and hasattr(client, "blob")
+
+    def pull():
+        if not verifiable:
+            return client.download_artifact_layer(ref, MT_TRIVY_DB)
+        man = client.manifest(ref)
+        layer = next((ly for ly in man.get("layers", [])
+                      if ly.get("mediaType") == MT_TRIVY_DB), None)
+        if layer is None:
+            raise OCIError(f"{ref}: no layer with media type "
+                           f"{MT_TRIVY_DB}")
+        digest = str(layer.get("digest") or "")
+        # fetched without the client's own check, so a mismatch is
+        # quarantined and retried here
+        body = client.blob(ref, digest, verify=False)
+        if digest.startswith("sha256:"):
+            actual = "sha256:" + hashlib.sha256(body).hexdigest()
+            if actual != digest:
+                _quarantine_blob(cache_dir, body, digest, actual)
+                raise OCIError(f"{ref}: blob digest mismatch "
+                               f"(manifest {digest}, body {actual})")
+        return body
+
+    try:
+        blob = _download_retry().call(pull,
+                                      should_retry=retry_on(OCIError))
+        members = untar_gz_members(blob)
+    except OCIError as e:
+        raise DBError(f"trivy-db download from {ref} failed: {e}") \
+            from None
+    if "trivy.db" not in members:
+        raise DBError(f"{ref}: layer does not contain trivy.db "
+                      f"(members: {sorted(members)})")
+    os.makedirs(db_dir(cache_dir), exist_ok=True)
+    # the db first and the metadata last, each written then renamed:
+    # metadata only ever vouches for a complete db
+    tmp_db = db_path(cache_dir) + ".tmp"
+    with open(tmp_db, "wb") as f:
+        f.write(members["trivy.db"])
+    os.replace(tmp_db, db_path(cache_dir))
+    tmp_meta = metadata_path(cache_dir) + ".tmp"
+    with open(tmp_meta, "wb") as f:
+        f.write(members.get("metadata.json", b"{}"))
+    os.replace(tmp_meta, metadata_path(cache_dir))
     return db_path(cache_dir)
+
+
+def ensure_db(cache_dir: str, repository: str = DEFAULT_REPO,
+              skip_update: bool = False, client=None):
+    """Download when the cached DB will not do, then flatten →
+    (AdvisoryTable, stats); stats["downloaded"] says whether it
+    pulled."""
+    pulled = needs_update(cache_dir, skip=skip_update)
+    if pulled:
+        download_db(cache_dir, repository, client)
+    table, stats = flatten_db(db_path(cache_dir))
+    return table, {**stats, "downloaded": pulled}
 
 
 def flatten_db(bolt_path: str):

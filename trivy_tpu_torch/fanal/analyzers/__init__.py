@@ -154,6 +154,32 @@ class AnalyzerGroup:
                 if r is not None:
                     result.merge(r)
 
+    def analyze_batch(self, files: list, on_error=None) -> list:
+        """The ingest pipeline's batched dispatch: one pass per analyzer
+        over many files. `files` is [(path, content)]; → one
+        AnalysisResult (or None) per file, each merged in analyzer
+        order, so merging the list in file order equals analyze_file
+        per file in that order. `on_error(analyzer, path, exc)` takes
+        an analyzer's failure on hostile content and the batch goes on;
+        without it the failure propagates, as in analyze_file."""
+        results: list = [None] * len(files)
+        for a in self.analyzers:
+            for i, (path, content) in enumerate(files):
+                if not a.required(path, len(content)):
+                    continue
+                try:
+                    r = a.analyze(path, content)
+                except Exception as e:  # noqa: BLE001 — contained
+                    if on_error is None:
+                        raise
+                    on_error(a.name, path, e)
+                    continue
+                if r is not None:
+                    if results[i] is None:
+                        results[i] = AnalysisResult()
+                    results[i].merge(r)
+        return results
+
     def post_analyze(self, files: dict, result: AnalysisResult) -> None:
         for a in self.post_analyzers:
             subset = {p: c for p, c in files.items() if a.required(p, -1)}

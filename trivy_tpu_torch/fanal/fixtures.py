@@ -4,7 +4,9 @@ with `gz_bytes` where wanted). Zeroed tar/gzip mtimes keep the bytes
 reproducible, so the same seed gives the same image ids. Also the bytes
 of binaries the analyzers identify: a Go binary with inline build info
 (`go_binary_bytes`) and a cargo-auditable Rust binary
-(`rust_audit_elf`).
+(`rust_audit_elf`). And `OCIRegistry`, an in-process OCI distribution
+registry on 127.0.0.1 that serves such images and the trivy-db artifact
+by name.
 
 The docker-save layout is the JAX package's (fanal/fixtures.py) byte for
 byte, so an archive written here scans to the same report in both
@@ -18,7 +20,9 @@ import io
 import json
 import struct
 import tarfile
+import threading
 import zlib
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 
 def tar_bytes(files: dict) -> bytes:
@@ -173,3 +177,148 @@ def rust_audit_elf(packages) -> bytes:
     return (bytes(ehdr) + names + payload + shdr(0, 0, 0)
             + shdr(1, names_off, len(names))
             + shdr(11, payload_off, len(payload)))
+
+
+MT_OCI_MANIFEST = "application/vnd.oci.image.manifest.v1+json"
+MT_OCI_INDEX = "application/vnd.oci.image.index.v1+json"
+MT_OCI_CONFIG = "application/vnd.oci.image.config.v1+json"
+
+
+class OCIRegistry:
+    """An in-process OCI distribution registry (API v2: GET of manifests
+    and blobs) on 127.0.0.1, for tests and the chip smoke run. With a
+    `token` every request needs `Authorization: Bearer <token>`; a 401
+    names the token endpoint (/token) that hands it out. `requests`
+    records each path asked for; tamper with a blob by rewriting
+    `blobs[digest]`."""
+
+    def __init__(self, token: str = ""):
+        self.token = token
+        self.blobs: dict[str, bytes] = {}
+        # (repo, reference) → (media type, manifest bytes)
+        self.manifests: dict[tuple[str, str], tuple[str, bytes]] = {}
+        self.requests: list[str] = []
+        self._srv = None
+        self.port = 0
+
+    # ---- content -------------------------------------------------------
+
+    def put_blob(self, data: bytes) -> str:
+        digest = "sha256:" + sha256_hex(data)
+        self.blobs[digest] = data
+        return digest
+
+    def put_manifest(self, repo: str, reference: str, doc: dict,
+                     media_type: str = MT_OCI_MANIFEST) -> str:
+        raw = json.dumps(doc, sort_keys=True).encode()
+        digest = "sha256:" + sha256_hex(raw)
+        self.manifests[(repo, digest)] = (media_type, raw)
+        if reference:
+            self.manifests[(repo, reference)] = (media_type, raw)
+        return digest
+
+    def put_artifact(self, repo: str, tag: str, layers: list,
+                     config: bytes = b"{}") -> str:
+        """layers: [(media type, bytes)] → the manifest's digest."""
+        return self.put_manifest(repo, tag, {
+            "schemaVersion": 2, "mediaType": MT_OCI_MANIFEST,
+            "config": {"mediaType": MT_OCI_CONFIG,
+                       "digest": self.put_blob(config),
+                       "size": len(config)},
+            "layers": [{"mediaType": mt, "digest": self.put_blob(data),
+                        "size": len(data)} for mt, data in layers]})
+
+    def put_image(self, repo: str, tag: str, layer_blobs: list[bytes],
+                  diff_ids: list[str], created_by=None) -> str:
+        """An image of pre-built layer blobs (plain or gzip, by magic)
+        with the config the archive writers record → its manifest's
+        digest."""
+        config = json.dumps(image_config(diff_ids, created_by),
+                            sort_keys=True).encode()
+        return self.put_artifact(repo, tag, [
+            ("application/vnd.oci.image.layer.v1.tar"
+             + ("+gzip" if b[:2] == b"\x1f\x8b" else ""), b)
+            for b in layer_blobs], config=config)
+
+    def put_index(self, repo: str, tag: str, platforms: dict) -> str:
+        """An index over {"os/arch": manifest digest} → its digest."""
+        entries = []
+        for plat, digest in platforms.items():
+            os_, _, arch = plat.partition("/")
+            mt, raw = self.manifests[(repo, digest)]
+            entries.append({"mediaType": mt, "digest": digest,
+                            "size": len(raw),
+                            "platform": {"os": os_, "architecture": arch}})
+        return self.put_manifest(repo, tag, {
+            "schemaVersion": 2, "mediaType": MT_OCI_INDEX,
+            "manifests": entries}, media_type=MT_OCI_INDEX)
+
+    # ---- serving -------------------------------------------------------
+
+    def _lookup(self, path: str):
+        """A request path → (content type, body), or None."""
+        parts = path.split("?", 1)[0].split("/")
+        if len(parts) < 5 or parts[1] != "v2":
+            return None
+        if parts[-2] == "manifests":
+            return self.manifests.get(("/".join(parts[2:-2]), parts[-1]))
+        if parts[-2] == "blobs" and parts[-1] in self.blobs:
+            return "application/octet-stream", self.blobs[parts[-1]]
+        return None
+
+    def start(self) -> str:
+        """Serve on a free port → the base URL (http://127.0.0.1:PORT)."""
+        reg = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, code: int, body: bytes = b"",
+                      ctype: str = "application/json", extra=()):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                for k, v in extra:
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                reg.requests.append(self.path)
+                if self.path.startswith("/token"):
+                    self._send(200, json.dumps(
+                        {"token": reg.token}).encode())
+                    return
+                if reg.token and self.headers.get("Authorization") != \
+                        f"Bearer {reg.token}":
+                    self._send(401, extra=[(
+                        "WWW-Authenticate",
+                        f'Bearer realm="http://127.0.0.1:{reg.port}/token"'
+                        f',service="fixture",scope="repository:pull"')])
+                    return
+                found = reg._lookup(self.path)
+                if found is None:
+                    self._send(404, b'{"errors":[{"code":"UNKNOWN"}]}')
+                    return
+                self._send(200, found[1], ctype=found[0])
+
+        self._srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._srv.daemon_threads = True
+        self.port = self._srv.server_address[1]
+        threading.Thread(target=self._srv.serve_forever,
+                         name="oci-registry", daemon=True).start()
+        return f"http://127.0.0.1:{self.port}"
+
+    def stop(self) -> None:
+        if self._srv is not None:
+            self._srv.shutdown()
+            self._srv.server_close()
+            self._srv = None
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()

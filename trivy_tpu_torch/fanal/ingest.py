@@ -1,13 +1,11 @@
-"""Ingest annotations: the part of the JAX package's fanald pipeline
-(`fanal/pipeline.py`) that an SBOM scan needs.
+"""Ingest annotations, shared by the layer pipeline (pipeline.py) and
+the SBOM decode (sbom/artifact.py).
 
-A degraded analysis (a hostile or malformed document, a budget trip) is
-not an exception: it becomes structured per-stage annotations on the
-blob (`ingest_error`), and the blob is cached under a salted id
+A degraded analysis (a hostile layer or document, a budget trip) is not
+an exception: it becomes structured per-stage annotations on the blob
+(`ingest_error`), and the blob is cached under a salted id
 (`partial_blob_id`) so the canonical key never maps to a partial. The
-scanner reports the annotations as one "Ingest Degradations" result.
-The concurrent layer walks, their budgets and deadlines, and the
-per-stage breakers of the pipeline are not ported here (ROADMAP A3)."""
+scanner reports the annotations as one "Ingest Degradations" result."""
 
 from __future__ import annotations
 

@@ -60,12 +60,19 @@ def looks_binary(content: bytes) -> bool:
 
 @dataclass
 class BlobScan:
-    """Result of walking one blob (a layer or a filesystem snapshot)."""
+    """Result of walking one blob (a layer or a filesystem snapshot).
+
+    `errors`/`partial` carry the ingest pipeline's degradations: a layer
+    that tripped a budget, errored or timed out holds structured
+    per-stage annotations (ingest.ingest_error) and is marked partial.
+    The serial walker never sets either."""
     result: AnalysisResult
     whiteout_files: list = field(default_factory=list)
     opaque_dirs: list = field(default_factory=list)
     secret_files: list = field(default_factory=list)  # [(path, bytes)]
     post_files: dict = field(default_factory=dict)    # path -> bytes
+    errors: list = field(default_factory=list)        # [ingest_error]
+    partial: bool = False
 
 
 def _parent_dirs(path: str):
@@ -75,12 +82,12 @@ def _parent_dirs(path: str):
 
 
 def classify_member(member: tarfile.TarInfo, group: AnalyzerGroup,
-                    collect_secrets: bool, skip_files: tuple = (),
-                    skip_dir_globs: tuple = (),
-                    secret_config_path: str = DEFAULT_SECRET_CONFIG):
-    """One tar member's routing → (kind, path, wants): kind is 'skip',
-    'opaque', 'whiteout' or 'file', and wants (file only) is the
-    (analyze, post, secret) triple. Globs must already be normalized
+                    collect_secrets: bool, secret_config_path: str,
+                    skip_files: tuple, skip_dir_globs: tuple):
+    """One tar member's routing, shared by the serial walker and the
+    ingest pipeline so the two cannot drift → (kind, path, wants): kind
+    is 'skip', 'opaque', 'whiteout' or 'file', and wants (file only) is
+    the (analyze, post, secret) triple. Globs must already be normalized
     (normalize_skip_globs); the file at `secret_config_path` is never a
     secret candidate."""
     path = _norm_rel(member.name)
@@ -120,8 +127,8 @@ def walk_layer_tar(tf: tarfile.TarFile, group: AnalyzerGroup,
     scan = BlobScan(result=AnalysisResult())
     for member in tf:
         kind, path, wants3 = classify_member(
-            member, group, collect_secrets, skip_files, skip_dir_globs,
-            secret_config_path)
+            member, group, collect_secrets, secret_config_path,
+            skip_files, skip_dir_globs)
         if kind == "opaque":
             scan.opaque_dirs.append(path)
             continue
@@ -286,6 +293,9 @@ def blob_info(scan: BlobScan, diff_id: str = "",
         applications=sorted(r.applications, key=lambda a: a.file_path),
         licenses=r.licenses,
         build_info=r.build_info,
+        # the pipeline's annotations ride the BlobInfo and its cache
+        # round trip into the report
+        ingest_errors=list(scan.errors),
     )
     post_handle(r, bi)
     return bi

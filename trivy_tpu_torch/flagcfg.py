@@ -37,7 +37,18 @@ CONFIG_PATHS = {
     "skip_db_update": "db.skip-update",
     "java_db": "javadb.path",
     "secret_config": "secret.config",
+    "platform": "image.platform",
+    "image_src": "image.source",
     "pkg_types": "pkg-types",
+    # the ingest pipeline's budgets (ingest.*)
+    "ingest_serial": "ingest.serial",
+    "ingest_walkers": "ingest.walkers",
+    "ingest_analyzers": "ingest.analyzers",
+    "ingest_max_file_bytes": "ingest.max-file-bytes",
+    "ingest_max_layer_bytes": "ingest.max-layer-bytes",
+    "ingest_max_members": "ingest.max-members",
+    "ingest_layer_deadline_ms": "ingest.layer-deadline-ms",
+    "ingest_max_inflight_bytes": "ingest.max-inflight-bytes",
 }
 
 # dests bound to the command line only
