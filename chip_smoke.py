@@ -87,10 +87,11 @@ Phases, one JSON line each; any failure exits non-zero:
            packages; 900 node_modules packages; 40 jars and a Go binary
            of 150 modules; 60 gems, a cargo-auditable Rust binary, 30
            conda records and 16 MiB of text with planted tokens) cold
-           and warm on the card and `--device cpu --scanners vuln` as
-           the reference, with the same checks and figures as fs: one
-           OS batch, the node-pkg, jar and gemspec batches, the Go and
-           the Rust binary's.
+           on the card and `--device cpu --scanners vuln` as the
+           reference (no warm run: the image phase holds one), with
+           the same checks and figures as fs: one OS batch, the
+           node-pkg, jar and gemspec batches, the Go and the Rust
+           binary's.
   sbom     SBOMs out and in, over the apps table: the image_apps image
            through `image --scanners vuln,secret --format cyclonedx`
            and that document through `sbom`, the clock and the UUIDs
@@ -122,8 +123,8 @@ Phases, one JSON line each; any failure exits non-zero:
            (exit code 0). Checks the exit codes, the surviving findings
            against the filters worked out here stage by stage (VEX,
            severity, unfixed, ignore file), `convert` of the JSON report
-           into table, SARIF, GitHub, cosign-vuln and the template
-           without a table load against the direct reports, one
+           into SARIF and the template without a table load against
+           the direct reports of runs 1 and 3, one
            shift-or launch and one join launch per batch, and each join
            kernel on the flattened table's batches against its plain
            version.
@@ -132,8 +133,8 @@ Phases, one JSON line each; any failure exits non-zero:
            an in-process registry on 127.0.0.1 with token auth
            (fanal.fixtures.OCIRegistry), `image http://127.0.0.1:PORT/
            apps:1 --image-src remote` against the apps table, its layers
-           streamed through the ingest pipeline: cold, warm (every layer
-           a cache hit, the same report) and with --ingest-serial, each
+           streamed through the ingest pipeline: cold and with
+           --ingest-serial (no warm run: the image phase holds one), each
            with the image_apps --input run's vulnerability results and
            secrets; per run the wall, start-up, table load and walk
            seconds and the walkers used; one shift-or launch and one join
@@ -148,11 +149,35 @@ Phases, one JSON line each; any failure exits non-zero:
            Then no --db: a small trivy.db pulled from --db-repository into
            a fresh cache dir, flattened and scanned (equal to --db on the
            same file), and a tampered DB blob refused and quarantined.
+  misconf  misconfiguration scanning in the scans that launch the
+           kernels: the fs checkout grown by 60 multi-stage Dockerfiles,
+           300 Kubernetes manifests (Deployments, Pods, CronJobs, a third
+           multi-document) and 4 Helm charts (one a packaged .tgz, two
+           with `helm create`'s template names), each with planted
+           DS/KSV findings (misconf_files, seeded), through
+           `fs --scanners vuln,secret,misconfig` on the card; then with
+           the user checks of MISCONF_CHECKS (--config-check), the ignore
+           policy MISCONF_IGNORE_POLICY and `--compliance docker-cis-1.6.0
+           --format json`, its controls against the card run's report
+           less the ignored ids, worked out here; then with --device cpu,
+           whose report must equal the card's (the clock fixed). Every
+           planted finding in its file's result, but for the records
+           the applier drops where two charts render one chart-relative
+           target (helm_collapsed: kept and lost, equal on the card and
+           the CPU), the planted secrets,
+           one shift-or launch and one join launch per batch, each
+           kernel on the grown checkout's inputs against its plain
+           version. Then `image --input` of the image_apps layers and a
+           fifth of 26 of those files, with the user checks and the ignore
+           policy, walked by the ingest pipeline: the planted findings,
+           the user checks' too, and the kernels on its inputs. Per run
+           the wall, start-up, table load and walk; files and findings
+           per type.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
 the language phases' under "at_fs", "at_image_apps", "at_sbom",
-"at_ci" and "at_image_remote";
+"at_ci", "at_image_remote", "at_misconf" and "at_misconf_image";
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -1643,9 +1668,9 @@ def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
 
 def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
                            names: dict) -> tuple:
-    """The application image, gzip docker-save, cold and warm on the
-    card and cold with `--device cpu --scanners vuln` as the reference
-    → (launch counts of the cold scan, the kernels on its inputs)."""
+    """The application image, gzip docker-save, cold on the card and
+    with `--device cpu --scanners vuln` as the reference → (launch
+    counts of the cold scan, the kernels on its inputs)."""
     from trivy_tpu_torch.fanal.fixtures import gz_bytes, write_docker_archive
     rng = np.random.default_rng(SEED + 5)
     t0 = time.perf_counter()
@@ -1668,16 +1693,13 @@ def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
     cache = ["--cache-dir", os.path.join(tmp, "apps-cache")]
     cold, cold_counts, cold_s = run_port_cli(
         scan_args + ["--scanners", "vuln,secret"] + cache)
-    warm, warm_counts, warm_s = run_port_cli(
-        scan_args + ["--scanners", "vuln,secret"] + cache)
+    # no warm run: the image phase holds a warm --input scan to its cold
+    # one
     cpu, _cpu_counts, cpu_s = run_port_cli(
         scan_args + ["--scanners", "vuln", "--device", "cpu"])
     if vuln_results(cold) != vuln_results(cpu):
         raise AssertionError("image_apps: the card's vulnerability results "
                              "differ from the cpu reference")
-    if {k: v for k, v in warm.items() if k != "CreatedAt"} != \
-            {k: v for k, v in cold.items() if k != "CreatedAt"}:
-        raise AssertionError("image_apps: the warm report differs")
     vulns, secrets = findings(cold)
     expected = set(IMAGE_APPS_SECRETS.items())
     if secrets != expected:
@@ -1693,11 +1715,10 @@ def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
         applications={a.type: len(a.packages) for a in detail.applications},
         batches=figures, recheck_by_ecosystem=_recheck_by_ecosystem(figures),
         vulnerabilities=len(vulns), secrets=sorted(secrets),
-        setup_s=setup_s, wall_s_cold=cold_s, wall_s_warm=warm_s,
-        wall_s_cpu=cpu_s, kernel_ms=kernel_ms,
+        setup_s=setup_s, wall_s_cold=cold_s, wall_s_cpu=cpu_s,
+        kernel_ms=kernel_ms,
         kernel_share_cold=kernel_ms / 1e3 / cold_s,
         launches=cold_counts["launches"],
-        warm_launches=warm_counts["launches"],
         prefilter_path=cold_counts["prefilter_path"])
     return (cold_counts["launches"], at_apps, path, cold, (padded, bank),
             batches)
@@ -2152,30 +2173,6 @@ def _vuln_keys(report: dict) -> set:
             for v in r.get("Vulnerabilities", [])}
 
 
-def _convert_view(fmt: str, text: str):
-    """What of a report survives `convert`, in the reference too: the
-    table, SARIF and template bytes; GitHub's and cosign-vuln's document
-    apart from the app version (convert writes "dev"); and of the report
-    that cosign-vuln embeds, the fields `report_from_json` decodes."""
-    if fmt in ("table", "sarif", "template"):
-        return text
-    doc = json.loads(text)
-    if fmt == "github":
-        doc["detector"].pop("version")
-        return doc
-    doc["scanner"].pop("uri")
-    doc["scanner"].pop("version")
-    result = doc["scanner"].pop("result")
-    doc["results"] = [
-        (r["Target"], r.get("Class"), [
-            (v["VulnerabilityID"], v["PkgName"], v["InstalledVersion"],
-             v.get("FixedVersion", ""), v.get("Severity"), v.get("Title", ""))
-            for v in r.get("Vulnerabilities", [])],
-         [(s["RuleID"], s.get("StartLine")) for s in r.get("Secrets", [])])
-        for r in result.get("Results", [])]
-    return doc
-
-
 def run_ci_at_size(torch, tmp: str, raw: list, rows: int, root: str,
                    fs_report: dict, detail, fs_rows: tuple) -> tuple:
     """The CI command line on the fs phase's checkout against the apps
@@ -2260,12 +2257,11 @@ def run_ci_at_size(torch, tmp: str, raw: list, rows: int, root: str,
         if counts["launches"] != a["launches"]:
             raise AssertionError(f"{what}: launches {counts['launches']}")
 
-    # In this process, sharing one load of the memo (these runs check
-    # report bytes and exit codes, not the load): a stricter ignore file
-    # holding every finding of the checkout in place of .trivyignore.yaml
-    # (exit code 0); the direct table, GitHub and cosign-vuln reports of
-    # the command line; then convert of the JSON report into each format,
-    # which must not load the table.
+    # In this process, sharing one load of the memo (this run checks
+    # report bytes and the exit code, not the load): a stricter ignore
+    # file holding every finding of the checkout in place of
+    # .trivyignore.yaml (exit code 0); then convert of the JSON report
+    # into SARIF and the template, which must not load the table.
     import trivy_tpu_torch.__main__ as port_cli
     load_table, loaded = port_cli.load_table, {}
 
@@ -2299,23 +2295,20 @@ def run_ci_at_size(torch, tmp: str, raw: list, rows: int, root: str,
             strict_report = json.load(f)
         if _vuln_keys(strict_report) or findings(strict_report)[1]:
             raise AssertionError("ci: findings survived the strict file")
-        for fmt in ("table", "github", "cosign-vuln"):
-            direct[fmt] = os.path.join(work, f"direct.{fmt}")
-            if port_main(["fs", root, "--db", bolt, *flags, "--format", fmt,
-                          "-o", direct[fmt]]) != 1:
-                raise AssertionError(f"ci: direct {fmt} exit code")
         direct_s = time.perf_counter() - t0
         port_cli.load_table = no_table
         t0 = time.perf_counter()
-        for fmt in ("table", "sarif", "github", "cosign-vuln", "template"):
+        # convert into the formats runs 1 and 3 wrote directly (the
+        # table, GitHub and cosign-vuln conversions are held by the CPU
+        # tests: no direct scans of those formats here, for time)
+        for fmt in ("sarif", "template"):
             tpl = ["--template", "@" + os.path.join(work_cfg, "ci.tpl")] \
                 if fmt == "template" else []
             conv = os.path.join(work, f"convert.{fmt}")
             port_main(["convert", out["out.json"], "--format", fmt, "-o",
                        conv, *tpl])
             with open(conv) as f1, open(direct[fmt]) as f2:
-                if _convert_view(fmt, f1.read()) != \
-                        _convert_view(fmt, f2.read()):
+                if f1.read() != f2.read():
                     raise AssertionError(f"ci: convert to {fmt} differs "
                                          f"from the scan's")
         convert_s = time.perf_counter() - t0
@@ -2416,7 +2409,7 @@ def run_image_remote_at_size(torch, tmp: str, table, db: str,
                              apps_image: str, apps_report: dict,
                              batches: list, apps_rows) -> tuple:
     """`image NAME --image-src remote`: the image_apps image served by the
-    in-process registry (token auth) and scanned cold, warm and with
+    in-process registry (token auth) and scanned cold and with
     --ingest-serial against the apps table, held to the image_apps
     `--input` run; the registry pull alone; a hostile image under the
     ingest budgets, twice; and the DB pulled from --db-repository, also
@@ -2434,8 +2427,7 @@ def run_image_remote_at_size(torch, tmp: str, table, db: str,
         scan = ["image", name, "--image-src", "remote", "--db", db,
                 "--scanners", "vuln,secret"]
         reports = {}
-        for run, extra in (("cold", cache), ("warm", cache),
-                           ("serial", ["--ingest-serial"])):
+        for run, extra in (("cold", cache), ("serial", ["--ingest-serial"])):
             reports[run], counts, wall_s = run_port_cli(scan + extra)
             runs[run] = {**_run_figures(counts, wall_s),
                          "walk_s": counts["inspect_s"],
@@ -2447,15 +2439,10 @@ def run_image_remote_at_size(torch, tmp: str, table, db: str,
                     findings(reports[run])[1] != findings(apps_report)[1]:
                 raise AssertionError(f"image_remote {run}: results differ "
                                      f"from the image_apps --input run")
-        if {k: v for k, v in reports["warm"].items() if k != "CreatedAt"} \
-                != {k: v for k, v in reports["cold"].items()
-                    if k != "CreatedAt"}:
-            raise AssertionError("image_remote: the warm report differs")
         ingest = {r: runs[r]["ingest"] for r in runs}
         if not (ingest["cold"]["pipelined"]
                 and ingest["cold"]["layers_walked"] == 4
                 and ingest["cold"]["partial_layers"] == 0
-                and ingest["warm"]["layers_walked"] == 0
                 and not ingest["serial"]["pipelined"]):
             raise AssertionError(f"image_remote walks {ingest}")
         # the pull alone: every blob of the image off the registry, in
@@ -2552,11 +2539,640 @@ def run_image_remote_at_size(torch, tmp: str, table, db: str,
     return cold_counts["launches"], at_remote
 
 
+
+# --- the misconf phase: Dockerfiles, Kubernetes manifests, Helm charts --
+
+# a clean multi-stage Dockerfile: no builtin check fails on it; each plant
+# replaces the first occurrence of its anchor and fails exactly its check
+# (DS021 also fails DS029)
+DOCKERFILE = """\
+FROM golang:1.22 AS build
+WORKDIR /src
+COPY go.mod go.sum ./
+RUN go mod download
+COPY . .
+RUN CGO_ENABLED=0 go build -o /out/{name} ./cmd/{name}
+FROM alpine:3.19
+RUN apk add --no-cache ca-certificates tzdata
+COPY --from=build /out/{name} /usr/local/bin/{name}
+EXPOSE 8080
+USER app
+HEALTHCHECK CMD wget -q localhost:8080/healthz || exit 1
+CMD ["/usr/local/bin/{name}"]
+"""
+_BEFORE_COPY = "COPY --from"
+DOCKER_PLANTS = {
+    "DS001": ("FROM alpine:3.19", "FROM alpine:latest"),
+    "DS002": ("USER app", "USER root"),
+    "DS004": ("EXPOSE 8080", "EXPOSE 8080 22"),
+    "DS005": (_BEFORE_COPY, "ADD config.json /etc/app/\n" + _BEFORE_COPY),
+    "DS007": ("CMD [", 'ENTRYPOINT ["/sbin/tini"]\nENTRYPOINT ["/bin/sh"]'
+              "\nCMD ["),
+    "DS008": ("EXPOSE 8080", "EXPOSE 8080 70000"),
+    "DS009": (_BEFORE_COPY, "WORKDIR srv\n" + _BEFORE_COPY),
+    "DS010": (_BEFORE_COPY, "RUN sudo chmod +x /usr/local/bin\n"
+              + _BEFORE_COPY),
+    "DS013": (_BEFORE_COPY, "RUN cd /tmp\n" + _BEFORE_COPY),
+    "DS014": (_BEFORE_COPY, "RUN wget -q https://example.com/a && curl -s "
+              "https://example.com/b\n" + _BEFORE_COPY),
+    "DS015": (_BEFORE_COPY, "RUN yum install -y vim\n" + _BEFORE_COPY),
+    "DS016": ("CMD [", 'CMD ["/bin/true"]\nCMD ['),
+    "DS017": (_BEFORE_COPY, "RUN apt-get update\n" + _BEFORE_COPY),
+    "DS021": (_BEFORE_COPY, "RUN apt-get install curl\n" + _BEFORE_COPY),
+    "DS022": (_BEFORE_COPY, "MAINTAINER ops@example.com\n" + _BEFORE_COPY),
+    "DS024": (_BEFORE_COPY, "RUN apt-get dist-upgrade\n" + _BEFORE_COPY),
+    "DS025": (_BEFORE_COPY, "RUN apk add curl\n" + _BEFORE_COPY),
+    "DS026": ("HEALTHCHECK CMD wget -q localhost:8080/healthz || exit 1\n",
+              ""),
+}
+# a line the custom check below fails (SMOKE002), with its own id
+CURL_SH = (_BEFORE_COPY, "RUN curl -sSL https://example.com/install.sh | sh\n"
+           + _BEFORE_COPY)
+
+
+def _container(name: str) -> dict:
+    return {"name": name,
+            "image": f"registry.example.com/team/{name}:1.4.2",
+            "ports": [{"containerPort": 8080}],
+            "securityContext": {
+                "allowPrivilegeEscalation": False,
+                "readOnlyRootFilesystem": True, "runAsNonRoot": True,
+                "runAsUser": 10001, "runAsGroup": 10001,
+                "capabilities": {"drop": ["ALL"]}, "privileged": False,
+                "seccompProfile": {"type": "RuntimeDefault"}},
+            "resources": {"limits": {"cpu": "500m", "memory": "256Mi"},
+                          "requests": {"cpu": "100m", "memory": "128Mi"}}}
+
+
+def _pod_spec(name: str) -> dict:
+    """A hardened pod spec: no builtin check fails on it."""
+    return {"securityContext": {
+        "runAsNonRoot": True, "runAsUser": 10001, "runAsGroup": 10001,
+        "fsGroup": 10001, "seccompProfile": {"type": "RuntimeDefault"}},
+        "automountServiceAccountToken": False,
+        "containers": [_container(name)]}
+
+
+def _c0(spec: dict) -> dict:
+    return spec["containers"][0]
+
+
+# each plant mutates (metadata, pod spec) and fails its check (some fail
+# a few more: a hostPath volume also KSV028, SYS_ADMIN also KSV022/106)
+K8S_PLANTS = {
+    "KSV001": lambda m, s: _c0(s)["securityContext"].update(
+        allowPrivilegeEscalation=True),
+    "KSV005": lambda m, s: _c0(s)["securityContext"]["capabilities"].update(
+        add=["SYS_ADMIN"]),
+    "KSV006": lambda m, s: s.update(volumes=[
+        {"name": "sock", "hostPath": {"path": "/var/run/docker.sock"}}]),
+    "KSV007": lambda m, s: s.update(hostAliases=[
+        {"ip": "10.0.0.1", "hostnames": ["db.internal"]}]),
+    "KSV008": lambda m, s: s.update(hostIPC=True),
+    "KSV009": lambda m, s: s.update(hostNetwork=True),
+    "KSV010": lambda m, s: s.update(hostPID=True),
+    "KSV011": lambda m, s: _c0(s)["resources"]["limits"].pop("cpu"),
+    "KSV013": lambda m, s: _c0(s).update(image="nginx:latest"),
+    "KSV014": lambda m, s: _c0(s)["securityContext"].update(
+        readOnlyRootFilesystem=False),
+    "KSV015": lambda m, s: _c0(s)["resources"]["requests"].pop("cpu"),
+    "KSV017": lambda m, s: _c0(s)["securityContext"].update(privileged=True),
+    "KSV018": lambda m, s: _c0(s)["resources"]["limits"].pop("memory"),
+    "KSV020": lambda m, s: _c0(s)["securityContext"].update(runAsUser=5000),
+    "KSV023": lambda m, s: s.update(volumes=[
+        {"name": "logs", "hostPath": {"path": "/var/log"}}]),
+    "KSV024": lambda m, s: _c0(s)["ports"][0].update(hostPort=8080),
+    "KSV036": lambda m, s: s.update(automountServiceAccountToken=True),
+    "KSV110": lambda m, s: m.update(namespace="default"),
+    "KSV117": lambda m, s: _c0(s)["ports"][0].update(containerPort=80),
+}
+# plants that overwrite the same field cannot share a document
+_K8S_CLASH = ({"KSV006", "KSV023"},)
+
+
+def _pick_plants(rng, plants: dict, lo: int, hi: int,
+                 clash=()) -> list:
+    ids = sorted(plants)
+    while True:
+        got = sorted(rng.choice(ids, size=int(rng.integers(lo, hi + 1)),
+                                replace=False).tolist())
+        if not any(c <= set(got) for c in clash):
+            return got
+
+
+def k8s_workload(kind: str, name: str, plants: list) -> dict:
+    """A Deployment, Pod or CronJob around the hardened spec, with the
+    plants applied."""
+    meta = {"name": name, "namespace": "payments",
+            "labels": {"app.kubernetes.io/name": name}}
+    spec = _pod_spec(name)
+    for p in plants:
+        K8S_PLANTS[p](meta, spec)
+    tmpl = {"metadata": {"labels": meta["labels"]}, "spec": spec}
+    if kind == "Pod":
+        return {"apiVersion": "v1", "kind": "Pod", "metadata": meta,
+                "spec": spec}
+    if kind == "CronJob":
+        spec["restartPolicy"] = "OnFailure"
+        return {"apiVersion": "batch/v1", "kind": "CronJob",
+                "metadata": meta, "spec": {
+                    "schedule": "*/15 * * * *",
+                    "jobTemplate": {"spec": {"template": tmpl}}}}
+    return {"apiVersion": "apps/v1", "kind": kind, "metadata": meta,
+            "spec": {"replicas": 3, "selector": {
+                "matchLabels": meta["labels"]}, "template": tmpl}}
+
+
+def _service(name: str) -> dict:
+    return {"apiVersion": "v1", "kind": "Service",
+            "metadata": {"name": name, "namespace": "payments"},
+            "spec": {"selector": {"app.kubernetes.io/name": name},
+                     "ports": [{"port": 80, "targetPort": 8080}]}}
+
+
+HELM_HELPERS = """\
+{{- define "svc.fullname" -}}
+{{- printf "%s-%s" .Release.Name .Chart.Name | trunc 63 | trimSuffix "-" }}
+{{- end }}
+
+{{- define "svc.labels" -}}
+app.kubernetes.io/name: {{ .Chart.Name }}
+app.kubernetes.io/instance: {{ .Release.Name }}
+helm.sh/chart: {{ printf "%s-%s" .Chart.Name .Chart.Version }}
+{{- end }}
+"""
+HELM_DEPLOYMENT = """\
+apiVersion: apps/v1
+kind: Deployment
+metadata:
+  name: {{ include "svc.fullname" . }}
+  namespace: {{ .Values.namespace | default "payments" }}
+  labels:
+    {{- include "svc.labels" . | nindent 4 }}
+spec:
+  replicas: {{ .Values.replicaCount }}
+  selector:
+    matchLabels:
+      {{- include "svc.labels" . | nindent 6 }}
+  template:
+    metadata:
+      labels:
+        {{- include "svc.labels" . | nindent 8 }}
+    spec:
+      automountServiceAccountToken: false
+      {{- if .Values.hostNetwork }}
+      hostNetwork: true
+      {{- end }}
+      securityContext:
+        {{- toYaml .Values.podSecurityContext | nindent 8 }}
+      containers:
+        - name: {{ .Chart.Name }}
+          image: "{{ .Values.image.repository }}:{{ .Values.image.tag | default .Chart.AppVersion }}"
+          ports:
+            - containerPort: {{ .Values.port }}
+          securityContext:
+            {{- toYaml .Values.securityContext | nindent 12 }}
+          resources:
+            {{- toYaml .Values.resources | nindent 12 }}
+"""
+HELM_SERVICE = """\
+apiVersion: v1
+kind: Service
+metadata:
+  name: {{ include "svc.fullname" . }}
+spec:
+  selector:
+    {{- include "svc.labels" . | nindent 4 }}
+  ports:
+    - port: 80
+      targetPort: {{ .Values.port }}
+"""
+# chart → (the values it overrides, the checks they fail); the last
+# chart ships packaged as a .tgz
+HELM_CHARTS = {
+    "ledger": ({"securityContext": {"privileged": True}}, {"KSV017"}),
+    "gateway": ({"hostNetwork": True, "port": 80}, {"KSV009", "KSV117"}),
+    "reports": ({"image": {"tag": "latest"}, "resources": {}},
+                {"KSV013", "KSV011", "KSV018", "KSV015", "KSV016"}),
+    "notifier": ({"securityContext": {"allowPrivilegeEscalation": True},
+                  "namespace": "default"}, {"KSV001", "KSV110"}),
+}
+
+
+# charts that keep `helm create`'s template names: their records share
+# chart-relative targets, and the applier keeps one record of each
+HELM_CREATE_NAMES = {"gateway", "reports"}
+
+
+def helm_chart(name: str, override: dict) -> dict:
+    """A chart's files, chart-root-relative, its values overridden."""
+    sc = _container(name)["securityContext"]
+    values = {"replicaCount": 2, "port": 8080, "hostNetwork": False,
+              "image": {"repository": f"registry.example.com/team/{name}",
+                        "tag": ""},
+              "podSecurityContext": {"runAsNonRoot": True,
+                                     "runAsUser": 10001,
+                                     "runAsGroup": 10001, "fsGroup": 10001,
+                                     "seccompProfile": {
+                                         "type": "RuntimeDefault"}},
+              "securityContext": sc,
+              "resources": _container(name)["resources"]}
+    for k, v in override.items():
+        if isinstance(v, dict) and v and isinstance(values.get(k), dict):
+            values[k] = {**values[k], **v}
+        else:
+            values[k] = v
+    return {"Chart.yaml": (f"apiVersion: v2\nname: {name}\nversion: 0.1.0\n"
+                           "appVersion: \"2.3.1\"\ntype: application\n"
+                           ).encode(),
+            "values.yaml": json.dumps(values, indent=2).encode(),
+            "templates/_helpers.tpl": HELM_HELPERS.encode(),
+            f"templates/{_helm_prefix(name)}deployment.yaml":
+                HELM_DEPLOYMENT.encode(),
+            f"templates/{_helm_prefix(name)}service.yaml":
+                HELM_SERVICE.encode()}
+
+
+def _helm_prefix(name: str) -> str:
+    return "" if name in HELM_CREATE_NAMES else f"{name}-"
+
+
+def _tgz(files: dict, top: str) -> bytes:
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tf:
+        for rel, data in sorted(files.items()):
+            ti = tarfile.TarInfo(f"{top}/{rel}")
+            ti.size = len(data)
+            ti.mtime = 1_700_000_000
+            tf.addfile(ti, io.BytesIO(data))
+    return buf.getvalue()
+
+
+def misconf_files(rng, n_docker: int = 60, n_k8s: int = 300) -> tuple:
+    """A monorepo's deployment files, seeded: `n_docker` multi-stage
+    Dockerfiles, `n_k8s` Kubernetes manifests (Deployments, Pods,
+    CronJobs, a third of them multi-document with a Service), four Helm
+    charts (the last packaged as a .tgz; two keep `helm create`'s
+    template names) → ({path: bytes}, {report target: planted check
+    ids}, {chart-relative target rendered by several chart directories:
+    {chart: planted check ids}})."""
+    import yaml
+    files, planted = {}, {}
+    for i in range(n_docker):
+        name = f"svc{i:02d}"
+        path = f"services/{name}/Dockerfile"
+        text = DOCKERFILE.format(name=name)
+        plants = _pick_plants(rng, DOCKER_PLANTS, 1, 4)
+        for p in plants:
+            anchor, line = DOCKER_PLANTS[p]
+            text = text.replace(anchor, line, 1)
+        if i % 5 == 0:
+            text = text.replace(*CURL_SH, 1)
+        files[path] = text.encode()
+        planted[path] = set(plants) | ({"SMOKE002"} if i % 5 == 0 else set())
+    kinds = ("Deployment", "Deployment", "Pod", "CronJob")
+    for i in range(n_k8s):
+        name = f"app{i:03d}"
+        kind = kinds[i % len(kinds)]
+        path = f"deploy/k8s/{name}-{kind.lower()}.yaml"
+        plants = _pick_plants(rng, K8S_PLANTS, 1, 3, _K8S_CLASH)
+        docs = [k8s_workload(kind, name, plants)]
+        if i % 3 == 0:
+            docs.append(_service(name))
+        if kind == "Deployment" and i % 7 == 1:
+            docs[0]["spec"]["replicas"] = 1
+            plants = plants + ["SMOKE001"]
+        files[path] = yaml.safe_dump_all(docs, sort_keys=False).encode()
+        planted[path] = set(plants)
+    rendered = {}
+    for j, (name, (override, ids)) in enumerate(HELM_CHARTS.items()):
+        chart = helm_chart(name, override)
+        target = f"templates/{_helm_prefix(name)}deployment.yaml"
+        if j == len(HELM_CHARTS) - 1:
+            path = f"deploy/charts/{name}-0.1.0.tgz"
+            files[path] = _tgz(chart, name)
+            planted[f"{path}:{target}"] = set(ids)
+            continue
+        files.update({f"deploy/charts/{name}/{rel}": data
+                      for rel, data in chart.items()})
+        for rel in chart:
+            if rel.startswith("templates/") and rel.endswith(".yaml"):
+                rendered.setdefault(rel, {})[name] = \
+                    set(ids) if rel == target else set()
+    collided = {t: c for t, c in rendered.items() if len(c) > 1}
+    for t, c in rendered.items():
+        if t not in collided and c[next(iter(c))]:
+            planted[t] = c[next(iter(c))]
+    return files, planted, collided
+
+
+# the user checks of run 2: a kubernetes one and a dockerfile one
+MISCONF_CHECKS = {
+    "replicas.rego": """\
+# METADATA
+# title: Deployment runs a single replica
+# description: A Deployment of one replica has no redundancy.
+# custom:
+#   id: SMOKE001
+#   avd_id: AVD-SMOKE-0001
+#   severity: HIGH
+#   recommended_actions: Run two replicas or more.
+#   input:
+#     selector:
+#     - type: kubernetes
+package user.smoke.replicas
+
+deny[res] {
+    input.kind == "Deployment"
+    input.spec.replicas < 2
+    res := {"msg": sprintf("Deployment %s runs %d replica",
+                           [input.metadata.name, input.spec.replicas])}
+}
+""",
+    "curlsh.rego": """\
+# METADATA
+# title: A script piped from the network into a shell
+# custom:
+#   id: SMOKE002
+#   avd_id: AVD-SMOKE-0002
+#   severity: CRITICAL
+#   input:
+#     selector:
+#     - type: dockerfile
+package user.smoke.curlsh
+
+deny[res] {
+    cmd := input.Stages[_].Commands[_]
+    cmd.Cmd == "run"
+    contains(cmd.Value[0], "| sh")
+    res := {"msg": "curl piped to sh", "startline": cmd.StartLine,
+            "endline": cmd.EndLine}
+}
+""",
+}
+# run 2's ignore policy: the missing HEALTHCHECK and the default namespace
+MISCONF_IGNORE_POLICY = """\
+package trivy
+
+default ignore = false
+
+ignore {
+    input.ID == "DS026"
+}
+
+ignore {
+    input.AVDID == "AVD-KSV-0110"
+}
+"""
+MISCONF_IGNORED = {"DS026", "KSV110"}
+
+
+def misconf_ids(report: dict) -> dict:
+    """→ {target: {check ids}} of the report's config results."""
+    return {r["Target"]: {m["ID"] for m in r.get("Misconfigurations") or []}
+            for r in report.get("Results", []) if r.get("Class") == "config"}
+
+
+def helm_collapsed(report: dict, collided: dict) -> dict:
+    """Which chart's record the report kept at each chart-relative target
+    that several charts render (its messages name the chart's
+    Deployment `<chart>-<chart>`; None where the target has no finding),
+    and the planted findings of the charts whose records were dropped →
+    {target: {charts, kept, lost}}. Raises if a kept record mixes charts
+    or lacks its chart's plants."""
+    records = {r["Target"]: r.get("Misconfigurations") or []
+               for r in report.get("Results", [])
+               if r.get("Class") == "config"}
+    out = {}
+    for target, charts in sorted(collided.items()):
+        ms = records.get(target, [])
+        kept = [c for c in charts
+                if ms and all(f"'{c}-{c}'" in m["Message"] for m in ms)]
+        if ms and (len(kept) != 1 or not charts[kept[0]] <= {
+                m["ID"] for m in ms}):
+            raise AssertionError(f"helm record at {target}: kept {kept}, "
+                                 f"{sorted(m['ID'] for m in ms)}")
+        kept = kept[0] if kept else None
+        out[target] = {"charts": sorted(charts), "kept": kept,
+                       "lost": sorted(set().union(*(
+                           ids for c, ids in charts.items() if c != kept)))}
+    return out
+
+
+def _missing_plants(report: dict, planted: dict, drop: set) -> dict:
+    got = misconf_ids(report)
+    out = {t: sorted(ids - drop - got.get(t, set()))
+           for t, ids in planted.items()}
+    return {t: ids for t, ids in out.items() if ids}
+
+
+def compliance_expected(report: dict, spec_id: str) -> dict:
+    """A compliance spec's control statuses and failure counts worked out
+    here from a scan report (a control fails on any finding its checks
+    name: a misconfiguration by ID or AVD ID, VULN-<severity>,
+    SECRET-<severity>) → {control id: (status, failures)}."""
+    from trivy_tpu_torch.compliance import get_spec
+    index = {}
+    for r in report.get("Results", []):
+        for m in r.get("Misconfigurations") or []:
+            if m.get("Status") == "FAIL":
+                for key in {m.get("ID", ""), m.get("AVDID", "")} - {""}:
+                    index[key.upper()] = index.get(key.upper(), 0) + 1
+        for v in r.get("Vulnerabilities") or []:
+            key = f"VULN-{v.get('Severity') or 'UNKNOWN'}"
+            index[key] = index.get(key, 0) + 1
+        for s in r.get("Secrets") or []:
+            key = f"SECRET-{s.get('Severity') or 'UNKNOWN'}"
+            index[key] = index.get(key, 0) + 1
+    out = {}
+    for c in get_spec(spec_id).controls:
+        n = sum(index.get(k.upper(), 0) for k in c.checks)
+        out[c.id] = ((c.default_status or "MANUAL") if not c.checks
+                     else "FAIL" if n else "PASS", n)
+    return out
+
+
+def _drop_ids(report: dict, ids: set) -> dict:
+    """The report without the misconfigurations of the given ids."""
+    return {"Results": [
+        {**r, "Misconfigurations": [m for m in r.get("Misconfigurations")
+                                    or [] if m["ID"] not in ids]}
+        for r in report.get("Results", [])]}
+
+
+def _by_type(report: dict) -> dict:
+    """Config results per file type → {type: {files, findings}}."""
+    out = {}
+    for r in report.get("Results", []):
+        if r.get("Class") == "config":
+            e = out.setdefault(r["Type"], {"files": 0, "findings": 0})
+            e["files"] += 1
+            e["findings"] += len(r.get("Misconfigurations") or [])
+    return out
+
+
+MISCONF_IMAGE_PREFIX = "srv/deploy/"
+
+
+def run_misconf_at_size(torch, tmp: str, table, db: str, deb: list,
+                        names: dict, root: str) -> tuple:
+    """Misconfiguration scanning in the scans that launch the kernels:
+    the fs checkout grown by the deployment files of misconf_files,
+    through `fs --scanners vuln,secret,misconfig` on the card, then with
+    the user checks and the ignore policy, then as a docker-cis-1.6.0
+    compliance report, then on the CPU (the reference: equal reports with
+    the clock fixed); then `image --input` of the image_apps image with a
+    fifth layer of some of those files, walked by the ingest pipeline →
+    ({run: launch counts}, {path: the kernels on its inputs})."""
+    from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
+                                                 AnalyzerGroup)
+    from trivy_tpu_torch.fanal.applier import apply_layers
+    from trivy_tpu_torch.fanal.fixtures import (gz_bytes, tar_bytes,
+                                                write_docker_archive)
+    from trivy_tpu_torch.fanal.walker import blob_info, walk_fs
+    t0 = time.perf_counter()
+    files, planted, collided = misconf_files(np.random.default_rng(SEED + 9))
+    for rel, data in files.items():
+        os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        with open(os.path.join(root, rel), "wb") as f:
+            f.write(data)
+    checks = os.path.join(tmp, "misconf-checks")
+    os.makedirs(checks, exist_ok=True)
+    for name, text in MISCONF_CHECKS.items():
+        with open(os.path.join(checks, name), "w") as f:
+            f.write(text)
+    policy = os.path.join(tmp, "misconf-ignore.rego")
+    with open(policy, "w") as f:
+        f.write(MISCONF_IGNORE_POLICY)
+    setup_s = time.perf_counter() - t0
+
+    scan = walk_fs(root, AnalyzerGroup(disabled=INDIVIDUAL_PKG_ANALYZERS
+                                       + ("sbom",)), collect_secrets=True)
+    batches = scan_batches(table, apply_layers([blob_info(scan)]))
+    padded, bank, rows = secret_rows(scan.secret_files)
+
+    env = {"TRIVY_TPU_FAKE_NOW": CI_NOW}
+    scan_args = ["fs", root, "--db", db, "--scanners",
+                 "vuln,secret,misconfig"]
+    custom = ["--config-check", checks, "--ignore-policy", policy]
+    reports, counts, runs = {}, {}, {}
+    for run, args in (("card", scan_args),
+                      ("compliance", scan_args + custom + [
+                          "--compliance", "docker-cis-1.6.0"]),
+                      ("cpu", scan_args + ["--device", "cpu"])):
+        reports[run], counts[run], wall_s = run_port_cli(args, env=env)
+        runs[run] = {**_run_figures(counts[run], wall_s),
+                     "walk_s": counts[run]["inspect_s"],
+                     "prefilter_path": counts[run]["prefilter_path"]}
+    if reports["card"] != reports["cpu"]:
+        raise AssertionError("misconf: the card's report differs from the "
+                             "cpu reference")
+    smoke = {"SMOKE001", "SMOKE002"}
+    missing = _missing_plants(reports["card"], planted, smoke)
+    if missing:
+        raise AssertionError(f"misconf: planted findings missing "
+                             f"{dict(list(missing.items())[:5])}")
+    # the records the applier dropped: charts that share a target keep
+    # one record (a fault of the reference the port copies), the same on
+    # the card and the CPU
+    collapsed = helm_collapsed(reports["card"], collided)
+    if collapsed != helm_collapsed(reports["cpu"], collided):
+        raise AssertionError(f"misconf: collapsed helm records {collapsed}")
+    if findings(reports["card"])[1] != set(CHECKOUT_SECRETS.items()):
+        raise AssertionError(f"misconf secrets "
+                             f"{sorted(findings(reports['card'])[1])}")
+    # the controls of the compliance run, from the card run's report less
+    # what the ignore policy drops (the user checks name no control)
+    want = compliance_expected(_drop_ids(reports["card"], MISCONF_IGNORED),
+                               "docker-cis-1.6.0")
+    got = {c["ID"]: (c["Status"], c["TotalFail"])
+           for c in reports["compliance"]["SummaryControls"]}
+    if got != want or want["4.1"][0] != "FAIL" or want["4.6"][0] != "PASS" \
+            or compliance_expected(reports["card"],
+                                   "docker-cis-1.6.0")["4.6"][0] != "FAIL":
+        raise AssertionError(f"compliance {got} != {want}")
+    figures, at_fs, kernel_ms = batch_kernels(torch, table, batches,
+                                              "misconf")
+    for run in ("card", "compliance"):
+        _expect_launches(counts[run], figures, f"misconf {run}")
+    if any(counts["cpu"]["launches"].values()):
+        raise AssertionError(f"misconf cpu launches {counts['cpu']}")
+    at_fs["shiftor"] = shiftor_case(torch, bank, padded, "misconf")
+    kernel_ms += at_fs["shiftor"]["ms"]
+
+    # the image: image_apps's four layers and a fifth of deployment files
+    layers = image_apps_layers(np.random.default_rng(SEED + 5), deb, names)
+    chosen = {rel for rel in files
+              if rel.startswith(("services/svc0", "deploy/k8s/app00",
+                                 "deploy/charts/ledger/"))
+              or rel.endswith(".tgz")}
+    layers.append(tar_bytes({MISCONF_IMAGE_PREFIX + rel: files[rel]
+                             for rel in sorted(chosen)}))
+    img_planted = {}
+    for target, ids in planted.items():
+        path = target.split(":")[0]
+        if target.startswith("templates/"):
+            if target.startswith("templates/ledger-"):
+                img_planted[target] = ids
+        elif path in chosen:
+            img_planted[MISCONF_IMAGE_PREFIX + target] = ids
+    path = os.path.join(tmp, "deploy-image.tar")
+    write_docker_archive(path, [gz_bytes(b, 6) for b in layers],
+                         _diff_ids(layers),
+                         repo_tags=("synthetic/apps-deploy:1",))
+    detail, secret_files = walk_image(layers)
+    img_batches = scan_batches(table, detail)
+    img_padded, _bank, img_rows = secret_rows(secret_files)
+    # the user checks and the ignore policy on the pipeline's walkers
+    image, img_counts, img_s = run_port_cli(
+        ["image", "--input", path, "--db", db, "--scanners",
+         "vuln,secret,misconfig", *custom])
+    img_missing = _missing_plants(image, img_planted, MISCONF_IGNORED)
+    img_smoke = set().union(*(img_planted.values())) & smoke
+    ignored_left = set().union(*misconf_ids(image).values()) \
+        & MISCONF_IGNORED
+    if img_missing or ignored_left or img_smoke != smoke or \
+            not img_counts["ingest"].get("pipelined"):
+        raise AssertionError(f"misconf image: missing {img_missing}, "
+                             f"ignored left {ignored_left}, user checks "
+                             f"planted {img_smoke}, ingest "
+                             f"{img_counts['ingest']}")
+    img_figures, at_image, img_kernel_ms = batch_kernels(
+        torch, table, img_batches, "misconf_image")
+    _expect_launches(img_counts, img_figures, "misconf image")
+    at_image["shiftor"] = shiftor_case(torch, bank, img_padded,
+                                       "misconf_image")
+    img_kernel_ms += at_image["shiftor"]["ms"]
+    runs["image"] = {**_run_figures(img_counts, img_s),
+                     "walk_s": img_counts["inspect_s"],
+                     "ingest": img_counts["ingest"],
+                     "prefilter_path": img_counts["prefilter_path"]}
+    phase("misconf", files=len(files), dockerfiles=sum(
+        p.endswith("Dockerfile") for p in files),
+        manifests=sum(p.startswith("deploy/k8s/") for p in files),
+        charts=len(HELM_CHARTS), planted_targets=len(planted),
+        planted_findings=sum(len(v) for v in planted.values()),
+        helm_collapsed=collapsed, collapsed_records=sum(
+            len(v["charts"]) - 1 for v in collapsed.values()),
+        by_type=_by_type(reports["card"]),
+        compliance={k: list(v) for k, v in sorted(got.items())},
+        secret_rows=rows, batches=figures, setup_s=setup_s, runs=runs,
+        kernel_ms=kernel_ms,
+        kernel_share_card=kernel_ms / 1e3 / runs["card"]["wall_s"],
+        image_layers=len(layers), image_files=len(chosen),
+        image_by_type=_by_type(image), image_secret_rows=img_rows,
+        image_batches=img_figures, image_kernel_ms=img_kernel_ms,
+        launches=counts["card"]["launches"],
+        image_launches=img_counts["launches"])
+    return ({"misconf": counts["card"]["launches"],
+             "misconf_image": img_counts["launches"]},
+            {"at_misconf": at_fs, "at_misconf_image": at_image})
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
-    """The `fs`, `image_apps`, `sbom` and `ci` phases over one apps
-    table, saved as .npz for the first three and written as a trivy.db
-    for the last →
-    ({path: launch counts}, {path: kernels on its inputs})."""
+    """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote` and `misconf`
+    phases over one apps table, saved as .npz (written as a trivy.db for
+    `ci`) → ({path: launch counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.ops.constants import INEXACT
     rng = np.random.default_rng(SEED + 6)
     t0 = time.perf_counter()
@@ -2583,11 +3199,13 @@ def run_language_phases(torch, tmp: str) -> tuple:
     remote_launches, at_remote = run_image_remote_at_size(
         torch, tmp, table, db, apps_image, apps_report, apps_batches,
         apps_rows)
+    misconf_launches, at_misconf = run_misconf_at_size(
+        torch, tmp, table, db, deb, names, root)
     return ({"fs": fs_launches, "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
-             "image_remote": remote_launches},
+             "image_remote": remote_launches, **misconf_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
-             "at_ci": at_ci, "at_image_remote": at_remote})
+             "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf})
 
 
 def main() -> int:

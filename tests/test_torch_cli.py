@@ -13,7 +13,9 @@ included:
 - the filter and exit flags (`--severity`, `--ignore-unfixed`,
   `--ignore-status`, `--ignorefile`, `--vex`, `--exit-code`, `--output`,
   `--config`, `TRIVY_*` env): the same report and the same exit code;
-- what the port refuses: `--ignore-policy` and `--sbom-sources rekor`."""
+- `--ignore-policy` (a rego ignore policy): the same report, and the
+  findings it names gone;
+- what the port refuses: `--sbom-sources rekor`."""
 
 import contextlib
 import hashlib
@@ -342,10 +344,45 @@ def test_output_writes_the_file_and_nothing_to_stdout(ci_dir, capsys):
     assert json.loads(out.read_text())["version"] == "2.1.0"
 
 
+# --- the rego ignore policy ----------------------------------------
+
+IGNORE_POLICY = """package trivy
+
+import data.lib.trivy
+
+default ignore = false
+
+ignore {
+	input.VulnerabilityID == "CVE-2023-0286"
+}
+
+ignore {
+	input.RuleID == "aws-access-key-id"
+}
+"""
+
+
+@pytest.mark.parametrize("fmt", ["json", "table", "sarif"])
+def test_ignore_policy_like_reference(fmt, ci_dir):
+    (ci_dir / "work" / "policy.rego").write_text(IGNORE_POLICY)
+    base = ["rootfs", _rootfs(ci_dir), "--db", DB, "--scanners",
+            "vuln,secret", "--format", fmt]
+    port, ref = run_both(base + ["--ignore-policy", "policy.rego",
+                                 "--exit-code", "3"], ci_dir, rc=3)
+    assert port == ref
+    if fmt == "json":
+        full, _ = run_both(base, ci_dir)
+        assert ("libcrypto3", "CVE-2023-0286") in _vulns(full)
+        kept = _vulns(port)
+        assert len(kept) == len(_vulns(full)) - 2   # libcrypto3, libssl3
+        assert all(cve != "CVE-2023-0286" for _, cve in kept)
+        assert "aws-access-key-id" in full.decode()
+        assert "aws-access-key-id" not in port.decode()
+
+
 # --- refused ---------------------------------------------------------
 
 @pytest.mark.parametrize("command,flags,match", [
-    ("rootfs", ["--ignore-policy", "p.rego"], "ROADMAP A4"),
     ("image", ["--sbom-sources", "rekor"], "ROADMAP A5")])
 def test_unported_options_are_refused(command, flags, match, ci_dir):
     target = ["--input", str(ci_dir / "none.tar")] if command == "image" \

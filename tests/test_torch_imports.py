@@ -39,7 +39,11 @@ need = ["trivy_tpu_torch." + m for m in (
     "sbom", "sbom.cyclonedx", "sbom.spdx", "sbom.io", "sbom.artifact",
     "fanal.ingest", "fanal.analyzers.sbom", "fanal.analyzers.license_file",
     "detect.libscan", "fanal.pipeline", "oci", "fanal.daemon",
-    "fanal.containerd")]
+    "fanal.containerd", "iac", "iac.core", "iac.detection", "iac.yamlpos",
+    "iac.kubernetes", "iac.helm", "iac.rego", "iac.rego.parser",
+    "iac.rego.builtins", "iac.rego.eval", "misconf", "misconf.dockerfile",
+    "fanal.analyzers.misconf", "compliance", "compliance.spec",
+    "compliance.report")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """

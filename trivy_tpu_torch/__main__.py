@@ -8,7 +8,8 @@
     python -m trivy_tpu_torch convert REPORT.json --format F [...]
 
 Mirrors `python -m trivy_tpu.cli` for these commands and the scanners
-`vuln`, `secret` and `license`: the same flags (`--severity`,
+`vuln`, `secret`, `license` and `misconfig` (aliases `config`,
+`misconfiguration`): the same flags (`--severity`,
 `--ignore-unfixed`, `--ignore-status`, `--ignorefile` or the working
 directory's `.trivyignore.yaml`/`.trivyignore`, `--vex`, `--exit-code`,
 `--output`, `--cache-dir`, `--db`, `--config`, ...), each also read from
@@ -18,6 +19,18 @@ spdx-json formats, byte for byte apart from CreatedAt.
 `TRIVY_TPU_FAKE_NOW` fixes the clock of the detection (EOSL, Ubuntu ESM)
 and of CreatedAt, and `TRIVY_TPU_FAKE_UUID` the serial numbers of SBOM
 output, as in the reference.
+
+`--scanners misconfig` scans Dockerfiles, Kubernetes manifests and Helm
+charts (directories and packaged .tgz; `--helm-set`, `--helm-values`)
+with the built-in checks, and any YAML, JSON or TOML file with user rego
+checks (`--config-check`, `--config-data`, `--check-namespaces`, the
+rule and namespace exceptions; `--rego-trace`); `--file-patterns
+type:regex` routes more files to an analyzer; `--ignore-policy` takes a
+rego file whose `ignore` rule drops findings; `--compliance SPEC`
+(`--report summary|all`) writes the spec's control report instead of
+the scan report. CloudFormation, Terraform, Terraform plan and Azure ARM
+files are not scanned yet: a misconfig scan that meets one ends with an
+error naming the file (ROADMAP A4); other scans pass them by.
 
 `sbom` scans a CycloneDX JSON, SPDX JSON or tag-value document, bare or
 in an in-toto attestation (DSSE envelope); a malformed or over-budget
@@ -43,8 +56,7 @@ image and rootfs the lockfiles, fs the installed packages, repo the
 installed packages and the OS; fs and repo also the in-image `sbom`
 analyzer. Runs on CUDA unless `--device cpu` is given; `--device` and
 `--debug-launches` come from the command line only. Not ported, and
-refused: `--ignore-policy` (rego, ROADMAP A4) and `--sbom-sources rekor`
-(ROADMAP A5).
+refused: `--sbom-sources rekor` (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -70,14 +82,16 @@ from .fanal.artifact import FilesystemArtifact, ImageArchiveArtifact
 from .fanal.cache import MemoryCache, open_cache
 from .fanal.walker import DEFAULT_SECRET_CONFIG
 from .flagcfg import apply_flag_sources, generate_default_config
+from .misconf import UnportedFileType
 from .report import build_report, write_report
 from .report.writer import SBOM_FORMATS, render_json_report
 from .result import FilterOptions, filter_results, parse_ignore_file
 from .scanner import LocalScanner
 
-_SCANNER_ALIASES = {"vulnerability": "vuln", "secrets": "secret",
+_SCANNER_ALIASES = {"vulnerability": "vuln", "misconfiguration": "misconfig",
+                    "config": "misconfig", "secrets": "secret",
                     "licenses": "license"}
-SUPPORTED_SCANNERS = ("vuln", "secret", "license")
+SUPPORTED_SCANNERS = ("vuln", "secret", "license", "misconfig")
 DEFAULT_CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache",
                                  "trivy-tpu")
 FORMATS = ["json", "table", "sarif", "cyclonedx", "spdx-json", "template",
@@ -155,9 +169,28 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--sbom-sources rekor needs the Rekor client and "
                          "the executable analyzer, which are not ported "
                          "yet (ROADMAP A5)")
-    if args.ignore_policy:
-        raise SystemExit("--ignore-policy needs the rego interpreter, "
-                         "which is not ported yet (ROADMAP A4)")
+
+
+def _configure_misconf(args) -> None:
+    """Install the rego trace sink, the helm value overrides and the user
+    rego checks before the walk (reference cli.py:735-760), each cleared
+    when its flags are absent, so one process can run several scans."""
+    from .iac.helm import HelmRenderError, set_helm_overrides
+    from .iac.rego import set_rego_trace
+    from .misconf import set_custom_checks
+
+    def sink(event, rule_path, depth):
+        print(f"TRACE {'  ' * depth}{event} {rule_path}", file=sys.stderr)
+    set_rego_trace(sink if args.rego_trace else None)
+    try:
+        set_helm_overrides(sets=args.helm_set,
+                           values_files=args.helm_values)
+    except HelmRenderError as e:
+        raise SystemExit(str(e)) from None
+    set_custom_checks(args.config_check, data_paths=args.config_data,
+                      namespaces=[s.strip() for s in
+                                  args.check_namespaces.split(",")
+                                  if s.strip()])
 
 
 def _scan(args, make_artifact, cache_for, artifact_type: str,
@@ -172,6 +205,14 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
     _refuse_unported(args)
     device = resolve_device(args.device)
     scanners = normalize_scanners(args.scanners)
+    # license files are classified only under --license-full
+    try:
+        group = AnalyzerGroup(
+            disabled=disabled,
+            enabled=("license-file",) if args.license_full else (),
+            file_patterns=tuple(args.file_patterns))
+    except ValueError as e:  # a bad "type:regex"
+        raise SystemExit(f"--file-patterns: {e}") from None
     table_stats: dict = {}
     table = load_table(args.db, cache_dir=args.cache_dir,
                        repository=args.db_repository,
@@ -180,9 +221,6 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
         if "vuln" in scanners else build_table([])
     javadb.init(cache_dir=args.cache_dir, path=args.java_db)
     cache = cache_for()
-    # license files are classified only under --license-full
-    group = AnalyzerGroup(disabled=disabled, enabled=("license-file",)
-                          if args.license_full else ())
     art = make_artifact(cache, group, scanners, device)
     t_inspect = time.perf_counter()
     ref = art.inspect()
@@ -190,16 +228,19 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
     if name:
         ref.name = name
     now = fake_now()
-    results, os_info = LocalScanner(cache, table, device).scan(
-        ref.name, ref.id, ref.blob_ids,
-        T.ScanOptions(scanners=scanners,
-                      # SBOM output lists every package (reference
-                      # run.go forces ListAllPkgs for SBOM formats)
-                      list_all_packages=args.list_all_pkgs
-                      or args.format in SBOM_FORMATS,
-                      include_dev_deps=args.include_dev_deps,
-                      pkg_types=tuple(args.pkg_types.split(","))),
-        now=now)
+    try:
+        results, os_info = LocalScanner(cache, table, device).scan(
+            ref.name, ref.id, ref.blob_ids,
+            T.ScanOptions(scanners=scanners,
+                          # SBOM output lists every package (reference
+                          # run.go forces ListAllPkgs for SBOM formats)
+                          list_all_packages=args.list_all_pkgs
+                          or args.format in SBOM_FORMATS,
+                          include_dev_deps=args.include_dev_deps,
+                          pkg_types=tuple(args.pkg_types.split(","))),
+            now=now)
+    except UnportedFileType as e:
+        raise SystemExit(str(e)) from None
     if args.vex:
         from .vex import apply_vex, load_vex_file
         apply_vex(results, load_vex_file(args.vex))
@@ -208,15 +249,20 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
         ignore_unfixed=args.ignore_unfixed,
         ignore_statuses=[s for s in args.ignore_status.split(",") if s],
         ignore_file=parse_ignore_file(args.ignorefile)
-        if args.ignorefile else _auto_ignore_file()))
-    report = build_report(
-        ref.name, artifact_type or ref.type, results, os_info,
-        metadata=ref.image_metadata,
-        created_at=(now or dt.datetime.now(dt.timezone.utc)).isoformat())
+        if args.ignorefile else _auto_ignore_file(),
+        policy_file=args.ignore_policy))
     out = open(args.output, "w") if args.output else sys.stdout
     try:
-        write_report(report, args.format, out, template=args.template,
-                     app_version=__version__)
+        if args.compliance:
+            _write_compliance(args, results, out)
+        else:
+            report = build_report(
+                ref.name, artifact_type or ref.type, results, os_info,
+                metadata=ref.image_metadata,
+                created_at=(now or dt.datetime.now(dt.timezone.utc)
+                            ).isoformat())
+            write_report(report, args.format, out, template=args.template,
+                         app_version=__version__)
     finally:
         if args.output:
             out.close()
@@ -237,6 +283,19 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
                               or r.misconfigurations for r in results):
         return args.exit_code
     return 0
+
+
+def _write_compliance(args, results, out) -> None:
+    """--compliance SPEC: the spec's control report in place of the scan
+    report, as a summary table or JSON (--report all is JSON too)."""
+    from .compliance import build_compliance_report, get_spec, \
+        write_compliance
+    if args.format not in ("json", "table"):
+        raise SystemExit(f"--compliance supports --format json/table, "
+                         f"not {args.format}")
+    write_compliance(
+        build_compliance_report(get_spec(args.compliance), results),
+        mode=args.report, fmt=args.format, output=out)
 
 
 def _auto_ignore_file():
@@ -320,6 +379,7 @@ def cmd_image(args) -> int:
     from .oci import OCIError
     resolve_device(args.device)   # before any source is tried
     _refuse_unported(args)
+    _configure_misconf(args)
     source, target, tmp = ("archive", args.input, None) if args.input \
         else _acquire_image(args)
     platform = args.platform or "linux/amd64"
@@ -373,6 +433,7 @@ def cmd_sbom(args) -> int:
 def cmd_fs(args) -> int:
     """rootfs, fs and repo (a local path): one tree as one blob, with the
     analyzers the reference disables per command (run.go:167-224)."""
+    _configure_misconf(args)
     if args.command == "rootfs":
         disabled = LOCKFILE_ANALYZERS
         artifact_type = T.ArtifactType.FILESYSTEM
@@ -462,7 +523,8 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
                    help="trivy.yaml config file (flag > TRIVY_* env > "
                         "file > default)")
     p.add_argument("--scanners", "--security-checks", default="vuln",
-                   help="comma-separated, of: vuln, secret, license")
+                   help="comma-separated, of: vuln, secret, license, "
+                        "misconfig (alias config)")
     p.add_argument("--format", "-f", default="json", choices=FORMATS)
     p.add_argument("--template", "-t", default="",
                    help="output template ('...' inline or @path)")
@@ -511,8 +573,31 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
                    help="comma-separated package types to detect, of: "
                         "os, library")
     p.add_argument("--ignore-policy", default="",
-                   help="refused: a rego ignore policy needs the rego "
-                        "interpreter, not ported yet")
+                   help="rego file whose `ignore` rule decides, per "
+                        "finding, whether it is suppressed")
+    # misconfiguration scanning: user rego checks, helm values, routing
+    p.add_argument("--config-check", action="append", default=[],
+                   help="custom rego check file or directory (repeatable)")
+    p.add_argument("--config-data", action="append", default=[],
+                   help="rego data file or directory (repeatable)")
+    p.add_argument("--check-namespaces", default="",
+                   help="more rego namespaces to evaluate (comma-separated)")
+    p.add_argument("--rego-trace", action="store_true",
+                   help="print rego rule-evaluation traces to stderr")
+    p.add_argument("--helm-set", action="append", default=[],
+                   help="helm value override key=value (repeatable)")
+    p.add_argument("--helm-values", action="append", default=[],
+                   help="helm values file override (repeatable)")
+    p.add_argument("--file-patterns", action="append", default=[],
+                   help='route files to an analyzer: "type:regex" '
+                        "(repeatable)")
+    p.add_argument("--compliance", default="",
+                   help="compliance spec id (docker-cis-1.6.0, k8s-cis, "
+                        "k8s-nsa, ...) or @path/to/spec.yaml; its control "
+                        "report replaces the scan report")
+    p.add_argument("--report", default="summary",
+                   choices=["summary", "all"],
+                   help="compliance report mode")
     p.add_argument("--java-db", default="",
                    help="a local trivy-java.db (jar sha1 → GAV); "
                         "defaults to <cache-dir>/javadb/trivy-java.db "
@@ -568,10 +653,11 @@ def build_parser() -> argparse.ArgumentParser:
     # exact match, so prefix abbreviations must not parse
     ap = argparse.ArgumentParser(
         prog="trivy_tpu_torch", allow_abbrev=False,
-        description="Vulnerability (OS and language packages), secret "
-                    "and license scanning of image archives, root "
-                    "filesystems, source trees and SBOMs, with the "
-                    "advisory join and the secret prefilter on CUDA.")
+        description="Vulnerability (OS and language packages), secret, "
+                    "license and misconfiguration scanning of image "
+                    "archives, root filesystems, source trees and SBOMs, "
+                    "with the advisory join and the secret prefilter on "
+                    "CUDA.")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser(
         "image", help="scan a container image by name, or an archive")

@@ -7,12 +7,18 @@ blobs invalidate when an analyzer changes (pkg/fanal/cache/key.go:18-60).
 The port registers the OS-release, apk, dpkg, rpm and Red Hat analyzers,
 the language lockfile analyzers (lockfiles.py, lockfiles_extra.py, pip)
 and the installed-package ones (python-pkg, conda-pkg, gobinary, jar,
-node-pkg, gemspec, rustbinary), the in-image `sbom` analyzer and the
-opt-in `license-file` one. executable (ROADMAP A5) and misconf (A4) are
-not ported."""
+node-pkg, gemspec, rustbinary), the in-image `sbom` analyzer, the
+opt-in `license-file` one, and the config analyzers `misconf`
+(dockerfile, kubernetes, user rego checks) and `helm`. Not ported:
+executable (ROADMAP A5) and the `terraform` post-analyzer (A4); a
+CloudFormation, Terraform, Terraform plan or ARM file is recorded by
+`misconf` and refused by a misconfig scan (misconf.refuse_unported).
+`file_patterns` ("analyzer:regex", --file-patterns) routes more paths
+to an analyzer."""
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -25,6 +31,7 @@ class AnalysisResult:
     repository: Optional[T.Repository] = None
     package_infos: list = field(default_factory=list)
     applications: list = field(default_factory=list)
+    misconfigurations: list = field(default_factory=list)
     licenses: list = field(default_factory=list)   # [DetectedLicense]
     # files owned by the OS package manager; consumed by the system-file
     # filter post-handler (reference analyzer.AnalysisResult
@@ -44,6 +51,7 @@ class AnalysisResult:
             self.repository = other.repository
         self.package_infos.extend(other.package_infos)
         self.applications.extend(other.applications)
+        self.misconfigurations.extend(other.misconfigurations)
         self.licenses.extend(other.licenses)
         self.system_installed_files.extend(other.system_installed_files)
         if other.build_info is not None:
@@ -99,8 +107,8 @@ def register_post(cls):
 
 def _ensure_loaded():
     from . import (apk, binaries, dpkg, license_file,  # noqa: F401
-                   lockfiles, lockfiles_extra, os_release, python,
-                   redhat, rpm, sbom)
+                   lockfiles, lockfiles_extra, misconf, os_release,
+                   python, redhat, rpm, sbom)
 
 
 # analyzers that are opt-in everywhere (reference: license scanning is
@@ -125,7 +133,8 @@ OS_ANALYZERS = ("os-release", "alpine", "amazonlinux", "mariner",
 
 
 class AnalyzerGroup:
-    def __init__(self, disabled: tuple = (), enabled: tuple = ()):
+    def __init__(self, disabled: tuple = (), enabled: tuple = (),
+                 file_patterns: tuple = ()):
         _ensure_loaded()
         off = set(disabled) | (set(OPTIN_ANALYZERS) - set(enabled))
         self.analyzers = [cls() for name, cls in sorted(_REGISTRY.items())
@@ -133,6 +142,28 @@ class AnalyzerGroup:
         self.post_analyzers = [
             cls() for name, cls in sorted(_POST_REGISTRY.items())
             if name not in off]
+        # --file-patterns "analyzer:regex": a matching path goes to that
+        # analyzer even when its own required() declines (reference
+        # analyzer.go:321-341, filePatternMatch:508-515)
+        self._patterns: dict[str, list] = {}
+        for raw in file_patterns:
+            name, sep, pattern = str(raw).partition(":")
+            if not sep:
+                raise ValueError(
+                    f"invalid file pattern {raw!r} "
+                    '(expected "analyzerType:regex")')
+            try:
+                rx = re.compile(pattern)
+            except re.error as e:
+                raise ValueError(
+                    f"invalid file pattern regex {pattern!r}: {e}") \
+                    from e
+            self._patterns.setdefault(name, []).append(rx)
+
+    def _wants(self, a, path: str, size: int) -> bool:
+        if any(rx.search(path) for rx in self._patterns.get(a.name, ())):
+            return True
+        return a.required(path, size)
 
     def versions(self) -> dict[str, int]:
         """name → version, for cache keys."""
@@ -141,15 +172,15 @@ class AnalyzerGroup:
         return out
 
     def required(self, path: str, size: int = -1) -> bool:
-        return any(a.required(path, size) for a in self.analyzers)
+        return any(self._wants(a, path, size) for a in self.analyzers)
 
     def post_required(self, path: str, size: int = -1) -> bool:
-        return any(a.required(path, size) for a in self.post_analyzers)
+        return any(self._wants(a, path, size) for a in self.post_analyzers)
 
     def analyze_file(self, path: str, content: bytes,
                      result: AnalysisResult) -> None:
         for a in self.analyzers:
-            if a.required(path, len(content)):
+            if self._wants(a, path, len(content)):
                 r = a.analyze(path, content)
                 if r is not None:
                     result.merge(r)
@@ -165,7 +196,7 @@ class AnalyzerGroup:
         results: list = [None] * len(files)
         for a in self.analyzers:
             for i, (path, content) in enumerate(files):
-                if not a.required(path, len(content)):
+                if not self._wants(a, path, len(content)):
                     continue
                 try:
                     r = a.analyze(path, content)
@@ -182,7 +213,8 @@ class AnalyzerGroup:
 
     def post_analyze(self, files: dict, result: AnalysisResult) -> None:
         for a in self.post_analyzers:
-            subset = {p: c for p, c in files.items() if a.required(p, -1)}
+            subset = {p: c for p, c in files.items()
+                      if self._wants(a, p, -1)}
             if subset:
                 r = a.post_analyze(subset)
                 if r is not None:

@@ -7,8 +7,9 @@ and application files replace by path; every final element is attributed
 to its origin layer — the FIRST layer that contained the same package
 (lookupOriginLayerForPkg, docker.go:40) — and PURLs are attached from
 the detected OS (docker.go:219-244). Loose-file licenses and ingest
-annotations are carried from every blob in layer order. A filesystem
-tree is one blob."""
+annotations are carried from every blob in layer order, and each path's
+misconfiguration record is the top layer's. A filesystem tree is one
+blob."""
 
 from __future__ import annotations
 
@@ -32,11 +33,13 @@ def apply_layers(blobs: list[T.BlobInfo]) -> T.ArtifactDetail:
     pkg_files: dict[str, tuple[T.PackageInfo, T.Layer]] = {}
     app_files: dict[str, tuple[T.Application, T.Layer]] = {}
     secret_files: dict[str, tuple[T.Secret, T.Layer]] = {}
+    misconf_files: dict[str, tuple[T.Misconfiguration, T.Layer]] = {}
 
     for blob in blobs:
         layer = _layer(blob)
         for path in blob.whiteout_files + blob.opaque_dirs:
-            for store in (pkg_files, app_files, secret_files):
+            for store in (pkg_files, app_files, secret_files,
+                          misconf_files):
                 _delete_path(store, path)
         if blob.os.detected:
             detail.os.merge(blob.os)
@@ -48,6 +51,8 @@ def apply_layers(blobs: list[T.BlobInfo]) -> T.ArtifactDetail:
             app_files[app.file_path] = (app, layer)
         for sec in blob.secrets:
             secret_files[sec.file_path] = (sec, layer)
+        for mc in blob.misconfigurations:
+            misconf_files[mc.file_path] = (mc, layer)
 
     origin = _origin_index(blobs)
     diff_index = {b.diff_id: i for i, b in enumerate(blobs) if b.diff_id}
@@ -70,6 +75,12 @@ def apply_layers(blobs: list[T.BlobInfo]) -> T.ArtifactDetail:
         for finding in sec.findings:
             finding.layer = layer
         detail.secrets.append(sec)
+    for path in sorted(misconf_files):
+        mc, layer = misconf_files[path]
+        mc.layer = layer
+        for f in mc.failures:
+            f.layer = layer
+        detail.misconfigurations.append(mc)
     for blob in blobs:
         detail.licenses.extend(blob.licenses)
         # degradation annotations squash additively in layer order: a

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .. import types as T
+from ..misconf import custom_checks_fingerprint
 from .analyzers import AnalyzerGroup
 from .cache import cache_key
 from .ingest import partial_blob_id
@@ -85,6 +86,11 @@ class _ImageInspectMixin(_Artifact):
             opts["skip_files"] = sorted(sf)
         if sd:
             opts["skip_dirs"] = sorted(sd)
+        # user rego checks change the misconfigurations; with none set,
+        # the keys are those without them
+        fp = custom_checks_fingerprint()
+        if fp:
+            opts["config_checks"] = fp
         return (cache_key(image_id, versions, opts),
                 [cache_key(d, versions, opts) for d in diff_ids])
 

@@ -201,6 +201,37 @@ def _secret_from_json(j: dict) -> T.Secret:
     )
 
 
+def _misconf_from_json(j: dict) -> T.Misconfiguration:
+    return T.Misconfiguration(
+        file_type=j.get("FileType", ""),
+        file_path=j.get("FilePath", ""),
+        successes=j.get("Successes", 0),
+        exceptions=j.get("Exceptions", 0),
+        failures=[_detected_misconf_from_json(f)
+                  for f in j.get("Failures", [])],
+    )
+
+
+def _detected_misconf_from_json(j: dict) -> T.DetectedMisconfiguration:
+    cm = j.get("CauseMetadata") or {}
+    return T.DetectedMisconfiguration(
+        type=j.get("Type", ""), id=j.get("ID", ""),
+        avd_id=j.get("AVDID", ""), title=j.get("Title", ""),
+        description=j.get("Description", ""), message=j.get("Message", ""),
+        namespace=j.get("Namespace", ""), query=j.get("Query", ""),
+        resolution=j.get("Resolution", ""), severity=j.get("Severity", ""),
+        primary_url=j.get("PrimaryURL", ""),
+        references=j.get("References", []), status=j.get("Status", ""),
+        layer=_layer_from_json(j.get("Layer")),
+        cause_metadata=T.CauseMetadata(
+            provider=cm.get("Provider", ""), service=cm.get("Service", ""),
+            start_line=cm.get("StartLine", 0),
+            end_line=cm.get("EndLine", 0),
+            code=T.Code(lines=[_code_line_from_json(cl) for cl in
+                               (cm.get("Code") or {}).get("Lines", [])])),
+    )
+
+
 def blob_from_json(j: dict) -> T.BlobInfo:
     os_j = j.get("OS") or {}
     repo_j = j.get("Repository")
@@ -225,6 +256,8 @@ def blob_from_json(j: dict) -> T.BlobInfo:
             type=a.get("Type", ""), file_path=a.get("FilePath", ""),
             packages=[_pkg_from_json(p) for p in a.get("Packages", [])])
             for a in j.get("Applications", [])],
+        misconfigurations=[_misconf_from_json(m)
+                           for m in j.get("Misconfigurations", [])],
         secrets=[_secret_from_json(s) for s in j.get("Secrets", [])],
         licenses=[T.DetectedLicense(
             severity=li.get("Severity", ""),

@@ -291,6 +291,8 @@ def blob_info(scan: BlobScan, diff_id: str = "",
         repository=r.repository,
         package_infos=sorted(r.package_infos, key=lambda p: p.file_path),
         applications=sorted(r.applications, key=lambda a: a.file_path),
+        misconfigurations=sorted(r.misconfigurations,
+                                 key=lambda m: m.file_path),
         licenses=r.licenses,
         build_info=r.build_info,
         # the pipeline's annotations ride the BlobInfo and its cache

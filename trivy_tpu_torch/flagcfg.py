@@ -40,6 +40,8 @@ CONFIG_PATHS = {
     "platform": "image.platform",
     "image_src": "image.source",
     "pkg_types": "pkg-types",
+    "config_check": "misconfiguration.check-paths",
+    "check_namespaces": "misconfiguration.namespaces",
     # the ingest pipeline's budgets (ingest.*)
     "ingest_serial": "ingest.serial",
     "ingest_walkers": "ingest.walkers",

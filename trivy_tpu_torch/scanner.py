@@ -7,7 +7,8 @@ as the JAX package's LocalScanner: the blobs come from the cache, every
 target's OS and per-application query batches are built on the host,
 and ONE detect_many call joins them all (one join launch per batch).
 Then come the results that need no join: the ingest degradations, the
-secrets and, under the license scanner, the license results."""
+misconfigurations, the secrets and, under the license scanner, the
+license results."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from .detect.langpkg import LangpkgScanner
 from .detect.ospkg import OspkgScanner
 from .fanal.applier import apply_layers
 from .licensing import scan_license_name
+from .misconf import refuse_unported
 
 
 class LocalScanner:
@@ -130,13 +132,31 @@ class LocalScanner:
     def _finish_item(detail: T.ArtifactDetail, results: list,
                      options: T.ScanOptions) -> list[T.Result]:
         """The results after the vulnerability ones, in the reference's
-        order: the ingest degradations, the secrets, the licenses."""
+        order: the ingest degradations, the misconfigurations (one per
+        file, its failures sorted by id and message), the secrets, the
+        licenses. A misconfig scan of a file type that is not ported
+        raises misconf.UnportedFileType."""
         # a degraded analysis (a malformed or over-budget SBOM) says
         # what is missing and why, instead of under-reporting in silence
         if detail.ingest_errors:
             results.append(T.Result(
                 target="Ingest Degradations", clazz=T.ResultClass.INGEST,
                 ingest_errors=list(detail.ingest_errors)))
+        if T.Scanner.MISCONF in options.scanners:
+            refuse_unported(detail.misconfigurations)
+            for mc in detail.misconfigurations:
+                if not mc.failures and not mc.successes and \
+                        not mc.exceptions:
+                    continue
+                results.append(T.Result(
+                    target=mc.file_path, clazz=T.ResultClass.CONFIG,
+                    type=mc.file_type,
+                    misconf_summary=T.MisconfSummary(
+                        successes=mc.successes,
+                        failures=len(mc.failures),
+                        exceptions=mc.exceptions),
+                    misconfigurations=sorted(
+                        mc.failures, key=lambda f: (f.id, f.message))))
         if T.Scanner.SECRET in options.scanners:
             for sec in detail.secrets:
                 results.append(T.Result(

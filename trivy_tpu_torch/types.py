@@ -311,6 +311,18 @@ class Secret(JsonMixin):
 
 
 @dataclass
+class Misconfiguration(JsonMixin):
+    """Per-file misconfiguration record inside a blob
+    (reference pkg/fanal/types/misconf.go)."""
+    file_type: str = ""
+    file_path: str = ""
+    successes: int = 0
+    exceptions: int = 0
+    failures: list = field(default_factory=list)  # [DetectedMisconfiguration]
+    layer: "Layer" = field(default_factory=lambda: Layer())
+
+
+@dataclass
 class BuildInfo(JsonMixin):
     """Red Hat build metadata (reference pkg/fanal/types/artifact.go
     BuildInfo): content sets scope which advisories apply."""
@@ -333,6 +345,7 @@ class BlobInfo(JsonMixin):
     repository: Optional[Repository] = None
     package_infos: list = field(default_factory=list)   # [PackageInfo]
     applications: list = field(default_factory=list)    # [Application]
+    misconfigurations: list = field(default_factory=list)  # [Misconfiguration]
     secrets: list = field(default_factory=list)         # [Secret]
     licenses: list = field(default_factory=list)        # [DetectedLicense]
     build_info: Optional[BuildInfo] = None
@@ -362,6 +375,7 @@ class ArtifactDetail(JsonMixin):
     repository: Optional[Repository] = None
     packages: list = field(default_factory=list)      # [Package]
     applications: list = field(default_factory=list)  # [Application]
+    misconfigurations: list = field(default_factory=list)  # [Misconfiguration]
     secrets: list = field(default_factory=list)       # [Secret]
     licenses: list = field(default_factory=list)      # [DetectedLicense]
     # the blobs' annotations squashed in layer order (applier.py); the
@@ -474,8 +488,9 @@ class CauseMetadata(JsonMixin):
 
 @dataclass
 class DetectedMisconfiguration(JsonMixin):
-    """Reference pkg/types/misconfiguration.go. The port detects no
-    misconfigurations yet; `convert` reads them from a saved report."""
+    """Reference pkg/types/misconfiguration.go: one failed check, from
+    the dockerfile, kubernetes, helm or user rego checks, or read back
+    from a saved report by `convert`."""
     type: str = ""
     id: str = ""
     avd_id: str = ""
