@@ -173,11 +173,36 @@ Phases, one JSON line each; any failure exits non-zero:
            the user checks' too, and the kernels on its inputs. Per run
            the wall, start-up, table load and walk; files and findings
            per type.
+  server   `trivy server` as a registry sweep meets it: `python -m
+           trivy_tpu_torch server --debug-launches` on the apps table
+           (.npz, on the card, token auth) as a subprocess, ready_s from
+           spawn to the first 200 of /healthz (its JSON form printed, the
+           card named in it); 16 client artifacts analyzed here on the
+           card (secrets through shift-or) into the server's cache
+           through RemoteCache: 12 seeded checkouts of 1-4 of the fs
+           checkout's lockfile kinds with Zipf-overlapping package sets
+           and 2.5-4 MiB of text with a planted token, and 4 that repeat
+           earlier checkouts' lockfiles under new paths; each scanned
+           once through RemoteScanner (c=1), then all 16 at once, three
+           rounds (c=16): every c=16 report equal to the c=1 one and to
+           an in-process LocalScanner(device="cpu") without detectd over
+           the same table and cache, the planted tokens found, fewer
+           merged dispatches than batches at c=16 (from /healthz's
+           detectd figures before and after). SIGTERM drains it; its
+           debug line gives the launches by kernel and route, and the
+           merged dispatches it recorded (deduped and not, per route)
+           are held against the plain join on the card (tolerance 0)
+           and their kernels relaunched, held and timed. Figures:
+           ready_s, latency p50/p99 and scans/s at c=1 and c=16, merged
+           dispatches, batches and requests per dispatch, the dedup
+           ratio (launched over real pairs), the client's shift-or
+           launches.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
 the language phases' under "at_fs", "at_image_apps", "at_sbom",
-"at_ci", "at_image_remote", "at_misconf" and "at_misconf_image";
+"at_ci", "at_image_remote", "at_misconf", "at_misconf_image" and
+"at_server" (the server's merged dispatches);
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -3169,10 +3194,429 @@ def run_misconf_at_size(torch, tmp: str, table, db: str, deb: list,
             {"at_misconf": at_fs, "at_misconf_image": at_image})
 
 
+SERVER_KINDS = ("npm", "yarn", "go", "cargo", "poetry", "bundler",
+                "composer", "pom")
+SERVER_TOKEN = "chip-smoke-token"
+SERVER_SECRETS = (AWS, GITHUB, SLACK, PRIVATE_KEY)
+
+
+def _zipf_pick(rng, names: list, n: int, a: float = 1.2) -> list:
+    """n distinct names drawn with Zipf weights over `names`' order: the
+    head of the list (the shared base packages) recurs across
+    checkouts."""
+    w = 1.0 / np.arange(1, len(names) + 1) ** a
+    idx = rng.choice(len(names), n, replace=False, p=w / w.sum())
+    return [names[i] for i in sorted(idx)]
+
+
+def server_lockfiles(rng, names: dict, kinds: tuple, version_of) -> dict:
+    """One checkout's lockfiles, one per kind of SERVER_KINDS given, in
+    the fs checkout's formats, with Zipf-drawn package sets; a package's
+    version is version_of(name), the same in every checkout →
+    {path: bytes}."""
+    files = {}
+    if "npm" in kinds:
+        pkgs = _zipf_pick(rng, names["npm"][:3000], 400)
+        files["package-lock.json"] = json.dumps(
+            {"name": "svc", "lockfileVersion": 3, "requires": True,
+             "packages": {"": {"name": "svc", "version": "1.0.0"},
+                          **{f"node_modules/{n}": {"version": version_of(n)}
+                             for n in pkgs}}}, indent=2).encode()
+    if "yarn" in kinds:
+        lines = ["# yarn lockfile v1", ""]
+        for n in _zipf_pick(rng, names["npm"][3000:6000], 300):
+            lines += [f'"{n}@^1.0.0":', f'  version "{version_of(n)}"', ""]
+        files["web/yarn.lock"] = "\n".join(lines).encode()
+    if "go" in kinds:
+        mods = _zipf_pick(rng, names["go"][:1500], 120)
+        files["api/go.mod"] = ("module example.com/api\n\ngo 1.21\n\n"
+                               "require (\n" + "".join(
+                                   f"\t{m} v{version_of(m)}\n" for m in mods)
+                               + ")\n").encode()
+    if "cargo" in kinds:
+        files["crates/Cargo.lock"] = ("version = 3\n" + "".join(
+            f'\n[[package]]\nname = "{c}"\nversion = "{version_of(c)}"\n'
+            for c in _zipf_pick(rng, names["cargo"][:1500], 200))).encode()
+    if "poetry" in kinds:
+        files["ml/poetry.lock"] = "".join(
+            f'[[package]]\nname = "{n}"\nversion = "{version_of(n)}"\n'
+            'category = "main"\n\n'
+            for n in _zipf_pick(rng, names["pip"][:3000], 150)).encode()
+    if "bundler" in kinds:
+        files["tools/Gemfile.lock"] = (
+            "GEM\n  remote: https://rubygems.org/\n  specs:\n" + "".join(
+                f"    {g} ({version_of(g)})\n"
+                for g in _zipf_pick(rng, names["rubygems"][:1500], 120))
+            + "\nPLATFORMS\n  ruby\n").encode()
+    if "composer" in kinds:
+        files["php/composer.lock"] = json.dumps(
+            {"packages": [{"name": n, "version": "v" + version_of(n)}
+                          for n in _zipf_pick(rng, names["composer"][:1000],
+                                              100)],
+             "packages-dev": []}, indent=4).encode()
+    if "pom" in kinds:
+        deps = "".join(
+            f"    <dependency><groupId>{g}</groupId><artifactId>{a}"
+            f"</artifactId><version>{version_of(g + ':' + a)}</version>"
+            "</dependency>\n"
+            for g, a in (m.split(":") for m in
+                         _zipf_pick(rng, names["maven"][:2000], 80)))
+        files["java/pom.xml"] = (
+            "<project>\n  <groupId>com.example</groupId>\n  <artifactId>svc"
+            "</artifactId>\n  <version>1.0.0</version>\n  <dependencies>\n"
+            + deps + "  </dependencies>\n</project>\n").encode()
+    return files
+
+
+def server_checkouts(rng, names: dict, n_distinct: int = 12,
+                     n_repeat: int = 4, text=(5 << 19, 4 << 20)) -> list:
+    """The server phase's client artifacts: `n_distinct` seeded checkouts
+    of 1-4 lockfile kinds each (Zipf-overlapping package sets, one
+    version per package across checkouts) and `n_repeat` more that repeat
+    earlier checkouts' lockfiles under new paths; each with 2.5-4 MiB of
+    text and one planted token → [(files, {(path, rule)})]."""
+    versions = {}
+
+    def version_of(name):
+        if name not in versions:
+            versions[name] = _installed(rng)
+        return versions[name]
+    out, locks = [], []
+    for i in range(n_distinct + n_repeat):
+        if i < n_distinct:
+            kinds = tuple(rng.choice(SERVER_KINDS, int(rng.integers(1, 5)),
+                                     replace=False))
+            lock = server_lockfiles(rng, names, kinds, version_of)
+            locks.append(lock)
+        else:   # an earlier checkout's packages under new paths
+            lock = {f"copy{i}/{p}": b for p, b in
+                    locks[int(rng.integers(0, len(locks)))].items()}
+        n_bytes = int(rng.integers(*text))
+        files = dict(lock)
+        for j in range(0, n_bytes, 1 << 20):
+            files[f"docs/part{j >> 20}.txt"] = filler_text(
+                rng, min(1 << 20, n_bytes - j))
+        rule = SERVER_SECRETS[i % len(SERVER_SECRETS)]
+        files["deploy/secret.env"] = planted_token(rng, rule)
+        out.append((files, {("deploy/secret.env", rule)}))
+    return out
+
+
+def _write_tree(root: str, files: dict) -> None:
+    for rel, data in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+
+
+def _get_json(url: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _canon(results) -> str:
+    """Scan results as the wire carries them: through the report's JSON
+    decode and back, so a local scan and a remote one compare alike."""
+    from trivy_tpu_torch.report.writer import report_from_json
+    decoded = report_from_json({"Results": [r.to_json() for r in results]})
+    return json.dumps([r.to_json() for r in decoded.results],
+                      sort_keys=True)
+
+
+def _os_key(os_info) -> tuple:
+    return os_info.family, os_info.name, os_info.eosl
+
+
+def _pct(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def server_phase(tmp: str, table, db: str, names: dict,
+                 device: str = "cuda") -> dict:
+    """`trivy server` as users deploy it: `python -m trivy_tpu_torch
+    server` on the table `db` (a subprocess, --debug-launches), 16
+    artifacts analyzed here (on `device`) into its cache through
+    RemoteCache, each scanned once through RemoteScanner (c=1), then all
+    16 at once, three rounds (c=16); every c=16 report against the c=1
+    one and an in-process LocalScanner(device="cpu") over the same table
+    and cache; SIGTERM, and the drain's debug line → the figures."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from trivy_tpu_torch import types as T
+    from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
+                                                 AnalyzerGroup)
+    from trivy_tpu_torch.fanal.artifact import FilesystemArtifact
+    from trivy_tpu_torch.fanal.cache import FSCache
+    from trivy_tpu_torch.ops.shiftor import shiftor_cuda
+    from trivy_tpu_torch.scanner import LocalScanner
+    from trivy_tpu_torch.secret import SecretScanner
+    from trivy_tpu_torch.server.client import RemoteCache, RemoteScanner
+    cache_dir = os.path.join(tmp, "server-cache")
+    with __import__("socket").socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(tmp, "server.log")
+    t_spawn = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "trivy_tpu_torch", "server", "--listen",
+             f"127.0.0.1:{port}", "--db", db, "--token", SERVER_TOKEN,
+             "--cache-dir", cache_dir, "--debug-launches",
+             "--device", device], cwd=REPO, stderr=log)
+    try:
+        # the trees are written while the server starts
+        rng = np.random.default_rng(SEED + 10)
+        t0 = time.perf_counter()
+        checkouts = server_checkouts(rng, names)
+        roots = []
+        for i, (files, _secrets) in enumerate(checkouts):
+            roots.append(os.path.join(tmp, f"client{i:02d}"))
+            _write_tree(roots[-1], files)
+        setup_s = time.perf_counter() - t0
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"server exited {proc.returncode}:\n"
+                                     + open(log_path).read()[-4000:])
+            try:
+                urllib.request.urlopen(base + "/healthz", timeout=5).read()
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.05)
+            if time.perf_counter() - t_spawn > 300:
+                raise AssertionError("server not ready after 300 s")
+        ready_s = time.perf_counter() - t_spawn
+        healthz = _get_json(base + "/healthz")
+        phase("server_ready", ready_s=ready_s, healthz=healthz)
+
+        # the clients analyze on this side (secrets on `device`)
+        cache = RemoteCache(base, token=SERVER_TOKEN)
+        group = AnalyzerGroup(disabled=INDIVIDUAL_PKG_ANALYZERS + ("sbom",))
+        secrets = SecretScanner(device=device)
+        shiftor_before = shiftor_cuda.launches
+        t0 = time.perf_counter()
+        refs = [FilesystemArtifact(root, cache, group=group,
+                                   scanners=("vuln", "secret"),
+                                   secret_scanner=secrets).inspect()
+                for root in roots]
+        analyze_s = time.perf_counter() - t0
+        client_shiftor = shiftor_cuda.launches - shiftor_before
+        opts = T.ScanOptions(scanners=("vuln", "secret"))
+        scanner = RemoteScanner(base, token=SERVER_TOKEN, timeout=300)
+
+        def scan(i):
+            t = time.perf_counter()
+            results, os_info = scanner.scan(refs[i].name, refs[i].id,
+                                            refs[i].blob_ids, opts)
+            return (_canon(results), _os_key(os_info)), \
+                time.perf_counter() - t
+
+        serial, lat1 = [], []
+        t0 = time.perf_counter()
+        for i in range(len(refs)):
+            rep, dt = scan(i)
+            serial.append(rep)
+            lat1.append(dt)
+        wall1 = time.perf_counter() - t0
+
+        before = _get_json(base + "/healthz")["detectd"]
+        rounds, lat16 = [], []
+        for _ in range(3):
+            got = [None] * len(refs)
+            barrier = threading.Barrier(len(refs))
+
+            def worker(i):
+                barrier.wait()
+                got[i] = scan(i)
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(len(refs))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            rounds.append(time.perf_counter() - t0)
+            for i, res in enumerate(got):
+                if res is None or res[0] != serial[i]:
+                    raise AssertionError(f"server: artifact {i}'s c=16 "
+                                         "report differs from its c=1 one")
+                lat16.append(res[1])
+        after = _get_json(base + "/healthz")["detectd"]
+        c16 = {k: after[k] - before[k] for k in after}
+        if not c16["dispatches"] < c16["batches"]:
+            raise AssertionError(f"server: {c16['dispatches']} merged "
+                                 f"dispatches for {c16['batches']} batches")
+
+        # the reference: the same table and cache, in-process, on the
+        # CPU, without detectd
+        local = LocalScanner(FSCache(cache_dir), table, device="cpu")
+        for i, ref in enumerate(refs):
+            results, os_info = local.scan(ref.name, ref.id, ref.blob_ids,
+                                          opts)
+            if (_canon(results), _os_key(os_info)) != serial[i]:
+                raise AssertionError(f"server: artifact {i}'s report "
+                                     "differs from the CPU LocalScanner's")
+            found = {(r.target, f.rule_id) for r in results
+                     for f in r.secrets}
+            if found != checkouts[i][1]:
+                raise AssertionError(f"server: artifact {i} secrets "
+                                     f"{sorted(found)}")
+        proc.send_signal(__import__("signal").SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = open(log_path).read()
+    if rc != 0:
+        raise AssertionError(f"server exited {rc}:\n{err[-4000:]}")
+    debug = json.loads(err.strip().splitlines()[-1])
+    if debug["detectd"]["dispatches"] != after["dispatches"]:
+        raise AssertionError(f"server: drain line {debug['detectd']} "
+                             f"against /healthz {after}")
+    vulns = sum(len(r.get("Vulnerabilities") or [])
+                for rep, _os in serial for r in json.loads(rep))
+    return {"ready_s": ready_s, "healthz": healthz, "setup_s": setup_s,
+            "analyze_s": analyze_s, "client_shiftor": client_shiftor,
+            "artifacts": len(refs), "vulnerabilities": vulns,
+            "roots": roots,
+            "c1": {"p50_s": _pct(lat1, 50), "p99_s": _pct(lat1, 99),
+                   "scans_per_s": len(refs) / wall1, "wall_s": wall1},
+            "c16": {"p50_s": _pct(lat16, 50), "p99_s": _pct(lat16, 99),
+                    "scans_per_s": 3 * len(refs) / sum(rounds),
+                    "round_walls_s": rounds, **c16,
+                    "batches_per_dispatch":
+                        c16["batches"] / c16["dispatches"],
+                    "requests_per_dispatch":
+                        c16["requests"] / c16["dispatches"],
+                    "dedup_ratio": c16["launched_pairs"] / c16["pairs"]},
+            "drain": debug, "launches": debug["launches"]}
+
+
+def merged_case(torch, table, e: dict, label: str) -> dict:
+    """One merged dispatch the server recorded: the bits it fetched
+    (deduped ones scattered back) against the plain join over the full
+    merged descriptors on the card, tolerance 0; then the kernel of its
+    route relaunched on the descriptors it ran (the unique ones when
+    deduped), against its plain version and timed → the measurement."""
+    from types import SimpleNamespace
+
+    from trivy_tpu_torch.ops import join as J
+    cuda = torch.device("cuda")
+    lo, hi, flags, lo_pre, hi_pre = table.device_arrays(cuda)
+    ver = torch.from_numpy(e["ver"]).to(cuda)
+
+    def dev(*keys):
+        return [torch.from_numpy(np.ascontiguousarray(e[k])).to(cuda)
+                for k in keys]
+    full = J.csr_pair_join_plain(
+        lo, hi, flags, ver, *dev("q_start", "q_count", "q_ver"),
+        int(e["total"]), int(e["t_pad"])).cpu().numpy()
+    err = int(np.abs(full.astype(np.int32) - e["bits"]).max())
+    if err:
+        raise AssertionError(f"server {label}: the merged dispatch's bits "
+                             "differ from the plain join")
+    t_pad, h_cap = int(e["launch_t_pad"]), int(e["h_cap"])
+    args = (lo, hi, flags, ver,
+            *dev("launch_q_start", "launch_q_count", "launch_q_ver"),
+            int(e["launch_total"]))
+    plain = J.csr_pair_join_plain(*args, t_pad)
+    if h_cap:
+        def kernel():
+            return J.csr_join_compact_cuda(*args, t_pad, h_cap,
+                                           prefix=(lo_pre, hi_pre))
+
+        def plain_fn():
+            return J._compact_core(J.csr_pair_join_plain(*args, t_pad),
+                                   h_cap)
+        compact_error(torch, kernel(), plain, h_cap, label)
+    else:
+        def kernel():
+            return J.csr_join_cuda(*args, t_pad, prefix=(lo_pre, hi_pre))
+
+        def plain_fn():
+            return J.csr_pair_join_plain(*args, t_pad)
+        if not torch.equal(kernel(), plain):
+            raise AssertionError(f"server {label}: the kernel relaunched "
+                                 "differs from its plain version")
+    n_q = int((e["launch_q_count"] > 0).sum())
+    prep = SimpleNamespace(n_queries=n_q, q_start=e["launch_q_start"],
+                           q_count=e["launch_q_count"],
+                           q_ver=e["launch_q_ver"])
+    out_bytes = t_pad + (5 * h_cap + 4 if h_cap else 0)
+    bound = join_bytes(args, prep, out_bytes) / HBM_BYTES_PER_S * 1e3
+    ms = cuda_ms(kernel, 20)
+    loop_ms = looped_ms(kernel)
+    plain_ms = cuda_ms(plain_fn, 2)
+    fig = {"max_abs_err": err, "ms": ms, "looped_ms": loop_ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+           "library_ms": None, "deduped": bool(e["deduped"]),
+           "batches": int(e["batches"]), "merged_pairs": int(e["total"]),
+           "launched_pairs": int(e["launch_total"]),
+           "shape": [len(table), n_q, t_pad], "h_cap": h_cap}
+    phase("kernels", kernel="csr_join_compact" if h_cap else "csr_join",
+          at=label, rows=len(table), equal=True, **fig)
+    return fig
+
+
+def run_server_at_size(torch, tmp: str, table, db: str, names: dict
+                       ) -> tuple:
+    """The server phase on the card, then each recorded merged dispatch
+    against the plain join and its kernel timed, and shift-or on one
+    client artifact's rows → (launch counts, the kernels on its
+    inputs)."""
+    from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
+                                                 AnalyzerGroup)
+    from trivy_tpu_torch.fanal.walker import walk_fs
+    fig = server_phase(tmp, table, db, names)
+    rec = np.load(fig["drain"]["merged_record"])
+    entries = [{k.split("_", 1)[1]: rec[k] for k in rec.files
+                if k.startswith(f"{i}_")} for i in range(int(rec["n"]))]
+    if len(entries) < 3 or not any(e["deduped"] for e in entries):
+        raise AssertionError(f"server: {len(entries)} merged dispatches "
+                             "recorded, or none deduped")
+    at = {"csr_join": [], "csr_join_compact": []}
+    for i, e in enumerate(entries):
+        m = merged_case(torch, table, e, f"server_merged{i}")
+        at["csr_join_compact" if m["h_cap"] else "csr_join"].append(m)
+    if not at["csr_join_compact"]:
+        # no recorded dispatch took the hit buffer: hold the compacted
+        # kernel on the largest at the smallest buffer all the same
+        e = dict(max(entries, key=lambda x: int(x["launch_total"])),
+                 h_cap=np.int64(128))
+        at["csr_join_compact"].append(
+            {"forced": True, **merged_case(torch, table, e,
+                                           "server_merged_h128")})
+    scan = walk_fs(fig["roots"][0], AnalyzerGroup(
+        disabled=INDIVIDUAL_PKG_ANALYZERS + ("sbom",)), collect_secrets=True)
+    padded, bank, rows = secret_rows(scan.secret_files)
+    at["shiftor"] = shiftor_case(torch, bank, padded, "server_client")
+    launches = {"shiftor": fig["client_shiftor"],
+                "csr_join": fig["launches"]["csr_join"],
+                "csr_join_compact": fig["launches"]["csr_join_compact"]}
+    if fig["client_shiftor"] != fig["artifacts"] or \
+            launches["csr_join"] + launches["csr_join_compact"] == 0:
+        raise AssertionError(f"server: launches {launches}, "
+                             f"{fig['artifacts']} artifacts")
+    if fig["healthz"]["device"].get("kind") != \
+            torch.cuda.get_device_name(0):
+        raise AssertionError(f"server /healthz device "
+                             f"{fig['healthz']['device']}")
+    fig.pop("roots")
+    phase("server", **fig, merged_recorded=len(entries),
+          client_secret_rows=rows, launches_by_kernel=launches)
+    return launches, at
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
-    """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote` and `misconf`
-    phases over one apps table, saved as .npz (written as a trivy.db for
-    `ci`) → ({path: launch counts}, {path: kernels on its inputs})."""
+    """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`
+    and `server` phases over one apps table, saved as .npz (written as a
+    trivy.db for `ci`) → ({path: launch counts}, {path: kernels on its
+    inputs})."""
     from trivy_tpu_torch.ops.constants import INEXACT
     rng = np.random.default_rng(SEED + 6)
     t0 = time.perf_counter()
@@ -3201,11 +3645,15 @@ def run_language_phases(torch, tmp: str) -> tuple:
         apps_rows)
     misconf_launches, at_misconf = run_misconf_at_size(
         torch, tmp, table, db, deb, names, root)
+    server_launches, at_server = run_server_at_size(torch, tmp, table, db,
+                                                    names)
     return ({"fs": fs_launches, "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
-             "image_remote": remote_launches, **misconf_launches},
+             "image_remote": remote_launches, **misconf_launches,
+             "server": server_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
-             "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf})
+             "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf,
+             "at_server": at_server})
 
 
 def main() -> int:

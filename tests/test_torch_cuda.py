@@ -342,3 +342,76 @@ def test_registry_scan_on_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
                 outs.append(f.read())
     assert outs[0] == outs[1]
     assert b"CVE-2025-26519" in outs[0] and b"github-pat" in outs[0]
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_merged_deduped_dispatch_equals_plain(cuda, compact, monkeypatch):
+    """detectd's merged launch on the card, deduped, on the dense and the
+    compacted route: its bits equal the plain join over the full merged
+    descriptors, and detectd's hits at c=8 equal the CPU detector's.
+    Warmup launches every rung."""
+    import random
+    import threading
+
+    from trivy_tpu_torch.db.table import RawAdvisory, build_table
+    from trivy_tpu_torch.detect import engine as DE
+    from trivy_tpu_torch.detect import feed
+    from trivy_tpu_torch.detect.engine import (BatchDetector, CompactBits,
+                                               PkgQuery)
+    from trivy_tpu_torch.detect.sched import DispatchScheduler, SchedOptions
+    monkeypatch.setattr(DE, "_HIT_FLOOR", 8 if compact else 1 << 30)
+    monkeypatch.setattr(DE, "_HIT_ALIGN", 8)
+    raw = [RawAdvisory(source="alpine 3.17", ecosystem="alpine",
+                       pkg_name=f"pkg{i % 60}", vuln_id=f"CVE-2024-{i:05d}",
+                       fixed_version=f"{i % 5 + 1}.{i % 7}.{i % 3}-r0")
+           for i in range(600)]
+    table = build_table(raw)
+    rng = random.Random(9)
+
+    def batch(n):
+        return [PkgQuery("alpine 3.17", "alpine", f"pkg{rng.randrange(80)}",
+                         f"{rng.randrange(6)}.{rng.randrange(4)}.0-r0")
+                for _ in range(n)]
+    requests = [[batch(40), batch(25)] for _ in range(16)]
+    det = BatchDetector(table, device="cuda")
+    preps = [det._prepare(b) for r in requests[:6] for b in r]
+    preps = [p for p in preps if p is not None and p.n_pairs]
+    dev, offsets, t_pad = det.dispatch_merged(
+        preps, plan=feed.plan_from_preps(preps))
+    assert isinstance(dev, feed.PendingExpand)
+    assert isinstance(dev.dev, DE._PendingCompact) == compact
+    bits = det.fetch_merged(dev, preps, offsets, t_pad)
+    bits = bits.dense() if isinstance(bits, CompactBits) else bits
+    q_start, q_count, q_ver, _off, total, t_pad2, u_pad = \
+        det._merge_descriptors(preps)
+    lo, hi, flags, _lo_pre, _hi_pre = table.device_arrays(cuda)
+    want = J.csr_pair_join_plain(
+        lo, hi, flags, torch.from_numpy(det.ver_snapshot(u_pad)).to(cuda),
+        *(torch.from_numpy(a).to(cuda) for a in (q_start, q_count, q_ver)),
+        total, t_pad2).cpu().numpy()
+    assert t_pad == t_pad2
+    assert np.array_equal(bits, want)
+
+    serial = BatchDetector(table, device="cpu")
+    expected = [[[(h.query.name, h.query.version, h.vuln_id) for h in hs]
+                 for hs in serial.detect_many(r)] for r in requests]
+    sched = DispatchScheduler(det, SchedOptions(coalesce_wait_ms=5.0))
+    got = [None] * len(requests)
+
+    def worker(k):
+        for i in range(k, len(requests), 8):
+            got[i] = [[(h.query.name, h.query.version, h.vuln_id)
+                       for h in hs] for hs in sched.detect_many(requests[i])]
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    sched.close()
+    assert got == expected
+    assert sched.stats["dispatches"] < sched.stats["batches"]
+    before = J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches
+    assert det.warmup(max_pairs=1 << 12) == 5
+    assert J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches \
+        >= before + 5
+    det.close()

@@ -43,7 +43,10 @@ need = ["trivy_tpu_torch." + m for m in (
     "iac.kubernetes", "iac.helm", "iac.rego", "iac.rego.parser",
     "iac.rego.builtins", "iac.rego.eval", "misconf", "misconf.dockerfile",
     "fanal.analyzers.misconf", "compliance", "compliance.spec",
-    "compliance.report")]
+    "compliance.report", "detect.feed", "detect.sched", "obs", "obs.cost",
+    "resilience", "resilience.admission", "resilience.retry", "server",
+    "server.protowire", "server.convert", "server.listen",
+    "server.client")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """
@@ -72,6 +75,7 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
     from trivy_tpu_torch.fanal.fixtures import tar_bytes, write_docker_archive
     from trivy_tpu_torch.scanner import LocalScanner
     from trivy_tpu_torch.secret import SecretScanner
+    from trivy_tpu_torch.server.listen import ServerState
     table = build_table([])
     image = str(tmp_path / "image.tar")
     layer = tar_bytes({"etc/alpine-release": b"3.17.3\n"})
@@ -99,7 +103,12 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
                                    str(tmp_path / "cache")]),
                  lambda: cli.main(["image", "alpine:3.19", "--image-src",
                                    "docker,containerd,podman",
-                                   "--cache-dir", str(tmp_path / "cache")])):
+                                   "--cache-dir", str(tmp_path / "cache")]),
+                 # the server raises before it loads a table or listens
+                 lambda: cli.main(["server", "--listen", "127.0.0.1:1",
+                                   "--db", str(tmp_path / "none.npz"),
+                                   "--cache-dir", str(tmp_path / "cache")]),
+                 lambda: ServerState(table, str(tmp_path / "srv"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert D.resolve_device("cpu") == torch.device("cpu")

@@ -6,6 +6,7 @@
     python -m trivy_tpu_torch repo DIR [...]        (alias: repository)
     python -m trivy_tpu_torch sbom FILE [...]
     python -m trivy_tpu_torch convert REPORT.json --format F [...]
+    python -m trivy_tpu_torch server --listen HOST:PORT --db DB [...]
 
 Mirrors `python -m trivy_tpu.cli` for these commands and the scanners
 `vuln`, `secret`, `license` and `misconfig` (aliases `config`,
@@ -57,6 +58,14 @@ installed packages and the OS; fs and repo also the in-image `sbom`
 analyzer. Runs on CUDA unless `--device cpu` is given; `--device` and
 `--debug-launches` come from the command line only. Not ported, and
 refused: `--sbom-sources rekor` (ROADMAP A5).
+
+`server` serves the Twirp scan and cache routes of the JAX package's
+server (server/listen.py) with the table on the card and detectd merging
+concurrent scans' launches; clients analyze on their side and send
+blobs (server/client.py). SIGTERM or SIGINT drains it. The JAX server's
+mesh, memo, table-streaming, breaker, failpoint, trace and graftwatch
+flags, and the redis:// and s3:// caches, are refused with the ROADMAP
+item that will port them (SERVER_REFUSED).
 """
 
 from __future__ import annotations
@@ -474,6 +483,169 @@ def cmd_convert(args) -> int:
     return 0
 
 
+_MESH = "multi-device detection is not ported yet (ROADMAP A11)"
+_STREAM = "streamed advisory tables are not ported yet (ROADMAP A10)"
+_GUARD = ("the port has no breaker, watchdog or failpoints: a failed "
+          "launch or fetch fails the requests it carried (ROADMAP A, "
+          "not ported by the north star)")
+_OBS = ("tracing, the flight recorder, SLOs and the tenant cost "
+        "controls are not ported yet (ROADMAP A17)")
+# the JAX server's flags that the port refuses, and why
+SERVER_REFUSED = {
+    "mesh_devices": _MESH, "mesh_db_shards": _MESH,
+    "mesh_min_devices": _MESH, "mesh_rebuild_cooldown_ms": _MESH,
+    "mesh_probe_timeout_ms": _MESH, "mesh_hosts": _MESH,
+    "mesh_host_loss_window_ms": _MESH,
+    "memo_backend": "the detection memo is not ported yet (ROADMAP A9)",
+    "redetect_concurrency": "redetectd is not ported yet (ROADMAP A9)",
+    "table_stream_slices": _STREAM, "table_device_budget_mb": _STREAM,
+    "stream_prefetch": "the slice prefetch of streamed tables is not "
+                       "ported yet (ROADMAP A8, A10)",
+    "failpoint": _GUARD, "breaker_fail_threshold": _GUARD,
+    "breaker_reset_ms": _GUARD, "detect_dispatch_timeout_ms": _GUARD,
+    "trace": _OBS, "incident_dir": _OBS, "slow_trace_ms": _OBS,
+    "slo_latency_ms": _OBS, "profile_auto_burn": _OBS,
+    "profile_cooldown_s": _OBS, "ingest_tenant_walker_share": _OBS,
+    "ingest_tenant_byte_share": _OBS,
+}
+
+
+def _refuse_server_flags(args) -> None:
+    """Exit naming the ROADMAP item of each refused flag given (on the
+    command line, in TRIVY_* env or in trivy.yaml)."""
+    given = [d for d in SERVER_REFUSED if getattr(args, d, None)
+             is not None and not (d == "memo_backend"
+                                  and getattr(args, d) == "off")]
+    if given:
+        raise SystemExit("server: " + "; ".join(
+            f"--{d.replace('_', '-')}: {SERVER_REFUSED[d]}"
+            for d in given))
+    backend = args.cache_backend
+    if backend.startswith(("redis://", "s3://")):
+        raise SystemExit(f"--cache-backend {backend}: the Redis and S3 "
+                         "caches are not ported yet (ROADMAP A5.3)")
+    if backend not in ("fs", "memory"):
+        raise SystemExit(f"--cache-backend: unknown cache backend "
+                         f"{backend!r} (fs | memory)")
+
+
+def cmd_server(args) -> int:
+    """The scan server (reference cli.py:1153): the table on the card,
+    detectd merging concurrent scans' launches, until SIGTERM or SIGINT
+    drains it."""
+    from .detect.sched import SchedOptions
+    from .resilience import AdmissionOptions
+    from .server.listen import LaunchRecord, serve
+    _refuse_server_flags(args)
+    device = resolve_device(args.device)
+    table = load_table(args.db, cache_dir=args.cache_dir,
+                       repository=args.db_repository,
+                       skip_update=args.skip_db_update)
+    host, _, port = args.listen.rpartition(":")
+    record = LaunchRecord() if args.debug_launches else None
+    state = serve(
+        host or "0.0.0.0", int(port), table, cache_dir=args.cache_dir,
+        token=args.token, cache_backend=args.cache_backend,
+        detect_opts=SchedOptions(
+            coalesce_wait_ms=args.detect_coalesce_wait_ms,
+            max_pairs_in_flight=args.detect_max_inflight_pairs,
+            warmup=args.detect_warmup, dedup=args.detect_dedup,
+            tenant_max_share=args.detect_tenant_max_share),
+        admission=AdmissionOptions(
+            max_active=args.admit_max_active,
+            max_queue=args.admit_max_queue,
+            queue_timeout_ms=args.admit_queue_ms,
+            tenant_max_active=args.admit_tenant_max_active,
+            tenant_max_queue=args.admit_tenant_max_queue,
+            tenant_rate=args.admit_tenant_rate),
+        drain_grace_s=args.drain_grace_ms / 1e3, device=device,
+        launch_record=record)
+    if record is not None:
+        # after the drain: the launches by kernel (the dense and the
+        # compacted route), what the merged dispatches carried, and a
+        # few of them saved for a check against the plain join
+        os.makedirs(args.cache_dir, exist_ok=True)
+        path = os.path.join(args.cache_dir, "merged-launches.npz")
+        st = state.scanner.sched.stats
+        print(json.dumps({
+            "launches": launch_counts(),
+            "detectd": {**st,
+                        "batches_per_dispatch":
+                            st["batches"] / max(st["dispatches"], 1),
+                        "dedup_ratio":
+                            st["launched_pairs"] / max(st["pairs"], 1)},
+            "merged_record": path,
+            "merged_recorded": record.save(path)}), file=sys.stderr)
+    return 0
+
+
+def _server_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX server's flags (trivy_tpu/cli.py:262-445) that the port
+    serves, and the ones it refuses (SERVER_REFUSED, default None)."""
+    p.add_argument("--listen", default="0.0.0.0:4954")
+    p.add_argument("--db", default="",
+                   help="advisory DB: a trivy.db, a columnar .npz or a "
+                        "fixture YAML glob; without it <cache-dir>/db/")
+    p.add_argument("--db-repository", default=DEFAULT_REPO)
+    p.add_argument("--skip-db-update", action="store_true")
+    p.add_argument("--cache-dir", default=DEFAULT_CACHE_DIR)
+    p.add_argument("--token", default="",
+                   help="require this Trivy-Token header on every POST")
+    p.add_argument("--cache-backend", default="fs",
+                   help="fs | memory (redis:// and s3:// are refused)")
+    p.add_argument("--detect-coalesce-wait-ms", type=float, default=2.0,
+                   help="detectd: how long pending requests gather while "
+                        "a dispatch is in flight")
+    p.add_argument("--detect-max-inflight-pairs", type=int,
+                   default=1 << 22,
+                   help="detectd: padded pairs in flight on the card "
+                        "before dispatches wait")
+    p.add_argument("--detect-warmup", action="store_true",
+                   help="launch the join once per rung of the pair "
+                        "ladder at start")
+    p.add_argument("--detect-dedup", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="collapse duplicate query triples across merged "
+                        "requests into one launch")
+    p.add_argument("--detect-tenant-max-share", type=float, default=1.0,
+                   help="largest share of a merged round's pair budget "
+                        "one tenant may fill while others wait (1.0 = "
+                        "off)")
+    p.add_argument("--admit-max-active", type=int, default=0,
+                   help="concurrent Scan RPCs; 0 = unbounded")
+    p.add_argument("--admit-max-queue", type=int, default=16,
+                   help="Scans that may wait beyond --admit-max-active "
+                        "before shedding 429 + Retry-After")
+    p.add_argument("--admit-queue-ms", type=float, default=1000.0,
+                   help="longest wait of one Scan in the admission queue")
+    p.add_argument("--admit-tenant-max-active", type=int, default=0)
+    p.add_argument("--admit-tenant-max-queue", type=int, default=0)
+    p.add_argument("--admit-tenant-rate", type=float, default=0.0)
+    p.add_argument("--drain-grace-ms", type=float, default=10000.0,
+                   help="SIGTERM/SIGINT: how long the requests in flight "
+                        "may finish before the server closes")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; there is no automatic "
+                        "fallback to the CPU")
+    p.add_argument("--debug-launches", action="store_true",
+                   help="after the drain, print the launches by kernel "
+                        "and route and detectd's merged dispatches as "
+                        "JSON on stderr, and save a few merged dispatches "
+                        "to <cache-dir>/merged-launches.npz")
+    for dest in SERVER_REFUSED:
+        flag = "--" + dest.replace("_", "-")
+        if dest == "stream_prefetch":
+            p.add_argument(flag, default=None,
+                           action=argparse.BooleanOptionalAction,
+                           help="refused: " + SERVER_REFUSED[dest])
+        elif dest == "failpoint":
+            p.add_argument(flag, action="append", default=None,
+                           help="refused: " + SERVER_REFUSED[dest])
+        else:
+            p.add_argument(flag, default=None,
+                           help="refused: " + SERVER_REFUSED[dest])
+
+
 def _rel_globs(globs, root: str) -> tuple:
     """--skip-files/--skip-dirs take paths relative to the current
     directory or to the scan root; → root-relative globs. Only a path
@@ -698,6 +870,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--template", "-t", default="")
     p.add_argument("--output", "-o", default="")
     p.set_defaults(func=cmd_convert)
+    p = sub.add_parser("server", help="run the scan server")
+    _server_flags(p)
+    p.set_defaults(func=cmd_server)
     for sp in sub.choices.values():
         sp.allow_abbrev = False
     return ap

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -100,6 +101,9 @@ class AdvisoryTable:
         self.aux = aux or {}
         self.sources = sorted({g.source for g in groups})
         self._device: dict | None = None   # torch.device → tensors
+        # one upload per device although the server's threads may ask
+        # for the arrays at the same time
+        self._device_lock = threading.Lock()
         self._hash_u64 = None
         self._digest: Optional[str] = None
 
@@ -156,14 +160,16 @@ class AdvisoryTable:
 
         from ..ops.join import prefix_planes
         device = torch.device(device)
-        cached = self._device.get(device) if self._device else None
-        if cached is None:
-            lo, hi, flags = (torch.from_numpy(np.ascontiguousarray(x))
-                             .to(device)
-                             for x in (self.lo_tok, self.hi_tok, self.flags))
-            cached = (lo, hi, flags, *prefix_planes(lo, hi))
-            self._device = {**(self._device or {}), device: cached}
-        return cached
+        with self._device_lock:
+            cached = self._device.get(device) if self._device else None
+            if cached is None:
+                lo, hi, flags = (torch.from_numpy(np.ascontiguousarray(x))
+                                 .to(device)
+                                 for x in (self.lo_tok, self.hi_tok,
+                                           self.flags))
+                cached = (lo, hi, flags, *prefix_planes(lo, hi))
+                self._device = {**(self._device or {}), device: cached}
+            return cached
 
     @classmethod
     def from_numpy(cls, hash_, lo_tok, hi_tok, flags, group, groups,

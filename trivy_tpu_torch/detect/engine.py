@@ -21,10 +21,19 @@ The reference evaluates the same predicate one package at a time
 (pkg/detector/ospkg/alpine/alpine.go:86-117). Host prep and assembly
 follow the JAX package's detect/engine.py so both produce the same
 hits from the same table.
+
+One detector serves every handler thread of the server: the version
+pool, the hash cache, the hit budget and the group columns are guarded
+by one lock. detectd (detect/sched.py) merges several threads' prepared
+batches into one launch (dispatch_merged) and fetches it on the
+detector's fetch thread (fetch_merged). There is no host join: a
+failed launch or fetch raises.
 """
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
@@ -34,7 +43,7 @@ import torch
 from .. import version as V
 from ..db.table import AdvisoryTable
 from ..device import resolve_device
-from ..ops import bucket_size
+from ..ops import bucket_ladder, bucket_size
 from ..ops import join as J
 from ..ops import next_pow2 as _next_pow2
 from ..ops.hashing import fnv1a64_batch
@@ -62,6 +71,27 @@ class CompactBits(NamedTuple):
     pair_idx: np.ndarray   # int32[n_hits], strictly increasing
     bits: np.ndarray       # int8[n_hits], all nonzero
     n_pairs: int
+
+    def slice(self, off: int, n: int) -> "CompactBits":
+        """The [off, off+n) window of the dense vector, found with one
+        searchsorted over the sorted hit indices."""
+        lo, hi = np.searchsorted(self.pair_idx, (off, off + n))
+        return CompactBits(self.pair_idx[lo:hi] - np.int32(off),
+                           self.bits[lo:hi], n)
+
+    def dense(self) -> np.ndarray:
+        """The dense int8[n_pairs] vector this stands for."""
+        out = np.zeros(self.n_pairs, np.int8)
+        out[self.pair_idx] = self.bits
+        return out
+
+
+def slice_bits(bits, off: int, n: int):
+    """One batch's [off, off+n) window of a merged dispatch's result,
+    dense or compacted: what a solo dispatch of that batch gives."""
+    if isinstance(bits, CompactBits):
+        return bits.slice(off, n)
+    return bits[off:off + n]
 
 
 class _PendingCompact(NamedTuple):
@@ -137,35 +167,58 @@ class BatchDetector:
         self._ver_dev_rows = 0     # pool rows covered by the copy
         # hash pool: unique (source, name) → uint64
         self._hash_cache: dict[tuple[str, str], int] = {}
+        # guards the pools, the hit budget and the group columns: the
+        # server's handler threads share one detector
+        self._lock = threading.Lock()
         self._g_arrays = None
         self._g_cols = None
+        self._closed = False
+        # one fetch thread for detectd's merged dispatches (one thread
+        # keeps the transfers in launch order)
+        self._get_pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="detect-get")
+
+    def close(self) -> None:
+        """Join the fetch thread. Idempotent; every owner that retires a
+        detector (the server's table swap and shutdown) calls it."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self._get_pool.shutdown(wait=True)
 
     # ---- memo pools ---------------------------------------------------
 
     def _ver_index(self, eco: str, ver: str) -> Optional[int]:
         ck = (eco, ver)
-        if ck in self._ver_idx:
-            return self._ver_idx[ck]
+        idx = self._ver_idx.get(ck, -1)
+        if idx != -1:
+            return idx
         try:
             k = V.encode_version(eco, ver)
         except (ValueError, KeyError):
             # the reference skips packages whose installed version does
             # not parse (alpine.go:96-100 logs debug and continues)
-            self._ver_idx[ck] = None
+            with self._lock:
+                self._ver_idx[ck] = None
             return None
         from ..db.constraints import _NPM_ECOS, _has_prerelease
         if eco in _NPM_ECOS and _has_prerelease(ver):
             # node-semver prerelease rule: interval tokens cannot express
             # it, so the exact host recheck decides
             k.exact = False
-        i = self._ver_count
-        if i == self._ver_mat.shape[0]:
-            self._ver_mat = np.concatenate(
-                [self._ver_mat, np.zeros_like(self._ver_mat)])
-        self._ver_mat[i] = k.tokens
-        self._ver_exact.append(k.exact)
-        self._ver_count = i + 1
-        self._ver_idx[ck] = i
+        with self._lock:
+            idx = self._ver_idx.get(ck, -1)
+            if idx != -1:   # another thread took the slot first
+                return idx
+            i = self._ver_count
+            if i == self._ver_mat.shape[0]:
+                self._ver_mat = np.concatenate(
+                    [self._ver_mat, np.zeros_like(self._ver_mat)])
+            self._ver_mat[i] = k.tokens
+            self._ver_exact.append(k.exact)
+            self._ver_count = i + 1
+            self._ver_idx[ck] = i
         return i
 
     def _hashes(self, keys: list[tuple[str, str]]) -> np.ndarray:
@@ -175,13 +228,18 @@ class BatchDetector:
         if cold:
             hv = fnv1a64_batch(
                 [s.encode() + b"\x00" + n.encode() for s, n in cold])
-            cache.update(zip(cold, hv))
+            with self._lock:
+                cache.update(zip(cold, hv))
         return np.fromiter((cache[ck] for ck in keys),
                            dtype=np.uint64, count=len(keys))
 
     def ver_snapshot(self, u_pad: int | None = None) -> np.ndarray:
         """Padded host snapshot of the version pool (rows beyond the
         pool are zero and never referenced)."""
+        with self._lock:
+            return self._ver_snapshot_locked(u_pad)
+
+    def _ver_snapshot_locked(self, u_pad: int | None = None) -> np.ndarray:
         rows = max(u_pad or 0, _next_pow2(self._ver_count))
         snap = np.zeros((rows, self._ver_mat.shape[1]), np.int32)
         snap[:self._ver_count] = self._ver_mat[:self._ver_count]
@@ -189,13 +247,18 @@ class BatchDetector:
 
     def _ver_device(self, u_pad: int) -> torch.Tensor:
         """Device copy of the version pool, re-uploaded only when the
-        pool outgrew the last upload."""
-        if self._ver_dev is None or self._ver_dev_rows < self._ver_count \
-                or self._ver_dev.shape[0] < u_pad:
-            self._ver_dev = torch.from_numpy(
-                self.ver_snapshot(u_pad)).to(self.device)
-            self._ver_dev_rows = self._ver_count
-        return self._ver_dev
+        pool outgrew the last upload. A launch keeps the tensor it was
+        handed: a later re-upload binds a new one, and the caching
+        allocator reuses the old memory only for work enqueued after
+        that launch on the same stream."""
+        with self._lock:
+            if self._ver_dev is None \
+                    or self._ver_dev_rows < self._ver_count \
+                    or self._ver_dev.shape[0] < u_pad:
+                self._ver_dev = torch.from_numpy(
+                    self._ver_snapshot_locked(u_pad)).to(self.device)
+                self._ver_dev_rows = self._ver_count
+            return self._ver_dev
 
     # ---- batch pipeline -----------------------------------------------
 
@@ -247,40 +310,51 @@ class BatchDetector:
                                              count=len(usable)),
                          q_obj=q_obj)
 
-    def _hit_capacity(self, t_pad: int) -> int:
+    def _hit_capacity(self, t_pad: int,
+                      budget: float | None = None) -> int:
         """Hit-buffer rung for a t_pad-pair dispatch: the bucket-ladder
         rung covering t_pad × hit-budget. 0 — dispatch dense — when
         compaction could not beat the dense fetch. While the budget (not
         the geometry) keeps dispatches dense, a streak counter walks it
-        back down so compaction is retried."""
-        budget = self._hit_budget
+        back down so compaction is retried. A given `budget` (warmup's
+        neighbouring rungs) is read without adapting anything."""
+        adapt = budget is None
+        if adapt:
+            with self._lock:
+                budget = self._hit_budget
         cap = bucket_size(max(int(t_pad * budget), _HIT_FLOOR),
                           _HIT_FLOOR, _PAIR_GROWTH, align=_HIT_ALIGN)
         if cap * 8 < t_pad:
-            self._hit_dense_streak = 0
+            if adapt:
+                with self._lock:
+                    self._hit_dense_streak = 0
             return cap
         floor_cap = bucket_size(_HIT_FLOOR, _HIT_FLOOR, _PAIR_GROWTH,
                                 align=_HIT_ALIGN)
-        if budget > _HIT_BUDGET_MIN and floor_cap * 8 < t_pad:
-            self._hit_dense_streak += 1
-            if self._hit_dense_streak >= _HIT_LOW_STREAK:
-                self._hit_budget = max(budget / 2, _HIT_BUDGET_MIN)
-                self._hit_dense_streak = 0
+        if adapt and budget > _HIT_BUDGET_MIN and floor_cap * 8 < t_pad:
+            with self._lock:
+                self._hit_dense_streak += 1
+                if self._hit_dense_streak >= _HIT_LOW_STREAK:
+                    self._hit_budget = max(self._hit_budget / 2,
+                                           _HIT_BUDGET_MIN)
+                    self._hit_dense_streak = 0
         return 0
 
     def _note_hits(self, n_hits: int, h_cap: int) -> None:
         """Adapt the hit budget from the observed buffer occupancy."""
-        if n_hits > h_cap:
-            self._hit_budget = min(self._hit_budget * 2, _HIT_BUDGET_MAX)
-            self._hit_low_streak = 0
-        elif n_hits * 4 <= h_cap:
-            self._hit_low_streak += 1
-            if self._hit_low_streak >= _HIT_LOW_STREAK:
-                self._hit_budget = max(self._hit_budget / 2,
-                                       _HIT_BUDGET_MIN)
+        with self._lock:
+            if n_hits > h_cap:
+                self._hit_budget = min(self._hit_budget * 2,
+                                       _HIT_BUDGET_MAX)
                 self._hit_low_streak = 0
-        else:
-            self._hit_low_streak = 0
+            elif n_hits * 4 <= h_cap:
+                self._hit_low_streak += 1
+                if self._hit_low_streak >= _HIT_LOW_STREAK:
+                    self._hit_budget = max(self._hit_budget / 2,
+                                           _HIT_BUDGET_MIN)
+                    self._hit_low_streak = 0
+            else:
+                self._hit_low_streak = 0
 
     def _launch(self, q_start: np.ndarray, q_count: np.ndarray,
                 q_ver: np.ndarray, n_queries: int, total: int, t_pad: int,
@@ -320,6 +394,103 @@ class BatchDetector:
         hit_idx = packed[1:1 + dev.h_cap]
         hit_bits = packed[1 + dev.h_cap:].astype(np.int8)
         return CompactBits(hit_idx[:n], hit_bits[:n], dev.t_pad)
+
+    # ---- merged dispatch (detectd) ------------------------------------
+
+    def _merge_descriptors(self, preps: list[_Prepared]):
+        """Concatenate several preps' real CSR prefixes into one
+        descriptor set → (q_start, q_count, q_ver, offsets, total,
+        t_pad, u_pad). Only the real (nonzero-count) prefix of each
+        prep is copied: an interior zero count would shift every later
+        segment."""
+        total = sum(p.n_pairs for p in preps)
+        q_n = sum(p.n_queries for p in preps)
+        t_pad = bucket_size(total, _PAIR_FLOOR, _PAIR_GROWTH)
+        q_pad = bucket_size(q_n, 64, _PAIR_GROWTH, align=64)
+        q_start = np.zeros(q_pad, np.int32)
+        q_count = np.zeros(q_pad, np.int32)
+        q_ver = np.zeros(q_pad, np.int32)
+        offsets = []
+        pos = off = 0
+        for p in preps:
+            k = p.n_queries
+            q_start[pos:pos + k] = p.q_start[:k]
+            q_count[pos:pos + k] = p.q_count[:k]
+            q_ver[pos:pos + k] = p.q_ver[:k]
+            offsets.append(off)
+            pos += k
+            off += p.n_pairs
+        # the shared pool only grows: the largest of the preps'
+        # snapshots and the current count covers every version row
+        u_pad = max(_next_pow2(self._ver_count),
+                    max(p.u_pad for p in preps))
+        return q_start, q_count, q_ver, offsets, total, t_pad, u_pad
+
+    def dispatch_merged(self, preps: list[_Prepared], plan=None):
+        """ONE join launch covering several prepared batches, the
+        primitive detectd is built on. Each prep's pairs land
+        contiguously in the merged bits, so its slice [off, off +
+        n_pairs) is what its solo dispatch gives: the predicate is
+        elementwise.
+
+        With a dedup `plan` (feed.plan_from_preps of these preps), the
+        launch covers the unique query triples only and fetch_merged
+        scatters the bits back through the plan's map; without one it
+        covers every real pair. → (pending result, per-prep offsets,
+        t_pad), the offsets and t_pad in the full merged pair space
+        either way."""
+        from . import feed as _feed
+        q_start, q_count, q_ver, offsets, total, t_pad, u_pad = \
+            self._merge_descriptors(preps)
+        n_q = sum(p.n_queries for p in preps)
+        if plan is None:
+            return self._launch(q_start, q_count, q_ver, n_q, total,
+                                t_pad, u_pad), offsets, t_pad
+        ls, lc, lv, l_total, l_tpad = _feed.padded_unique(
+            plan, _PAIR_FLOOR, _PAIR_GROWTH)
+        dev = self._launch(ls, lc, lv, plan.n_unique, l_total, l_tpad,
+                           u_pad)
+        return _feed.PendingExpand(dev, plan, (ls, lc, lv, l_total,
+                                               l_tpad)), offsets, t_pad
+
+    def fetch_merged(self, dev, preps: list[_Prepared], offsets: list,
+                     t_pad: int):
+        """Fetch a merged dispatch's bits (dense ndarray or
+        CompactBits over the full merged pair space); a deduped one is
+        scattered back through its plan. A failed fetch raises: every
+        request the dispatch carried fails with it."""
+        from . import feed as _feed
+        if isinstance(dev, _feed.PendingExpand):
+            return _feed.expand_bits(dev.plan, self._fetch_bits(dev.dev),
+                                     t_pad)
+        return self._fetch_bits(dev)
+
+    def warmup(self, max_pairs: int = 1 << 18) -> int:
+        """Launch once per rung of the pair ladder with empty
+        descriptors, and once more per neighbouring hit-buffer rung (one
+        budget doubling up and one halving down), as the JAX package's
+        warmup does; nothing is compiled per shape here, so this only
+        makes the same launches. → the rung count."""
+        if len(self.table) == 0:
+            return 0
+        rungs = bucket_ladder(max_pairs, _PAIR_FLOOR, _PAIR_GROWTH)
+        u_pad = _next_pow2(max(self._ver_count, 1))
+        with self._lock:
+            budget = self._hit_budget
+        for t_pad in rungs:
+            q_pad = bucket_size(max(t_pad // 8, 1), 64, _PAIR_GROWTH,
+                                align=64)
+            z = np.zeros(q_pad, np.int32)
+            self._launch(z, z, z, 0, 0, t_pad, u_pad)
+            warmed = {self._hit_capacity(t_pad, budget=budget)}
+            for adapted in (budget * 2, budget / 2):
+                nxt = self._hit_capacity(t_pad, budget=adapted)
+                if nxt and nxt not in warmed:
+                    warmed.add(nxt)
+                    self._launch(z, z, z, 0, 0, t_pad, u_pad, h_cap=nxt)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return len(rungs)
 
     def detect(self, queries: list[PkgQuery]) -> list[Hit]:
         return self.detect_many([queries])[0]
@@ -428,29 +599,32 @@ class BatchDetector:
     def _group_arrays(self):
         """Per-table verification columns: names, sources, and a scoped
         flag for arch/CPE-gated groups."""
-        if self._g_arrays is None:
-            gs = self.table.groups
-            self._g_arrays = (
-                np.array([g.pkg_name for g in gs], dtype=object),
-                np.array([g.source for g in gs], dtype=object),
-                np.fromiter((bool(g.arches or g.cpe_indices) for g in gs),
-                            bool, count=len(gs)),
-            )
-        return self._g_arrays
+        with self._lock:
+            if self._g_arrays is None:
+                gs = self.table.groups
+                self._g_arrays = (
+                    np.array([g.pkg_name for g in gs], dtype=object),
+                    np.array([g.source for g in gs], dtype=object),
+                    np.fromiter((bool(g.arches or g.cpe_indices)
+                                 for g in gs), bool, count=len(gs)),
+                )
+            return self._g_arrays
 
     def _group_cols(self):
         """Columnar group attributes for fast-path Hit construction."""
-        if self._g_cols is None:
-            gs = self.table.groups
+        with self._lock:
+            if self._g_cols is None:
+                gs = self.table.groups
 
-            def col(attr):
-                a = np.empty(len(gs), dtype=object)
-                a[:] = [getattr(g, attr) for g in gs]
-                return a
-            self._g_cols = tuple(
-                col(a) for a in ("vuln_id", "fixed_version", "status",
-                                 "severity", "data_source", "vendor_ids"))
-        return self._g_cols
+                def col(attr):
+                    a = np.empty(len(gs), dtype=object)
+                    a[:] = [getattr(g, attr) for g in gs]
+                    return a
+                self._g_cols = tuple(
+                    col(a) for a in ("vuln_id", "fixed_version", "status",
+                                     "severity", "data_source",
+                                     "vendor_ids"))
+            return self._g_cols
 
     def _exact_eval(self, g, q: PkgQuery) -> tuple[bool, bool]:
         """Evaluate the group's intervals with the exact comparator (for

@@ -51,6 +51,32 @@ CONFIG_PATHS = {
     "ingest_max_members": "ingest.max-members",
     "ingest_layer_deadline_ms": "ingest.layer-deadline-ms",
     "ingest_max_inflight_bytes": "ingest.max-inflight-bytes",
+    # the server's (detect.*, resilience.*, cache.*), and the keys of
+    # the flags it refuses (mesh.*, memo.*), at the JAX package's paths
+    "detect_coalesce_wait_ms": "detect.coalesce-wait-ms",
+    "detect_max_inflight_pairs": "detect.max-inflight-pairs",
+    "detect_warmup": "detect.warmup",
+    "detect_dedup": "detect.dedup",
+    "admit_max_active": "resilience.admit-max-active",
+    "admit_max_queue": "resilience.admit-max-queue",
+    "admit_queue_ms": "resilience.admit-queue-ms",
+    "cache_backend": "cache.backend",
+    "stream_prefetch": "mesh.stream-prefetch",
+    "detect_dispatch_timeout_ms": "resilience.dispatch-timeout-ms",
+    "breaker_fail_threshold": "resilience.breaker-fail-threshold",
+    "breaker_reset_ms": "resilience.breaker-reset-ms",
+    "failpoint": "resilience.failpoints",
+    "mesh_devices": "mesh.devices",
+    "mesh_db_shards": "mesh.db-shards",
+    "mesh_min_devices": "mesh.min-devices",
+    "mesh_rebuild_cooldown_ms": "mesh.rebuild-cooldown-ms",
+    "mesh_probe_timeout_ms": "mesh.probe-timeout-ms",
+    "mesh_hosts": "mesh.hosts",
+    "mesh_host_loss_window_ms": "mesh.host-loss-window-ms",
+    "table_device_budget_mb": "mesh.table-device-budget-mb",
+    "table_stream_slices": "mesh.table-stream-slices",
+    "memo_backend": "memo.backend",
+    "redetect_concurrency": "memo.redetect-concurrency",
 }
 
 # dests bound to the command line only

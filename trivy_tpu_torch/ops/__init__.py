@@ -25,3 +25,13 @@ def bucket_size(n: int, floor: int = 128, growth: float = 2.0,
         nxt = (int(b * growth) + align - 1) // align * align
         b = max(nxt, b + align)
     return b
+
+
+def bucket_ladder(max_n: int, floor: int = 128, growth: float = 2.0,
+                  align: int = 128) -> list:
+    """Every rung of the bucket ladder from `floor` up to the first rung
+    ≥ max_n: the dispatch shapes detectd's warmup launches once each."""
+    rungs = [int(floor)]
+    while rungs[-1] < max_n:
+        rungs.append(bucket_size(rungs[-1] + 1, floor, growth, align))
+    return rungs

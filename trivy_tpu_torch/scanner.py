@@ -6,14 +6,16 @@ Same (target, artifact id, blob ids, options) → (results, os) contract
 as the JAX package's LocalScanner: the blobs come from the cache, every
 target's OS and per-application query batches are built on the host,
 and ONE detect_many call joins them all (one join launch per batch).
-Then come the results that need no join: the ingest degradations, the
+Given SchedOptions (the server passes them), detection goes through
+detectd instead, so concurrent scans' batches merge into shared
+launches. Then come the results that need no join: the ingest degradations, the
 misconfigurations, the secrets and, under the license scanner, the
 license results."""
 
 from __future__ import annotations
 
 import datetime as dt
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
@@ -27,15 +29,34 @@ from .fanal.applier import apply_layers
 from .licensing import scan_license_name
 from .misconf import refuse_unported
 
+if TYPE_CHECKING:
+    from .detect.sched import SchedOptions
+
 
 class LocalScanner:
     def __init__(self, cache, table: AdvisoryTable,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 sched: "SchedOptions | None" = None):
         self.cache = cache
         self.table = table
         self.detector = BatchDetector(table, device=device)
+        # detectd: the server's scans merge their batches' launches
+        self.sched = None
+        if sched is not None:
+            from .detect.sched import DispatchScheduler
+            self.sched = DispatchScheduler(self.detector, sched)
+            if sched.warmup:
+                self.detector.warmup()
         self.ospkg = OspkgScanner(self.detector)
         self.langpkg = LangpkgScanner(self.detector)
+
+    def close(self) -> None:
+        """Join detectd and the detector's fetch thread (idempotent).
+        Owners that retire a scanner (the server's table swap and
+        shutdown) call it."""
+        if self.sched is not None:
+            self.sched.close()
+        self.detector.close()
 
     def scan(self, target: str, artifact_id: str, blob_ids: list[str],
              options: Optional[T.ScanOptions] = None,
@@ -91,8 +112,10 @@ class LocalScanner:
                         units.append((idx, app, fin))
                         batches.append(qs)
 
-        # phase 2: one detect_many over every batch (device)
-        hit_lists = self.detector.detect_many(batches) if batches else []
+        # phase 2: one detect_many over every batch (device), through
+        # detectd when the owner turned it on
+        detect = self.sched or self.detector
+        hit_lists = detect.detect_many(batches) if batches else []
 
         # phase 3: per-target results (host)
         vuln_results: dict[int, list[T.Result]] = {}
