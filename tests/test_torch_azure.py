@@ -1,0 +1,14 @@
+"""The port's ARM template scanner (iac/azure.py: the expression
+evaluator, parse_deployment, adapt_arm, scan_arm), its detection and the
+analyzer's records, held against the JAX package: every case of
+tests/test_azure.py runs through test_torch_mirror, its assertions on
+the port and each value it reads equal to the reference's."""
+
+import pytest
+
+from test_torch_mirror import mirror_cases, run_case
+
+
+@pytest.mark.parametrize("cls,fn", mirror_cases("test_azure.py"))
+def test_azure_case_like_reference(cls, fn, request):
+    run_case(cls, fn, request)

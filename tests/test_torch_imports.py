@@ -40,7 +40,9 @@ need = ["trivy_tpu_torch." + m for m in (
     "fanal.ingest", "fanal.analyzers.sbom", "fanal.analyzers.license_file",
     "detect.libscan", "fanal.pipeline", "oci", "fanal.daemon",
     "fanal.containerd", "iac", "iac.core", "iac.detection", "iac.yamlpos",
-    "iac.kubernetes", "iac.helm", "iac.rego", "iac.rego.parser",
+    "iac.kubernetes", "iac.helm", "iac.cloud", "iac.cloudformation",
+    "iac.hcl", "iac.terraform", "iac.gcp", "iac.azure",
+    "iac.providers_extra", "iac.tfplan", "iac.rego", "iac.rego.parser",
     "iac.rego.builtins", "iac.rego.eval", "misconf", "misconf.dockerfile",
     "fanal.analyzers.misconf", "compliance", "compliance.spec",
     "compliance.report", "detect.feed", "detect.sched", "obs", "obs.cost",

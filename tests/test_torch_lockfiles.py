@@ -25,8 +25,8 @@ GOLDEN_INPUTS = os.path.join(HERE, "golden", "inputs")
 PORT_GROUP = port_an.AnalyzerGroup()
 PORT_NAMES = {a.name for a in PORT_GROUP.analyzers
               + PORT_GROUP.post_analyzers}
-# the JAX package's analyzers that the port has not ported (terraform,
-# and the opt-in ones) stay off on both sides
+# the JAX package's analyzers that the port has not ported (executable)
+# and the opt-in ones stay off on both sides
 REF_OFF = tuple((set(ref_an.all_analyzers()) | set(ref_an._POST_REGISTRY))
                 - PORT_NAMES)
 REF_GROUP = ref_an.AnalyzerGroup(disabled=REF_OFF)
@@ -494,8 +494,8 @@ def test_registry_matches_reference():
     assert port_an.OS_ANALYZERS == ref_an.OS_ANALYZERS
     assert PORT_GROUP.versions() == REF_GROUP.versions()
     # every JAX analyzer the default group leaves out is one ROADMAP
-    # defers (terraform A4, executable A5) or the opt-in license-file one
-    assert set(REF_OFF) == {"terraform", "license-file", "executable"}
+    # defers (executable A5) or the opt-in license-file one
+    assert set(REF_OFF) == {"license-file", "executable"}
     full = ("license-file",)
     assert port_an.AnalyzerGroup(enabled=full).versions() == \
         ref_an.AnalyzerGroup(disabled=tuple(set(REF_OFF) - set(full)),

@@ -6,8 +6,10 @@ with user rego checks and exceptions, the cache round trip and the
 applier; the Dockerfile goldens with the assertions of
 tests/test_golden_helm.py; both CLIs on the golden inputs and on a seeded
 tree (chip_smoke.misconf_files), byte for byte, in fs, repo and image
---input, json, table and sarif; and the file types not ported yet, which
-a misconfig scan refuses and any other scan leaves alone."""
+--input, json, table and sarif; a CloudFormation, Terraform, Terraform
+plan and ARM file each through both analyzers and both CLIs; and the
+settings of one scan (user checks, rego trace) kept apart from a
+concurrent scan's."""
 
 import contextlib
 import io
@@ -341,11 +343,12 @@ ARM = json.dumps({"$schema": "https://schema.management.azure.com/schemas/"
                              "2019-04-01/deploymentTemplate.json#",
                   "resources": []}).encode()
 TF = b'resource "aws_s3_bucket" "b" {\n  bucket = "x"\n}\n'
-# the file types the port detects but does not scan yet
-UNPORTED = {"cloudformation": ("infra/stack.yaml", CFN),
-            "terraform": ("infra/main.tf", TF),
-            "terraformplan": ("infra/plan.json", TFPLAN),
-            "azure-arm": ("infra/azuredeploy.json", ARM)}
+# one file of each infrastructure-as-code type beside the Dockerfile,
+# Kubernetes and Helm ones
+IAC = {"cloudformation": ("infra/stack.yaml", CFN),
+       "terraform": ("infra/main.tf", TF),
+       "terraformplan": ("infra/plan.json", TFPLAN),
+       "azure-arm": ("infra/azuredeploy.json", ARM)}
 
 SNIFF_CASES = [("Dockerfile", b"FROM a"), ("x/Dockerfile.prod", b""),
                ("a.dockerfile", b""), ("Containerfile", b"FROM a"),
@@ -355,7 +358,7 @@ SNIFF_CASES = [("Dockerfile", b"FROM a"), ("x/Dockerfile.prod", b""),
                ("a.yml", b"apiVersion: [unclosed"), ("x.yaml", b"a: 1"),
                ("values.toml", b"a = 1"), ("terraform.tfvars", b"a = 1"),
                ("big.yaml", b"apiVersion: v1\nkind: Pod\n" + b"#" * (
-                   3 * 1024 * 1024))] + list(UNPORTED.values())
+                   3 * 1024 * 1024))] + list(IAC.values())
 
 
 @pytest.mark.parametrize("i", range(len(SNIFF_CASES)))
@@ -410,18 +413,26 @@ def test_misconf_analyzer_like_reference(custom, tmp_path):
     assert seen >= 40
 
 
-@pytest.mark.parametrize("ftype", sorted(UNPORTED))
-def test_unported_type_is_recorded_empty(ftype):
-    """The analyzer records a file of a type not ported as an empty
-    record of that type, which the scanner refuses under misconfig."""
-    path, data = UNPORTED[ftype]
-    port, _ref = _misconf_analyzers()
-    r = port.analyze(path, data)
-    assert [(m.file_type, m.file_path, m.failures, m.successes)
-            for m in r.misconfigurations] == [(ftype, path, [], 0)]
-    with pytest.raises(port_misconf.UnportedFileType,
-                       match=f"{path}: {ftype}.*ROADMAP A4"):
-        port_misconf.refuse_unported(r.misconfigurations)
+@pytest.mark.parametrize("ftype", sorted(IAC))
+def test_iac_type_analyzed_like_reference(ftype):
+    """The analyzer that takes the type (the module-scoped terraform
+    post-analyzer, else misconf) records it as the JAX one does."""
+    path, data = IAC[ftype]
+    records = []
+    for group in (port_an.AnalyzerGroup(), ref_an.AnalyzerGroup()):
+        if ftype == "terraform":
+            a = next(a for a in group.post_analyzers
+                     if a.name == "terraform")
+            r = a.post_analyze({path: data}) if a.required(path) else None
+        else:
+            a = next(a for a in group.analyzers if a.name == "misconf")
+            r = a.analyze(path, data) if a.required(path) else None
+        records.append(None if r is None else
+                       [m.to_json() for m in r.misconfigurations])
+    assert records[0] == records[1]
+    if ftype in ("cloudformation", "terraform"):
+        assert records[0][0]["FileType"] == ftype
+        assert records[0][0]["Failures"]
 
 
 def test_custom_checks_fingerprint_like_reference(tmp_path):
@@ -446,24 +457,34 @@ def test_custom_checks_fingerprint_like_reference(tmp_path):
 
 
 def test_image_keys_carry_the_fingerprint_only_when_set(tmp_path):
+    """The keys carry the user checks of the artifact's own group: from
+    its MisconfSettings, or from the process default when the group was
+    built without them, as the JAX package's keys do."""
     from trivy_tpu_torch.fanal.artifact import ImageArchiveArtifact
     from trivy_tpu_torch.fanal.cache import cache_key
-    art = ImageArchiveArtifact(str(tmp_path / "none.tar"),
-                               port_cache.MemoryCache(),
-                               group=port_an.AnalyzerGroup())
-    plain = art._image_keys("sha256:" + "1" * 64, ["sha256:" + "2" * 64])
+
+    def keys(group):
+        art = ImageArchiveArtifact(str(tmp_path / "none.tar"),
+                                   port_cache.MemoryCache(), group=group)
+        return art._image_keys("sha256:" + "1" * 64,
+                               ["sha256:" + "2" * 64]), art
+    plain, art = keys(port_an.AnalyzerGroup())
     versions = art.group.versions()
     assert plain[0] == cache_key("sha256:" + "1" * 64, versions,
                                  {"scanners": sorted(art.scanners)})
     checks = tmp_path / "c"
     checks.mkdir()
     (checks / "a.rego").write_text("package user.a\n")
-    port_misconf.set_custom_checks([str(checks)])
-    keyed = art._image_keys("sha256:" + "1" * 64, ["sha256:" + "2" * 64])
+    own = port_misconf.MisconfSettings.from_flags([str(checks)])
+    keyed, _ = keys(port_an.AnalyzerGroup(misconf=own))
     assert keyed[0] != plain[0] and keyed[1] != plain[1]
+    # the process default reaches a group built after it is set, and
+    # equals the JAX package's key
+    port_misconf.set_custom_checks([str(checks)])
+    assert port_misconf.custom_checks_fingerprint() == own.fingerprint()
+    assert keys(port_an.AnalyzerGroup())[0] == keyed
     port_misconf.set_custom_checks([])
-    assert art._image_keys("sha256:" + "1" * 64,
-                           ["sha256:" + "2" * 64]) == plain
+    assert keys(port_an.AnalyzerGroup())[0] == plain
 
 
 # --- the blob's misconfigurations: cache and applier ------------------
@@ -662,33 +683,32 @@ def test_image_warm_run_keeps_misconfigurations(tmp_path, work):
     assert len(chip_smoke.misconf_ids(json.loads(warm))) >= 8
 
 
-# --- the file types not ported yet ------------------------------------
+# --- the infrastructure-as-code types -------------------------------
 
-@pytest.mark.parametrize("ftype", sorted(UNPORTED))
-def test_unported_type_refused_with_misconfig(ftype, tmp_path, work):
-    path, data = UNPORTED[ftype]
+@pytest.mark.parametrize("ftype", sorted(IAC))
+def test_iac_type_scanned_like_reference(ftype, tmp_path, work):
+    path, data = IAC[ftype]
     files, *_ = seeded_tree(17, n_docker=2, n_k8s=2)
     root = write_tree(tmp_path / "t", {**files, path: data})
-    for argv in (["fs", root], ["repo", root]):
-        with pytest.raises(SystemExit, match=f"{path}: {ftype} files .*"
-                                             "ROADMAP A4"):
-            cli.main(argv + ["--scanners", "vuln,misconfig", "--db", DB,
-                             "--device", "cpu", "--cache-dir",
-                             str(tmp_path / "c")])
-    # in an image, walked by the ingest pipeline: refused, never an
-    # "Ingest Degradations" annotation
+    for command in ("fs", "repo"):
+        port, ref = run_both([command, root, "--scanners", "vuln,misconfig",
+                              "--db", DB], work, tag=command)
+        assert port == ref
+    # in an image, walked by the ingest pipeline
     layer = tar_bytes({"srv/" + path: data})
     image = str(tmp_path / "i.tar")
     write_docker_archive(image, [gz_bytes(layer, 6)],
                          ["sha256:" + sha256_hex(layer)])
-    with pytest.raises(SystemExit, match=f"srv/{path}: {ftype}"):
-        cli.main(["image", "--input", image, "--scanners", "misconfig",
-                  "--device", "cpu", "--cache-dir", str(tmp_path / "c")])
+    port, ref = run_both(["image", "--input", image, "--scanners",
+                          "misconfig"], work, tag="image")
+    assert port == ref
+    if ftype in ("cloudformation", "terraform"):
+        assert chip_smoke.misconf_ids(json.loads(port))["srv/" + path]
 
 
-@pytest.mark.parametrize("ftype", sorted(UNPORTED))
+@pytest.mark.parametrize("ftype", sorted(IAC))
 def test_unported_type_untouched_without_misconfig(ftype, tmp_path, work):
-    path, data = UNPORTED[ftype]
+    path, data = IAC[ftype]
     root = write_tree(tmp_path / "t", {path: data, **chip_smoke_secrets()})
     port, ref = run_both(["fs", root, "--db", DB, "--scanners",
                           "vuln,secret"], work)
@@ -713,3 +733,41 @@ def test_misconf_flags_from_config_and_env(source, work, monkeypatch):
                           "--scanners", "misconfig"], work)
     assert port == ref
     assert b"something bad: foo" in port
+
+
+def test_concurrent_scans_keep_their_own_settings(tree, work):
+    """Two scans in two threads of one process, one with user checks and
+    the rego trace and one without: each report equals its own scan run
+    alone, since each carries its settings on its own analyzer group."""
+    import threading
+    root, *_ = tree
+    checks = _checks_dir(work)
+    argvs = {"plain": ["fs", root, "--scanners", "misconfig"],
+             "custom": ["fs", root, "--scanners", "misconfig",
+                        "--config-check", checks, "--check-namespaces",
+                        "user", "--rego-trace"]}
+
+    def run(name, tag):
+        out = str(work / f"{name}{tag}.json")
+        assert cli.main(argvs[name] + [
+            "--output", out, "--device", "cpu", "--cache-dir",
+            str(work / f"cache-{name}{tag}")]) == 0
+        with open(out, "rb") as f:
+            return f.read()
+    alone = {name: run(name, "-alone") for name in argvs}
+    assert alone["plain"] != alone["custom"]
+    got, errors = {}, []
+
+    def worker(name):
+        try:
+            got[name] = run(name, "-thread")
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(n,)) for n in argvs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert got == alone
+    assert b"SMOKE002" in got["custom"] and b"SMOKE002" not in got["plain"]

@@ -20,12 +20,13 @@ package's, on the CPU, with the same inputs:
 - `LibraryIndex` against the port's NumPy oracle and against the JAX
   LibraryIndex, hit for hit.
 
-Not mirrored: the cases of tests/test_sbom.py for the parse breaker and
-watchdog, the failpoints, the memo and redetectd, the server route and
-the storm lane. The breaker, watchdog and failpoints are not ported by
-design (ROADMAP, "Not ported"), the SBOMArtifact of the port has no
-metrics, and the memo, redetectd and the server are still queued
-(ROADMAP A6-A9)."""
+Not mirrored here: the cases of tests/test_sbom.py for the parse
+breaker and watchdog, the failpoints, the memo and redetectd, the server
+route and the storm lane. The breaker, watchdog and failpoints are not
+ported by design (ROADMAP, "Not ported"), the SBOMArtifact of the port
+has no metrics, the memo and redetectd are still queued (ROADMAP A9),
+the storm lane with A12, and tests/test_torch_server.py holds the
+server's ScanSBOM route both ways."""
 
 import json
 import os

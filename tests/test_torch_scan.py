@@ -115,14 +115,7 @@ def test_port_never_calls_the_jax_package(tmp_path, monkeypatch, capsys):
 
 
 def test_unsupported_scanner_is_refused(tmp_path):
-    """misconfig is ported; an unknown scanner, and a misconfig scan of
-    a file type that is not ported (CloudFormation), are refused."""
+    """misconfig is ported; an unknown scanner is refused."""
     with pytest.raises(SystemExit, match="not supported"):
         cli.main(["rootfs", str(tmp_path), "--scanners", "nosuch",
-                  "--device", "cpu"])
-    (tmp_path / "stack.yaml").write_text(
-        "AWSTemplateFormatVersion: '2010-09-09'\nResources: {}\n")
-    with pytest.raises(SystemExit, match="stack.yaml: cloudformation.*"
-                                         "ROADMAP A4"):
-        cli.main(["rootfs", str(tmp_path), "--scanners", "misconfig",
                   "--device", "cpu"])

@@ -29,9 +29,11 @@ rule and namespace exceptions; `--rego-trace`); `--file-patterns
 type:regex` routes more files to an analyzer; `--ignore-policy` takes a
 rego file whose `ignore` rule drops findings; `--compliance SPEC`
 (`--report summary|all`) writes the spec's control report instead of
-the scan report. CloudFormation, Terraform, Terraform plan and Azure ARM
-files are not scanned yet: a misconfig scan that meets one ends with an
-error naming the file (ROADMAP A4); other scans pass them by.
+the scan report. CloudFormation templates, Terraform modules (with
+their tfvars), Terraform plan JSON and Azure ARM templates are scanned
+with the AWS, Google, Azure and other provider checks. Each scan carries
+its misconfig settings (misconf.MisconfSettings) on its own analyzer
+group and options, so scans in one process do not share them.
 
 `sbom` scans a CycloneDX JSON, SPDX JSON or tag-value document, bare or
 in an in-toto attestation (DSSE envelope); a malformed or over-budget
@@ -91,7 +93,7 @@ from .fanal.artifact import FilesystemArtifact, ImageArchiveArtifact
 from .fanal.cache import MemoryCache, open_cache
 from .fanal.walker import DEFAULT_SECRET_CONFIG
 from .flagcfg import apply_flag_sources, generate_default_config
-from .misconf import UnportedFileType
+from .misconf import MisconfSettings
 from .report import build_report, write_report
 from .report.writer import SBOM_FORMATS, render_json_report
 from .result import FilterOptions, filter_results, parse_ignore_file
@@ -180,46 +182,46 @@ def _refuse_unported(args) -> None:
                          "yet (ROADMAP A5)")
 
 
-def _configure_misconf(args) -> None:
-    """Install the rego trace sink, the helm value overrides and the user
-    rego checks before the walk (reference cli.py:735-760), each cleared
-    when its flags are absent, so one process can run several scans."""
-    from .iac.helm import HelmRenderError, set_helm_overrides
-    from .iac.rego import set_rego_trace
-    from .misconf import set_custom_checks
+def _misconf_settings(args):
+    """The scan's user rego checks, helm value overrides and rego trace
+    sink from its flags (reference cli.py:735-760)."""
+    from .iac.helm import HelmRenderError
+    from .misconf import MisconfSettings
 
     def sink(event, rule_path, depth):
         print(f"TRACE {'  ' * depth}{event} {rule_path}", file=sys.stderr)
-    set_rego_trace(sink if args.rego_trace else None)
     try:
-        set_helm_overrides(sets=args.helm_set,
-                           values_files=args.helm_values)
+        return MisconfSettings.from_flags(
+            args.config_check, data_paths=args.config_data,
+            namespaces=[s.strip() for s in args.check_namespaces.split(",")
+                        if s.strip()],
+            helm_sets=args.helm_set, helm_values_files=args.helm_values,
+            trace=sink if args.rego_trace else None)
     except HelmRenderError as e:
         raise SystemExit(str(e)) from None
-    set_custom_checks(args.config_check, data_paths=args.config_data,
-                      namespaces=[s.strip() for s in
-                                  args.check_namespaces.split(",")
-                                  if s.strip()])
 
 
 def _scan(args, make_artifact, cache_for, artifact_type: str,
-          disabled: tuple, name: str = "") -> int:
+          disabled: tuple, name: str = "", misconf=None) -> int:
     """The steps every scan command shares (reference
     _scan_common_inner, cli.py:648-719): the artifact's walk into the
     cache, the scan from the cache, VEX, the filters, the report and the
     exit code. make_artifact(cache, group, scanners, device) → the
     artifact; cache_for() → the cache, opened once the device is
-    known. An empty artifact_type takes the artifact's own (sbom)."""
+    known. An empty artifact_type takes the artifact's own (sbom).
+    misconf: the scan's MisconfSettings (none for sbom)."""
     t_scan = time.perf_counter()
     _refuse_unported(args)
     device = resolve_device(args.device)
     scanners = normalize_scanners(args.scanners)
+    if misconf is None:
+        misconf = MisconfSettings()
     # license files are classified only under --license-full
     try:
         group = AnalyzerGroup(
             disabled=disabled,
             enabled=("license-file",) if args.license_full else (),
-            file_patterns=tuple(args.file_patterns))
+            file_patterns=tuple(args.file_patterns), misconf=misconf)
     except ValueError as e:  # a bad "type:regex"
         raise SystemExit(f"--file-patterns: {e}") from None
     table_stats: dict = {}
@@ -237,19 +239,15 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
     if name:
         ref.name = name
     now = fake_now()
-    try:
-        results, os_info = LocalScanner(cache, table, device).scan(
-            ref.name, ref.id, ref.blob_ids,
-            T.ScanOptions(scanners=scanners,
-                          # SBOM output lists every package (reference
-                          # run.go forces ListAllPkgs for SBOM formats)
-                          list_all_packages=args.list_all_pkgs
-                          or args.format in SBOM_FORMATS,
-                          include_dev_deps=args.include_dev_deps,
-                          pkg_types=tuple(args.pkg_types.split(","))),
-            now=now)
-    except UnportedFileType as e:
-        raise SystemExit(str(e)) from None
+    options = T.ScanOptions(scanners=scanners,
+                            # SBOM output lists every package (reference
+                            # run.go forces ListAllPkgs for SBOM formats)
+                            list_all_packages=args.list_all_pkgs
+                            or args.format in SBOM_FORMATS,
+                            include_dev_deps=args.include_dev_deps,
+                            pkg_types=tuple(args.pkg_types.split(",")))
+    results, os_info = LocalScanner(cache, table, device).scan(
+        ref.name, ref.id, ref.blob_ids, options, now=now)
     if args.vex:
         from .vex import apply_vex, load_vex_file
         apply_vex(results, load_vex_file(args.vex))
@@ -259,7 +257,8 @@ def _scan(args, make_artifact, cache_for, artifact_type: str,
         ignore_statuses=[s for s in args.ignore_status.split(",") if s],
         ignore_file=parse_ignore_file(args.ignorefile)
         if args.ignorefile else _auto_ignore_file(),
-        policy_file=args.ignore_policy))
+        policy_file=args.ignore_policy,
+        policy_trace=misconf.trace))
     out = open(args.output, "w") if args.output else sys.stdout
     try:
         if args.compliance:
@@ -388,7 +387,7 @@ def cmd_image(args) -> int:
     from .oci import OCIError
     resolve_device(args.device)   # before any source is tried
     _refuse_unported(args)
-    _configure_misconf(args)
+    misconf = _misconf_settings(args)
     source, target, tmp = ("archive", args.input, None) if args.input \
         else _acquire_image(args)
     platform = args.platform or "linux/amd64"
@@ -417,7 +416,7 @@ def cmd_image(args) -> int:
         return _scan(args, artifact,
                      lambda: open_cache("fs", args.cache_dir),
                      T.ArtifactType.CONTAINER_IMAGE, LOCKFILE_ANALYZERS,
-                     name=args.image_name)
+                     name=args.image_name, misconf=misconf)
     except OCIError as e:
         if source != "remote":
             raise
@@ -442,7 +441,7 @@ def cmd_sbom(args) -> int:
 def cmd_fs(args) -> int:
     """rootfs, fs and repo (a local path): one tree as one blob, with the
     analyzers the reference disables per command (run.go:167-224)."""
-    _configure_misconf(args)
+    misconf = _misconf_settings(args)
     if args.command == "rootfs":
         disabled = LOCKFILE_ANALYZERS
         artifact_type = T.ArtifactType.FILESYSTEM
@@ -467,7 +466,8 @@ def cmd_fs(args) -> int:
             skip_dirs=_rel_globs(args.skip_dirs, args.target),
             # SPDX records each lockfile's sha1 (reference FileChecksum)
             file_checksum=args.format == "spdx-json")
-    return _scan(args, artifact, MemoryCache, artifact_type, disabled)
+    return _scan(args, artifact, MemoryCache, artifact_type, disabled,
+                 misconf=misconf)
 
 
 def cmd_convert(args) -> int:

@@ -9,12 +9,12 @@ the language lockfile analyzers (lockfiles.py, lockfiles_extra.py, pip)
 and the installed-package ones (python-pkg, conda-pkg, gobinary, jar,
 node-pkg, gemspec, rustbinary), the in-image `sbom` analyzer, the
 opt-in `license-file` one, and the config analyzers `misconf`
-(dockerfile, kubernetes, user rego checks) and `helm`. Not ported:
-executable (ROADMAP A5) and the `terraform` post-analyzer (A4); a
-CloudFormation, Terraform, Terraform plan or ARM file is recorded by
-`misconf` and refused by a misconfig scan (misconf.refuse_unported).
-`file_patterns` ("analyzer:regex", --file-patterns) routes more paths
-to an analyzer."""
+(dockerfile, kubernetes, CloudFormation, Terraform plans, Azure ARM,
+user rego checks), `helm` and `terraform`. Not ported: executable
+(ROADMAP A5). `file_patterns` ("analyzer:regex", --file-patterns)
+routes more paths to an analyzer, and `misconf` (misconf.MisconfSettings)
+carries the scan's user checks, helm overrides and rego trace to the
+config analyzers."""
 
 from __future__ import annotations
 
@@ -66,7 +66,8 @@ class AnalysisResult:
 
 class Analyzer:
     """Base: subclasses set `name` and `version` and implement
-    required(path) / analyze(path, content)."""
+    required(path) / analyze(path, content). `misconf` is the group's
+    misconf.MisconfSettings, set when the group is built."""
     name = "base"
     version = 1
 
@@ -134,14 +135,20 @@ OS_ANALYZERS = ("os-release", "alpine", "amazonlinux", "mariner",
 
 class AnalyzerGroup:
     def __init__(self, disabled: tuple = (), enabled: tuple = (),
-                 file_patterns: tuple = ()):
+                 file_patterns: tuple = (), misconf=None):
+        """misconf: the scan's misconf.MisconfSettings; None takes the
+        process default as the misconf.set_* functions left it."""
+        from ...misconf import current_settings
         _ensure_loaded()
+        self.misconf = current_settings() if misconf is None else misconf
         off = set(disabled) | (set(OPTIN_ANALYZERS) - set(enabled))
         self.analyzers = [cls() for name, cls in sorted(_REGISTRY.items())
                           if name not in off]
         self.post_analyzers = [
             cls() for name, cls in sorted(_POST_REGISTRY.items())
             if name not in off]
+        for a in self.analyzers + self.post_analyzers:
+            a.misconf = self.misconf
         # --file-patterns "analyzer:regex": a matching path goes to that
         # analyzer even when its own required() declines (reference
         # analyzer.go:321-341, filePatternMatch:508-515)

@@ -1,14 +1,12 @@
 """Config-file analyzers routing IaC files to the misconfiguration
 scanners (reference pkg/fanal/analyzer/config + pkg/misconf bridge), the
-port's copy of the JAX package's analyzers/misconf.py: the per-file
-`misconf` analyzer (dockerfile, kubernetes, and user rego checks on any
-YAML, JSON or TOML file) and the chart-scoped `helm` post-analyzer, under
-the JAX names and versions.
-
-The JAX package's `terraform` post-analyzer is not ported (ROADMAP A4).
-A file of a type that is not ported (misconf.UNPORTED_TYPES) gives an
-empty Misconfiguration of that type, which a misconfig scan refuses
-after the walk (misconf.refuse_unported)."""
+port's copy of the JAX package's analyzers/misconf.py under the JAX
+names and versions: the per-file `misconf` analyzer (dockerfile,
+kubernetes, CloudFormation, Terraform plans, Azure ARM, and user rego
+checks on any YAML, JSON or TOML file), the chart-scoped `helm`
+post-analyzer and the module-scoped `terraform` one. Each reads the
+user checks and helm overrides from its group's MisconfSettings
+(`self.misconf`)."""
 
 from __future__ import annotations
 
@@ -16,7 +14,7 @@ from typing import Optional
 
 from ... import types as T
 from ...iac.detection import sniff
-from ...misconf import FILE_TYPES, UNPORTED_TYPES, detect_file_type
+from ...misconf import FILE_TYPES, detect_file_type
 from . import AnalysisResult, Analyzer, PostAnalyzer, register, \
     register_post
 
@@ -27,28 +25,25 @@ class MisconfAnalyzer(Analyzer):
     version = 2
 
     def required(self, path: str, size: int = -1) -> bool:
-        return detect_file_type(path) != ""
+        return detect_file_type(
+            path, custom=self.misconf.checks is not None) != ""
 
     def analyze(self, path: str, content: bytes) -> Optional[AnalysisResult]:
-        from ...misconf import (apply_exceptions, custom_checks_scanner,
-                                run_custom_checks)
+        from ...misconf import apply_exceptions, run_custom_checks
         ftype, docs = sniff(path, content)
-        if ftype in UNPORTED_TYPES:
-            result = AnalysisResult()
-            result.misconfigurations = [T.Misconfiguration(
-                file_type=ftype, file_path=path)]
-            return result
         failures: list = []
         successes = 0
         exceptions = 0
         scanner = FILE_TYPES.get(ftype)
         if scanner is not None:
             failures, successes = scanner(path, content, docs=docs)
-        if custom_checks_scanner() is not None:
+        checks = self.misconf.checks
+        if checks is not None:
             if ftype:
                 # rego exceptions apply to the builtin results
                 failures, successes, exceptions = apply_exceptions(
-                    ftype, path, content, docs, failures, successes)
+                    ftype, path, content, docs, failures, successes,
+                    scanner=checks)
             eff_type = ftype
             if not eff_type:
                 base = path.lower()
@@ -60,7 +55,7 @@ class MisconfAnalyzer(Analyzer):
                     eff_type = "toml"
             if eff_type:
                 cf, cs, ce = run_custom_checks(eff_type, path, content,
-                                               docs)
+                                               docs, scanner=checks)
                 failures = failures + cf
                 successes += cs
                 exceptions += ce
@@ -93,6 +88,7 @@ class HelmPostAnalyzer(PostAnalyzer):
     def post_analyze(self, files: dict) -> Optional[AnalysisResult]:
         from ...iac.helm import (find_charts, load_chart_tgz,
                                  scan_chart_files, scan_rendered_chart)
+        overrides = self.misconf.helm_overrides
         records = []
         # packaged charts (.tgz archives)
         for path, content in files.items():
@@ -104,14 +100,36 @@ class HelmPostAnalyzer(PostAnalyzer):
                 continue
             if chart.templates:
                 records.extend(
-                    scan_rendered_chart(chart, prefix=path + ":"))
+                    scan_rendered_chart(chart, prefix=path + ":",
+                                        overrides=overrides))
         # chart directories
         for root, paths in find_charts(list(files)).items():
             rel = {p[len(root) + 1 if root else 0:]: files[p]
                    for p in paths}
             if "Chart.yaml" not in rel:
                 continue
-            records.extend(scan_chart_files(rel))
+            records.extend(scan_chart_files(rel, overrides=overrides))
+        if not records:
+            return None
+        result = AnalysisResult()
+        result.misconfigurations = records
+        return result
+
+
+@register_post
+class TerraformPostAnalyzer(PostAnalyzer):
+    """Module-scoped terraform scanning: all .tf/.tfvars of a directory
+    evaluated together (reference terraform scanner operates on the
+    whole module, not per file)."""
+    name = "terraform"
+    version = 1
+
+    def required(self, path: str, size: int = -1) -> bool:
+        return path.endswith((".tf", ".tfvars"))
+
+    def post_analyze(self, files: dict) -> Optional[AnalysisResult]:
+        from ...iac.terraform import scan_terraform_files
+        records = scan_terraform_files(files)
         if not records:
             return None
         result = AnalysisResult()

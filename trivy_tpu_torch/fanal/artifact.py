@@ -25,7 +25,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .. import types as T
-from ..misconf import custom_checks_fingerprint
 from .analyzers import AnalyzerGroup
 from .cache import cache_key
 from .ingest import partial_blob_id
@@ -88,7 +87,7 @@ class _ImageInspectMixin(_Artifact):
             opts["skip_dirs"] = sorted(sd)
         # user rego checks change the misconfigurations; with none set,
         # the keys are those without them
-        fp = custom_checks_fingerprint()
+        fp = self.group.misconf.fingerprint()
         if fp:
             opts["config_checks"] = fp
         return (cache_key(image_id, versions, opts),

@@ -92,3 +92,8 @@ def _is_tfplan(doc) -> bool:
     return isinstance(doc, dict) and "format_version" in doc and \
         ("planned_values" in doc or "resource_changes" in doc) and \
         "terraform_version" in doc
+
+
+def detect_config_type(path: str, content: bytes) -> str:
+    """→ one of terraform/cloudformation/kubernetes/dockerfile/'' ."""
+    return sniff(path, content)[0]

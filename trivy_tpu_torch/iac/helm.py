@@ -438,21 +438,26 @@ def _cap_meta(meta: dict) -> dict:
 # ---- scanning ---------------------------------------------------------
 
 def scan_chart_files(files: dict[str, bytes],
-                     values_override: dict | None = None):
+                     values_override: dict | None = None,
+                     overrides: tuple | None = None):
     """files: chart-root-relative path → bytes.
     → [T.Misconfiguration] records (one per rendered file with
-    findings), matching the terraform post-analyzer output shape."""
+    findings), matching the terraform post-analyzer output shape.
+    overrides: (--helm-set strings, parsed --helm-values documents);
+    None takes the process default (set_helm_overrides)."""
     chart = load_chart_dir(files)
-    return scan_rendered_chart(chart, values_override=values_override)
+    return scan_rendered_chart(chart, values_override=values_override,
+                               overrides=overrides)
 
 
-# process-wide value overrides (reference --set / --values,
-# pkg/fanal/analyzer/config ScannerOption HelmValueOverrides): applied
-# on top of every scanned chart's values
+# the process default value overrides (reference --set / --values,
+# pkg/fanal/analyzer/config ScannerOption HelmValueOverrides), applied
+# on top of every scanned chart's values; a scan carries its own in
+# misconf.MisconfSettings
 _OVERRIDES: dict = {"sets": [], "files": []}
 
 
-def set_helm_overrides(sets=None, values_files=None) -> None:
+def load_values_files(values_files) -> list:
     """Loads --helm-values files EAGERLY: a typo'd or malformed file
     must fail the run, not silently render default values."""
     docs = []
@@ -462,17 +467,27 @@ def set_helm_overrides(sets=None, values_files=None) -> None:
                 docs.append(yaml.safe_load(f) or {})
         except (OSError, yaml.YAMLError) as e:
             raise HelmRenderError(f"--helm-values {vf}: {e}") from None
+    return docs
+
+
+def set_helm_overrides(sets=None, values_files=None) -> None:
+    _OVERRIDES["files"] = load_values_files(values_files)
     _OVERRIDES["sets"] = list(sets or [])
-    _OVERRIDES["files"] = docs
 
 
-def _apply_overrides(base: dict | None) -> dict | None:
-    if not _OVERRIDES["sets"] and not _OVERRIDES["files"]:
+def helm_overrides() -> tuple:
+    """The process default overrides as (sets, values documents)."""
+    return tuple(_OVERRIDES["sets"]), tuple(_OVERRIDES["files"])
+
+
+def _apply_overrides(base: dict | None, overrides: tuple) -> dict | None:
+    sets, files = overrides
+    if not sets and not files:
         return base
     merged = dict(base or {})
-    for doc in _OVERRIDES["files"]:
+    for doc in files:
         merged = _deep_merge(merged, doc)
-    for raw in _OVERRIDES["sets"]:
+    for raw in sets:
         key, _, val = raw.partition("=")
         if key:
             _set_path(merged, key, _parse_set_value(val))
@@ -481,11 +496,12 @@ def _apply_overrides(base: dict | None) -> dict | None:
 
 def scan_rendered_chart(chart: Chart,
                         values_override: dict | None = None,
-                        prefix: str = ""):
+                        prefix: str = "", overrides: tuple | None = None):
     from .. import types as T
     from .kubernetes import scan_kubernetes
-    rendered = render_chart(
-        chart, values_override=_apply_overrides(values_override))
+    rendered = render_chart(chart, values_override=_apply_overrides(
+        values_override,
+        helm_overrides() if overrides is None else overrides))
     records = []
     for rpath, text in rendered.items():
         try:

@@ -170,10 +170,13 @@ def _applicable(sm: StaticMetadata, file_type: str) -> bool:
     return bool(aliases & set(sm.selectors))
 
 
-# process-wide rego evaluation trace sink (reference --trace /
-# rego.WithTrace); set via set_rego_trace, consumed by every
-# Interpreter this package builds
+# the process default rego evaluation trace sink (reference --trace /
+# rego.WithTrace), set via set_rego_trace; a scan carries its own in
+# misconf.MisconfSettings
 _TRACE_SINK = None
+# a trace argument left at this takes the process default; None traces
+# nothing
+PROCESS_DEFAULT = object()
 
 
 def set_rego_trace(sink) -> None:
@@ -190,17 +193,21 @@ class RegoChecksScanner:
     """Holds user modules + data and scans parsed config docs."""
 
     def __init__(self, modules: list[Module], data: dict | None = None,
-                 namespaces=None):
+                 namespaces=None, trace=PROCESS_DEFAULT):
+        """trace: the sink of the rule evaluations (None: none); left
+        out, the process default (set_rego_trace)."""
         self.all_modules = modules
         self.namespaces = set(namespaces or []) | DEFAULT_USER_NAMESPACES
-        self.interp = Interpreter(modules, data=data,
-                                  trace=_TRACE_SINK)
+        self.interp = Interpreter(
+            modules, data=data,
+            trace=_TRACE_SINK if trace is PROCESS_DEFAULT else trace)
 
     @classmethod
-    def from_paths(cls, check_paths, data_paths=None, namespaces=None):
+    def from_paths(cls, check_paths, data_paths=None, namespaces=None,
+                   trace=PROCESS_DEFAULT):
         return cls(load_modules_from_paths(check_paths),
                    data=load_data_from_paths(data_paths),
-                   namespaces=namespaces)
+                   namespaces=namespaces, trace=trace)
 
     def check_modules(self):
         for m in self.all_modules:

@@ -1,18 +1,14 @@
 """Misconfiguration scanning (reference pkg/misconf + pkg/iac), the
-port's copy of the JAX package's misconf/ for the file types ported so
-far.
+port's copy of the JAX package's misconf/.
 
 Bridges the config analyzer to the IaC engine: file-type detection
-(iac.detection), the per-type scanners (the dockerfile checks here, the
-kubernetes ones in trivy_tpu_torch.iac), user rego checks with their
-exceptions, and DetectedMisconfiguration results with cause locations.
+(iac.detection), the per-type scanners (the dockerfile checks here; the
+kubernetes, CloudFormation, Terraform plan and Azure ARM ones in
+trivy_tpu_torch.iac; Terraform modules through the `terraform`
+post-analyzer), user rego checks with their exceptions, and
+DetectedMisconfiguration results with cause locations."""
 
-CloudFormation, Terraform, Terraform plans and Azure ARM are detected but
-not ported (ROADMAP A4). The analyzer records each such file as an empty
-Misconfiguration of its type, and a scan with the misconfig scanner
-refuses it (`refuse_unported`) once the blobs are applied: never inside
-an analyzer, whose failures the walk contains as annotations, and never
-silently."""
+from dataclasses import dataclass
 
 from .dockerfile import scan_dockerfile as _scan_dockerfile
 
@@ -26,50 +22,108 @@ def _scan_kubernetes(path, content, lines=None, docs=None):
     return scan_kubernetes(path, content, lines, docs=docs)
 
 
+def _scan_cloudformation(path, content, lines=None, docs=None):
+    from ..iac.cloudformation import scan_cloudformation
+    return scan_cloudformation(path, content, lines, docs=docs)
+
+
+def _scan_tfplan(path, content, lines=None, docs=None):
+    from ..iac.tfplan import scan_plan_file
+    records = scan_plan_file(path, content)
+    failures = [f for r in records for f in r.failures]
+    successes = sum(r.successes for r in records)
+    return failures, successes
+
+
+def _scan_arm(path, content, lines=None, docs=None):
+    from ..iac.azure import scan_arm
+    return scan_arm(path, content, lines, docs)
+
+
 FILE_TYPES = {
     "dockerfile": scan_dockerfile,
     "kubernetes": _scan_kubernetes,
+    "cloudformation": _scan_cloudformation,
+    "terraformplan": _scan_tfplan,
+    "azure-arm": _scan_arm,
 }
-
-# file types the JAX package scans and the port does not yet
-UNPORTED_TYPES = ("cloudformation", "terraform", "terraformplan",
-                  "azure-arm")
-
-
-class UnportedFileType(Exception):
-    """A misconfig scan met a file of a type that is not ported."""
-
-
-def refuse_unported(misconfigurations) -> None:
-    """Raise UnportedFileType for the first record of an unported type,
-    so a misconfig report never silently lacks its findings."""
-    for mc in misconfigurations:
-        if mc.file_type in UNPORTED_TYPES:
-            raise UnportedFileType(
-                f"{mc.file_path}: {mc.file_type} files are not scanned "
-                f"for misconfigurations by this port yet (ROADMAP A4); "
-                f"leave out the misconfig scanner, or skip the file")
-
 
 # ---- custom rego checks (reference pkg/misconf ScannerOption
 # PolicyPaths/DataPaths/Namespaces → pkg/iac/rego) -------------------
 
+# the process default user checks, set via set_custom_checks; a scan
+# carries its own in MisconfSettings
 _custom_scanner = None
 
 
+def _load_checks(check_paths, data_paths, namespaces, trace):
+    from ..iac.rego import RegoChecksScanner
+    scanner = RegoChecksScanner.from_paths(
+        check_paths, data_paths=data_paths, namespaces=namespaces,
+        trace=trace)
+    scanner.fingerprint = _fingerprint_paths(
+        check_paths, data_paths, namespaces)
+    return scanner
+
+
 def set_custom_checks(check_paths, data_paths=None, namespaces=None):
-    """Configure user .rego checks for all subsequent misconf scans.
-    Pass empty/None paths to clear."""
+    """Configure user .rego checks as the process default, which an
+    AnalyzerGroup built without its own settings takes. Pass empty/None
+    paths to clear."""
     global _custom_scanner
     if not check_paths:
         _custom_scanner = None
         return None
-    from ..iac.rego import RegoChecksScanner
-    _custom_scanner = RegoChecksScanner.from_paths(
-        check_paths, data_paths=data_paths, namespaces=namespaces)
-    _custom_scanner.fingerprint = _fingerprint_paths(
-        check_paths, data_paths, namespaces)
+    from ..iac.rego import PROCESS_DEFAULT
+    _custom_scanner = _load_checks(check_paths, data_paths, namespaces,
+                                   PROCESS_DEFAULT)
     return _custom_scanner
+
+
+@dataclass(frozen=True)
+class MisconfSettings:
+    """One scan's misconfiguration settings (reference misconf
+    ScannerOption): the user rego checks (a RegoChecksScanner carrying
+    its fingerprint, or None), the helm value overrides (the --helm-set
+    strings and the parsed --helm-values documents) and the rego trace
+    sink. The CLI builds them from its flags and gives them to the
+    scan's AnalyzerGroup and ScanOptions, so concurrent scans in one
+    process do not share them."""
+    checks: object = None
+    helm_sets: tuple = ()
+    helm_values: tuple = ()
+    trace: object = None    # None: no trace
+
+    @classmethod
+    def from_flags(cls, check_paths=(), data_paths=(), namespaces=(),
+                   helm_sets=(), helm_values_files=(), trace=None):
+        """Raises iac.helm.HelmRenderError for a values file that does
+        not load."""
+        from ..iac.helm import load_values_files
+        helm_values = tuple(load_values_files(helm_values_files))
+        return cls(
+            checks=_load_checks(check_paths, data_paths, namespaces,
+                                trace) if check_paths else None,
+            helm_sets=tuple(helm_sets or ()), helm_values=helm_values,
+            trace=trace)
+
+    @property
+    def helm_overrides(self) -> tuple:
+        return self.helm_sets, self.helm_values
+
+    def fingerprint(self) -> str:
+        """The user checks' hash for the cache key; '' without them."""
+        return getattr(self.checks, "fingerprint", "") \
+            if self.checks is not None else ""
+
+
+def current_settings() -> MisconfSettings:
+    """The process default, as the set_* functions left it."""
+    from ..iac.helm import helm_overrides
+    from ..iac.rego import rego_trace
+    sets, values = helm_overrides()
+    return MisconfSettings(checks=_custom_scanner, helm_sets=sets,
+                           helm_values=values, trace=rego_trace())
 
 
 def _fingerprint_paths(check_paths, data_paths, namespaces) -> str:
@@ -142,10 +196,10 @@ def dockerfile_rego_input(content: bytes) -> dict:
     return {"Stages": [s for s in stages if s["Commands"]]}
 
 
-def run_custom_checks(ftype: str, path: str, content: bytes, docs):
-    """→ (failures, successes, exceptions) from user rego checks."""
-    if _custom_scanner is None:
-        return [], 0, 0
+def run_custom_checks(ftype: str, path: str, content: bytes, docs,
+                      scanner):
+    """→ (failures, successes, exceptions) from the user rego checks of
+    `scanner`."""
     text = content.decode(errors="replace")
     if ftype == "dockerfile":
         inputs = [dockerfile_rego_input(content)]
@@ -157,8 +211,8 @@ def run_custom_checks(ftype: str, path: str, content: bytes, docs):
         return [], 0, 0
     builtin = _builtin_namespaces(ftype) or []
     custom = sorted(".".join(m.package)
-                    for m in _custom_scanner.check_modules())
-    return _custom_scanner.scan_docs(
+                    for m in scanner.check_modules())
+    return scanner.scan_docs(
         ftype, path, inputs, text,
         extra_namespaces=sorted(set(builtin) | set(custom)))
 
@@ -181,16 +235,19 @@ def _parse_plain_docs(path: str, text: str):
     return []
 
 
-def detect_file_type(path: str) -> str:
+def detect_file_type(path: str, custom: bool | None = None) -> str:
     """Path-only pre-gate; content sniffing happens in the analyzer
-    (detection.sniff)."""
+    (detection.sniff). custom: whether user checks are set (they take
+    TOML files too); None asks the process default."""
+    if custom is None:
+        custom = _custom_scanner is not None
     base = path.rsplit("/", 1)[-1].lower()
     if base == "dockerfile" or base.startswith("dockerfile.") or \
             base.endswith(".dockerfile"):
         return "dockerfile"
     if base.endswith((".yaml", ".yml", ".json", ".tf", ".tf.json")):
         return "candidate"
-    if base.endswith(".toml") and _custom_scanner is not None:
+    if base.endswith(".toml") and custom:
         return "candidate"
     return ""
 
@@ -208,15 +265,14 @@ def _builtin_namespaces(ftype: str):
 
 
 def apply_exceptions(ftype: str, path: str, content: bytes, docs,
-                     failures, successes):
+                     failures, successes, scanner):
     """Rego exceptions over BUILTIN results (reference
     pkg/iac/rego/exceptions.go: `namespace.exceptions.exception[_] ==
     ns` and `endswith(rule, data.<ns>.exception[_][_])`, both
     input-aware). Native checks correspond to the reference's `deny`
     rules, so the rule-name tested is "deny". → (failures, successes,
-    exceptions)."""
-    scanner = custom_checks_scanner()
-    if scanner is None or not scanner.has_exceptions():
+    exceptions). scanner: the user checks."""
+    if not scanner.has_exceptions():
         return failures, successes, 0
     if not failures and not successes:
         # the builtin scanner evaluated nothing for this file (e.g. a

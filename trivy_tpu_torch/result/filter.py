@@ -10,6 +10,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from .. import types as T
+from ..iac import rego
 from .ignore import IgnoreFile
 
 log = logging.getLogger(__name__)
@@ -22,6 +23,8 @@ class FilterOptions:
     ignore_unfixed: bool = False
     ignore_file: Optional[IgnoreFile] = None
     policy_file: str = ""   # rego ignore policy (reference applyPolicy)
+    # its rego trace sink (None: none); left out, the process default
+    policy_trace: object = rego.PROCESS_DEFAULT
 
 
 class IgnorePolicy:
@@ -29,13 +32,16 @@ class IgnorePolicy:
     decides, per finding, whether it is suppressed (reference
     pkg/result/filter.go:242 applyPolicy querying data.trivy.ignore)."""
 
-    def __init__(self, path: str):
-        from ..iac.rego import rego_trace
+    def __init__(self, path: str, trace=rego.PROCESS_DEFAULT):
+        """trace: the rego trace sink (None: none); left out, the process
+        default."""
         from ..iac.rego.eval import Interpreter
         from ..iac.rego.parser import parse_module
         with open(path, encoding="utf-8") as f:
             mod = parse_module(f.read(), path=path)
-        self.interp = Interpreter([mod], trace=rego_trace())
+        self.interp = Interpreter([mod], trace=rego.rego_trace()
+                                  if trace is rego.PROCESS_DEFAULT
+                                  else trace)
         self.pkg = ".".join(mod.package)
 
     _warned = False
@@ -55,7 +61,8 @@ class IgnorePolicy:
 def filter_results(results: list[T.Result],
                    opts: FilterOptions) -> list[T.Result]:
     sev = set(opts.severities)
-    policy = IgnorePolicy(opts.policy_file) if opts.policy_file else None
+    policy = IgnorePolicy(opts.policy_file, trace=opts.policy_trace) \
+        if opts.policy_file else None
     for res in results:
         res.vulnerabilities = [
             v for v in res.vulnerabilities

@@ -27,7 +27,6 @@ from .detect.langpkg import LangpkgScanner
 from .detect.ospkg import OspkgScanner
 from .fanal.applier import apply_layers
 from .licensing import scan_license_name
-from .misconf import refuse_unported
 
 if TYPE_CHECKING:
     from .detect.sched import SchedOptions
@@ -157,8 +156,7 @@ class LocalScanner:
         """The results after the vulnerability ones, in the reference's
         order: the ingest degradations, the misconfigurations (one per
         file, its failures sorted by id and message), the secrets, the
-        licenses. A misconfig scan of a file type that is not ported
-        raises misconf.UnportedFileType."""
+        licenses."""
         # a degraded analysis (a malformed or over-budget SBOM) says
         # what is missing and why, instead of under-reporting in silence
         if detail.ingest_errors:
@@ -166,7 +164,6 @@ class LocalScanner:
                 target="Ingest Degradations", clazz=T.ResultClass.INGEST,
                 ingest_errors=list(detail.ingest_errors)))
         if T.Scanner.MISCONF in options.scanners:
-            refuse_unported(detail.misconfigurations)
             for mc in detail.misconfigurations:
                 if not mc.failures and not mc.successes and \
                         not mc.exceptions:
