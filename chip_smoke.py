@@ -41,8 +41,12 @@ Phases, one JSON line each; any failure exits non-zero:
            equal to assembling the plain join's bits.
   rootfs   `python -m trivy_tpu_torch rootfs` (a subprocess, vuln +
            secret scanners) over a generated Alpine 3.17 rootfs with 8+
-           MiB of text. Expects the 5 fixture CVEs, exactly the planted
-           secrets, and both kernels launched.
+           MiB of text, under `--profile-dir` (torch.profiler, CPU and
+           CUDA activities). Expects the 5 fixture CVEs, exactly the
+           planted secrets, both kernels launched, and both kernels'
+           CUDA events in the capture (validated by obs.check); prints
+           the card's busy ms and idle share over the scan and the
+           kernel time by name.
   image_fixture
            `python -m trivy_tpu_torch image --input` over the Alpine +
            Flask image (two layers) against the fixture DB: the 5 OS
@@ -81,7 +85,12 @@ Phases, one JSON line each; any failure exits non-zero:
            picks; per batch its queries, pairs, t_pad, route and the
            pairs marked NEEDS_RECHECK (checked against the rows' INEXACT
            flags), the dev packages dropped; then each kernel on the
-           checkout's own inputs against its plain version.
+           checkout's own inputs against its plain version. The fs run
+           takes `--trace`: its file is validated by obs.check and
+           `fs_trace` prints phase_ms (total ms per span name: the walk,
+           the analyzers, secret.prefilter and secret.confirm, the query
+           building, the detect phases, the assembly) and the share of
+           the wall its root spans cover.
   image_apps
            a 4-layer gzip application image (Debian 12 and 200 dpkg
            packages; 900 node_modules packages; 40 jars and a Go binary
@@ -210,7 +219,19 @@ Phases, one JSON line each; any failure exits non-zero:
            ready_s, latency p50/p99 and scans/s at c=1 and c=16, merged
            dispatches, batches and requests per dispatch, the dedup
            ratio (launched over real pairs), the client's shift-or
-           launches.
+           launches. The server runs with --trace, --incident-dir and
+           --slow-trace-ms; after c=16: /metrics through the strict
+           parser, its detectd dispatch, batch and coalesce series equal
+           to /healthz's dispatches and, with /debug/perf's shape table,
+           to the drain line's join launches; every merged dispatch's
+           query columns staged (prefetched, no cold wait); /debug/costs
+           conserved; the median c=16 request's trace assembled from
+           this process's client fragment and the server's by
+           obs.collect and validated; the median ms per span name under
+           server.rpc over the 48 c=16 requests; one /debug/profile?ms=
+           200 during a further c=16 round (asked again, at most five
+           rounds, while its window holds no kernel) with the join's
+           CUDA events; the trace file written at shutdown, validated.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
@@ -897,7 +918,10 @@ def run_port_cli(args: list, env: dict | None = None,
     if proc.returncode != 0:
         raise AssertionError(f"{' '.join(args[:2])} failed "
                              f"({proc.returncode}):\n{proc.stderr[-4000:]}")
-    lines = proc.stderr.strip().splitlines()
+    # the two --debug-launches lines: the last two JSON objects on
+    # stderr (a --trace run says where it wrote its file after them)
+    lines = [ln for ln in proc.stderr.strip().splitlines()
+             if ln.startswith("{")]
     counts = {**json.loads(lines[-2]), **json.loads(lines[-1])}
     return (proc.stdout if raw else json.loads(proc.stdout)), counts, wall_s
 
@@ -913,11 +937,46 @@ def findings(report: dict) -> tuple[set, set]:
     return vulns, secrets
 
 
+KERNEL_NAMES = {"shiftor": ("shiftor_kernel",),
+                "csr_join": ("csr_prep_kernel", "csr_tile_kernel")}
+
+
+def profile_figures(doc: dict) -> dict:
+    """A trivy-tpu-profile/1 manifest → the card's busy ms over the
+    capture (kernels, copies and memsets: every CUDA activity), its
+    idle share, and the time by activity name (the demangled name cut
+    at its argument and template lists)."""
+    by_name: dict = {}
+    for name, row in doc["kernels"].items():
+        short = name.replace("(anonymous namespace)::", "") \
+            .split("(", 1)[0].split("<", 1)[0].strip() or name
+        agg = by_name.setdefault(short, {"count": 0, "device_ms": 0.0})
+        agg["count"] += row["count"]
+        agg["device_ms"] = round(agg["device_ms"] + row["device_ms"], 6)
+    return {"capture_ms": doc["duration_ms"], "busy_ms": doc["busy_ms"],
+            "idle_share": 1.0 - doc["busy_ms"] / doc["duration_ms"],
+            "kernel_events": doc["events"], "kernels": by_name}
+
+
+def check_obs_file(path: str) -> None:
+    """`python -m trivy_tpu_torch.obs.check FILE`: an incident, trace,
+    profile manifest or cost document, validated offline."""
+    proc = subprocess.run([sys.executable, "-m", "trivy_tpu_torch.obs.check",
+                           path], cwd=REPO, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"obs.check {path}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+
+
 def run_rootfs(root: str, expected_secrets: set) -> dict:
-    """The rootfs path through the user's entry point → its launch
-    counts."""
+    """The rootfs path through the user's entry point, under
+    `--profile-dir` → its launch counts. The capture must hold both
+    kernels' CUDA events; the card's busy share and the kernel times
+    come from it."""
+    prof_dir = os.path.join(os.path.dirname(root), "rootfs-profile")
     report, counts, wall_s = run_port_cli(
-        ["rootfs", root, "--db", FIXTURE_DB, "--scanners", "vuln,secret"])
+        ["rootfs", root, "--db", FIXTURE_DB, "--scanners", "vuln,secret",
+         "--profile-dir", prof_dir])
     vulns, secrets = findings(report)
     if vulns != EXPECTED_VULNS:
         raise AssertionError(f"vulnerabilities {sorted(vulns)}")
@@ -930,9 +989,17 @@ def run_rootfs(root: str, expected_secrets: set) -> dict:
                              f"{launches}")
     if counts["prefilter_path"] != {"cuda": 1}:
         raise AssertionError(f"prefilter paths {counts['prefilter_path']}")
+    manifest = os.path.join(prof_dir, "manifest.json")
+    check_obs_file(manifest)
+    with open(manifest) as f:
+        prof = profile_figures(json.load(f))
+    for kernel, names in KERNEL_NAMES.items():
+        if not any(n in prof["kernels"] for n in names):
+            raise AssertionError(f"rootfs profile: no CUDA event of "
+                                 f"{kernel} ({sorted(prof['kernels'])})")
     phase("rootfs", wall_s=wall_s, vulnerabilities=len(vulns),
           secrets=sorted(secrets), launches=launches,
-          prefilter_path=counts["prefilter_path"])
+          prefilter_path=counts["prefilter_path"], profile=prof)
     return launches
 
 
@@ -1673,7 +1740,12 @@ def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
     padded, bank, rows = secret_rows(scan.secret_files)
 
     common = ["--db", db, "--scanners", "vuln,secret"]
-    fs, fs_counts, fs_s = run_port_cli(["fs", root, *common])
+    trace_path = os.path.join(tmp, "fs.trace.json")
+    fs, fs_counts, fs_s = run_port_cli(["fs", root, *common,
+                                        "--trace", trace_path])
+    check_obs_file(trace_path)
+    with open(trace_path) as f:
+        trace_doc = json.load(f)
     repo, repo_counts, repo_s = run_port_cli(["repo", root, *common])
     cpu, _cpu_counts, cpu_s = run_port_cli(
         ["fs", root, "--db", db, "--scanners", "vuln", "--device", "cpu"])
@@ -1690,6 +1762,7 @@ def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
     at_fs["shiftor"] = shiftor_case(torch, bank, padded, "fs")
     kernel_ms += at_fs["shiftor"]["ms"]
     vulns, secrets = findings(fs)
+    phase("fs_trace", **trace_breakdown(trace_doc, fs_s))
     phase("fs", files=len(files), text_bytes=sum(
         len(c) for _, c in scan.secret_files), secret_rows=rows,
         applications=len(detail.applications),
@@ -1703,6 +1776,22 @@ def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
         repo_launches=repo_counts["launches"],
         prefilter_path=fs_counts["prefilter_path"])
     return fs_counts["launches"], at_fs, root, fs, detail, (padded, bank)
+
+
+def trace_breakdown(doc: dict, wall_s: float) -> dict:
+    """A `--trace` file → phase_ms (total ms per span name, from
+    obs.trace.phase_totals) and the share of the command's wall that
+    its root spans cover."""
+    from trivy_tpu_torch.obs.trace import phase_totals
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    ids = {e["args"]["span_id"] for e in xs}
+    roots = [e for e in xs if e["args"]["parent_id"] not in ids]
+    return {"phase_ms": {k: v["total_ms"] for k, v in
+                         phase_totals(doc).items()},
+            "spans": len(xs),
+            "roots": sorted({e["name"] for e in roots}),
+            "root_share_of_wall": sum(e["dur"] for e in roots) / 1e6
+            / wall_s}
 
 
 def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
@@ -4406,6 +4495,7 @@ def server_phase(tmp: str, table, db: str, names: dict,
                                                  AnalyzerGroup)
     from trivy_tpu_torch.fanal.artifact import FilesystemArtifact
     from trivy_tpu_torch.fanal.cache import FSCache
+    from trivy_tpu_torch.obs import new_trace
     from trivy_tpu_torch.ops.shiftor import shiftor_cuda
     from trivy_tpu_torch.scanner import LocalScanner
     from trivy_tpu_torch.secret import SecretScanner
@@ -4417,12 +4507,16 @@ def server_phase(tmp: str, table, db: str, names: dict,
     base = f"http://127.0.0.1:{port}"
     log_path = os.path.join(tmp, "server.log")
     t_spawn = time.perf_counter()
+    trace_path = os.path.join(tmp, "server.trace.json")
+    incident_dir = os.path.join(tmp, "incidents")
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "trivy_tpu_torch", "server", "--listen",
              f"127.0.0.1:{port}", "--db", db, "--token", SERVER_TOKEN,
              "--cache-dir", cache_dir, "--debug-launches",
-             "--device", device], cwd=REPO, stderr=log)
+             "--device", device, "--trace", trace_path,
+             "--incident-dir", incident_dir, "--slow-trace-ms", "250",
+             "--profile-cooldown-s", "0"], cwd=REPO, stderr=log)
     try:
         # the trees are written while the server starts
         rng = np.random.default_rng(SEED + 10)
@@ -4464,47 +4558,90 @@ def server_phase(tmp: str, table, db: str, names: dict,
         scanner = RemoteScanner(base, token=SERVER_TOKEN, timeout=300)
 
         def scan(i):
-            t = time.perf_counter()
-            results, os_info = scanner.scan(refs[i].name, refs[i].id,
-                                            refs[i].blob_ids, opts)
-            return (_canon(results), _os_key(os_info)), \
-                time.perf_counter() - t
+            # each request under a trace id of its own, which the server
+            # adopts (X-Trivy-Trace-Id) and its /debug/traces serves
+            with new_trace() as tid:
+                t = time.perf_counter()
+                results, os_info = scanner.scan(refs[i].name, refs[i].id,
+                                                refs[i].blob_ids, opts)
+                dt = time.perf_counter() - t
+            return (_canon(results), _os_key(os_info)), dt, tid
 
         serial, lat1 = [], []
         t0 = time.perf_counter()
         for i in range(len(refs)):
-            rep, dt = scan(i)
+            rep, dt, _tid = scan(i)
             serial.append(rep)
             lat1.append(dt)
         wall1 = time.perf_counter() - t0
 
         before = _get_json(base + "/healthz")["detectd"]
-        rounds, lat16 = [], []
-        for _ in range(3):
+
+        def c16_round(profile: bool = False):
+            """All artifacts at once; with `profile`, a 17th thread asks
+            /debug/profile?ms=200 as the round starts."""
             got = [None] * len(refs)
-            barrier = threading.Barrier(len(refs))
+            barrier = threading.Barrier(len(refs) + profile)
+            prof = {}
 
             def worker(i):
                 barrier.wait()
                 got[i] = scan(i)
+
+            def profiler():
+                barrier.wait()
+                prof["doc"] = _debug(base, "profile?ms=200",
+                                     allow_error=True)
             threads = [threading.Thread(target=worker, args=(i,))
                        for i in range(len(refs))]
+            if profile:
+                threads.append(threading.Thread(target=profiler))
             t0 = time.perf_counter()
             for t in threads:
                 t.start()
             for t in threads:
                 t.join(600)
-            rounds.append(time.perf_counter() - t0)
+            wall = time.perf_counter() - t0
             for i, res in enumerate(got):
                 if res is None or res[0] != serial[i]:
                     raise AssertionError(f"server: artifact {i}'s c=16 "
                                          "report differs from its c=1 one")
-                lat16.append(res[1])
+            return wall, got, prof.get("doc")
+
+        rounds, lat16, tids16 = [], [], []
+        for _ in range(3):
+            wall, got, _p = c16_round()
+            rounds.append(wall)
+            lat16 += [res[1] for res in got]
+            tids16 += [res[2] for res in got]
         after = _get_json(base + "/healthz")["detectd"]
         c16 = {k: after[k] - before[k] for k in after}
         if not c16["dispatches"] < c16["batches"]:
             raise AssertionError(f"server: {c16['dispatches']} merged "
                                  f"dispatches for {c16['batches']} batches")
+        obs = server_obs_checks(base, after, tids16, lat16)
+        # one live profile during a c=16 round: its 200 ms window has to
+        # hold a merged dispatch, so a capture that caught none (the
+        # server answers 500 and writes nothing; the first capture of a
+        # process also pays the profiler's start-up before its window)
+        # is asked again in the next round, at most five times
+        attempts = []
+        for _ in range(5):
+            _w, _g, doc = c16_round(profile=True)
+            attempts.append(doc.get("code", "ok"))
+            if "code" not in doc:
+                break
+        else:
+            raise AssertionError(f"server: no /debug/profile capture "
+                                 f"held a kernel: {attempts} {doc}")
+        check_obs_file(doc["manifest"])
+        obs["profile"] = {**profile_figures(doc), "attempts": attempts}
+        if device == "cuda" and not any(
+                n in obs["profile"]["kernels"]
+                for n in KERNEL_NAMES["csr_join"]):
+            raise AssertionError(f"server profile: no join kernel "
+                                 f"{sorted(obs['profile']['kernels'])}")
+        final = _get_json(base + "/healthz")["detectd"]
 
         # the reference: the same table and cache, in-process, on the
         # CPU, without detectd
@@ -4530,9 +4667,25 @@ def server_phase(tmp: str, table, db: str, names: dict,
     if rc != 0:
         raise AssertionError(f"server exited {rc}:\n{err[-4000:]}")
     debug = json.loads(err.strip().splitlines()[-1])
-    if debug["detectd"]["dispatches"] != after["dispatches"]:
+    if debug["detectd"]["dispatches"] != final["dispatches"]:
         raise AssertionError(f"server: drain line {debug['detectd']} "
-                             f"against /healthz {after}")
+                             f"against /healthz {final}")
+    # the /metrics dispatch series and the ledger's shape table, read
+    # after c=16, against the launches the drain line counts: every
+    # dispatch after that read was one of the profiled rounds'
+    launched = debug["launches"]["csr_join"] \
+        + debug["launches"]["csr_join_compact"]
+    extra = final["dispatches"] - after["dispatches"]
+    if device == "cuda" and (
+            obs["metrics"]["detectd_dispatches"] + extra != launched
+            or obs["perf"]["detectd_dispatches"] + extra != launched):
+        raise AssertionError(f"server: /metrics {obs['metrics']} and "
+                             f"/debug/perf {obs['perf']} against "
+                             f"{launched} launches (+{extra})")
+    check_obs_file(trace_path)
+    with open(trace_path) as f:
+        obs["trace_file_spans"] = sum(
+            1 for e in json.load(f)["traceEvents"] if e["ph"] == "X")
     vulns = sum(len(r.get("Vulnerabilities") or [])
                 for rep, _os in serial for r in json.loads(rep))
     return {"ready_s": ready_s, "healthz": healthz, "setup_s": setup_s,
@@ -4549,7 +4702,125 @@ def server_phase(tmp: str, table, db: str, names: dict,
                     "requests_per_dispatch":
                         c16["requests"] / c16["dispatches"],
                     "dedup_ratio": c16["launched_pairs"] / c16["pairs"]},
-            "drain": debug, "launches": debug["launches"]}
+            "drain": debug, "launches": debug["launches"], "obs": obs}
+
+
+def _debug(base: str, page: str, allow_error: bool = False) -> dict:
+    """GET a token-gated /debug page → its JSON (an error's JSON body
+    too, with `allow_error`)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"{base}/debug/{page}",
+                                 headers={"Trivy-Token": SERVER_TOKEN})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        if not allow_error:
+            raise
+        return json.loads(e.read())
+
+
+def server_obs_checks(base: str, detectd: dict, tids: list,
+                      lat: list) -> dict:
+    """The server's observability surface after the c=16 rounds:
+    /metrics through the strict parser, its detectd series against
+    /healthz's detectd figures; the ledger's shape table; the cost
+    conservation of /debug/costs; one c=16 request's trace assembled
+    from this process's fragment (client.scan) and the server's by
+    obs.collect, validated; and per span name under server.rpc the
+    median ms over every c=16 request → the figures."""
+    import urllib.request
+
+    from trivy_tpu_torch.obs import collect
+    from trivy_tpu_torch.obs.check import check_costs
+    from trivy_tpu_torch.obs.exposition import parse_exposition
+    from trivy_tpu_torch.obs.recorder import debug_traces_payload
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        fams = parse_exposition(r.read().decode())
+
+    def sample(name, **labels):
+        return sum(v for n, lab, v in fams[name]["samples"]
+                   if n in (name, name + "_count")
+                   and all(lab.get(k) == x for k, x in labels.items()))
+    metrics = {
+        "families": len(fams),
+        "detectd_dispatches": sample("trivy_tpu_device_dispatches_total",
+                                     site="detectd"),
+        "batches": sample("trivy_tpu_detect_batches_total"),
+        "coalesce_observations": sample("trivy_tpu_detect_coalesce_size"),
+        "dispatch_depth": sample("trivy_tpu_dispatch_depth"),
+        "scans": sample("trivy_tpu_scans_total"),
+    }
+    if not (metrics["detectd_dispatches"] == metrics["batches"]
+            == metrics["coalesce_observations"] == detectd["dispatches"]) \
+            or metrics["dispatch_depth"] != 0:
+        raise AssertionError(f"server /metrics {metrics} against "
+                             f"/healthz {detectd}")
+    perf = _debug(base, "perf")
+    rows = [r for r in perf["shapes"] if r["site"] == "detectd"]
+    shapes = {"detectd_dispatches": sum(r["dispatches"] for r in rows),
+              "shapes": len(rows),
+              "compacted": sum(r["dispatches"] for r in rows if r["h_cap"]),
+              "first_of_shape_ms": sum(r["compile_ms"] for r in rows),
+              "query_uploads": perf["totals"]["shard_uploads"].get(
+                  "query_upload")}
+    up = shapes["query_uploads"] or {}
+    if shapes["detectd_dispatches"] != detectd["dispatches"] or \
+            up.get("prefetched") != detectd["dispatches"] or \
+            up.get("cold_waits"):
+        raise AssertionError(f"server /debug/perf {shapes} against "
+                             f"{detectd}")
+    costs = _debug(base, "costs")
+    cons = costs["conservation"]
+    if check_costs(costs) or not (cons["device_ms"]["ok"]
+                                  and cons["transfer_bytes"]["ok"]):
+        raise AssertionError(f"server /debug/costs {cons} "
+                             f"{check_costs(costs)}")
+    # the median c=16 request's trace, assembled and validated
+    tid = sorted(zip(lat, tids))[len(tids) // 2][1]
+    server_frag = {**collect.fetch_fragment(base, tid, token=SERVER_TOKEN),
+                   "url": base}
+    own = {**debug_traces_payload(f"/debug/traces?trace_id={tid}"),
+           "url": "client"}
+    doc = collect.assemble([own, server_frag])
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    ids = {e["args"]["span_id"] for e in xs}
+    roots = [e["name"] for e in xs if e["args"]["parent_id"] not in ids]
+    if roots != ["client.scan"] or not any(e["name"] == "server.rpc"
+                                           for e in xs):
+        raise AssertionError(f"server trace {tid}: roots {roots}")
+    path = os.path.join(tempfile.gettempdir(), f"c16-{tid}.trace.json")
+    collect.write_trace(path, doc)
+    check_obs_file(path)
+    os.remove(path)
+    # per span name under server.rpc: the median over the c=16 requests
+    per: dict = {}
+    for t in tids:
+        spans = collect.fetch_fragment(base, t, token=SERVER_TOKEN)["spans"]
+        by_id = {s["span_id"]: s for s in spans}
+        rpc = [s for s in spans if s["name"] == "server.rpc"
+               and s["attrs"].get("route", "").endswith("/Scan")]
+        if len(rpc) != 1:
+            raise AssertionError(f"server trace {t}: {len(rpc)} Scan rpcs")
+        sums: dict = {"server.rpc": rpc[0]["dur_ms"]}
+        for s in spans:
+            p, under = s, False
+            while p["parent_id"] in by_id:
+                p = by_id[p["parent_id"]]
+                if p is rpc[0]:
+                    under = True
+                    break
+            if under:
+                sums[s["name"]] = sums.get(s["name"], 0.0) + s["dur_ms"]
+        for name, ms in sums.items():
+            per.setdefault(name, []).append(ms)
+    return {"metrics": metrics, "perf": shapes,
+            "costs": {k: cons[k] for k in ("device_ms", "transfer_bytes")},
+            "trace_assembled": {"trace_id": tid, "spans": len(xs)},
+            "c16_span_median_ms": {
+                name: {"median": statistics.median(v), "requests": len(v)}
+                for name, v in sorted(per.items())}}
 
 
 def merged_case(torch, table, e: dict, label: str) -> dict:
@@ -4657,10 +4928,11 @@ def run_server_at_size(torch, tmp: str, table, db: str, names: dict
             launches["csr_join"] + launches["csr_join_compact"] == 0:
         raise AssertionError(f"server: launches {launches}, "
                              f"{fig['artifacts']} artifacts")
-    if fig["healthz"]["device"].get("kind") != \
-            torch.cuda.get_device_name(0):
+    if fig["healthz"]["device_name"] != torch.cuda.get_device_name(0) \
+            or fig["healthz"]["device"]["platform"] != "gpu":
         raise AssertionError(f"server /healthz device "
-                             f"{fig['healthz']['device']}")
+                             f"{fig['healthz']['device']} "
+                             f"{fig['healthz']['device_name']}")
     fig.pop("roots")
     phase("server", **fig, merged_recorded=len(entries),
           client_secret_rows=rows, launches_by_kernel=launches)

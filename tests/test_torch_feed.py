@@ -5,13 +5,23 @@ inputs; the merged dispatch with and without dedup, dense and
 compacted, giving the same bits over the full merged pair space; a c=8
 duplicate-heavy hammer through detectd equal to serial. Where the JAX
 package rebuilds a failed fetch on the host, the port fails every
-request the dispatch carried and answers nothing from the host."""
+request the dispatch carried and answers nothing from the host.
+
+The staged query uploads: test_feed.py's
+test_query_upload_ledger_steady_state against the port (every detectd
+dispatch takes columns staged ahead, none cold), a staged merged
+dispatch equal to the inline one, the detector's own launches ledgered
+as cold, and a staging error failing the requests of its dispatch. The
+failpoint drills of test_feed.py (hung and failing uploads degrading to
+the host join) have no subject here: the port has no failpoints and no
+host join."""
 
 import random
 import threading
 
 import numpy as np
 import pytest
+import torch
 
 from trivy_tpu.detect import feed as ref_feed
 from trivy_tpu.resilience.hostjoin import CompactBits as RefCompactBits
@@ -322,3 +332,108 @@ class TestDetectdDedup:
         assert not errors
         assert results == expected
         assert sched.stats["deduped"] == 0
+
+
+class TestStagedUploads:
+    @pytest.fixture(autouse=True)
+    def _ledger(self):
+        from test_torch_obs import reset_port_obs
+        reset_port_obs()
+        yield
+        reset_port_obs()
+
+    def test_query_upload_ledger_steady_state(self, big_table):
+        """Every detectd dispatch takes a query upload staged ahead of
+        it: prefetched == uploads, no cold wait, and the transfer path
+        in the exposition (test_feed.py's case, on the port)."""
+        from trivy_tpu_torch.metrics import METRICS
+        from trivy_tpu_torch.obs import LEDGER
+        from trivy_tpu_torch.obs.exposition import parse_exposition
+        det = BatchDetector(big_table, device="cpu")
+        sched = DispatchScheduler(det, SchedOptions())
+        try:
+            for r in range(6):
+                sched.detect_many([_dup_queries(300 + r, 16)])
+        finally:
+            sched.close()
+            det.close()
+        stats = LEDGER.shard_upload_stats()["query_upload"]
+        assert stats["uploads"] >= 6
+        assert stats["prefetched"] == stats["uploads"]
+        assert stats["cold_waits"] == 0
+        assert stats["bytes"] > 0
+        assert stats["stall_ms"] >= stats["cold_stall_ms"] == 0
+        agg = LEDGER.aggregate()
+        assert agg["transfer_bytes"]["query_upload"] == stats["bytes"]
+        families = parse_exposition(METRICS.render())
+        transfer = families["trivy_tpu_device_transfer_bytes_total"]
+        upload = [v for _n, labels, v in transfer["samples"]
+                  if labels.get("path") == "query_upload"]
+        assert upload and upload[0] > 0
+
+    @pytest.mark.parametrize("dedup", [False, True])
+    def test_staged_dispatch_equals_inline(self, big_table, dedup):
+        det = BatchDetector(big_table, device="cpu")
+        try:
+            preps = TestDetectorDedupPaths()._preps(det, 900)
+            plan = _feed.plan_from_preps(preps) if dedup else None
+            staged = det.stage_merged(preps, plan=plan, dedup=dedup)
+            assert staged.queries.error is None
+            q = staged.queries.refs
+            assert [t.dtype for t in q] == [torch.int32] * 3
+            np.testing.assert_array_equal(q[0].numpy(), staged.launch[0])
+            np.testing.assert_array_equal(q[2].numpy(), staged.launch[2])
+            dev, off, tp = det.dispatch_merged(preps, staged=staged)
+            got = det.fetch_merged(dev, preps, off, tp)
+            dev2, off2, tp2 = det.dispatch_merged(preps, plan=plan)
+            want = det.fetch_merged(dev2, preps, off2, tp2)
+            assert (off, tp) == (off2, tp2)
+            np.testing.assert_array_equal(_dense(got), _dense(want))
+        finally:
+            det.close()
+
+    def test_detector_launches_upload_cold(self, big_table):
+        """A launch with nothing staged (the per-request path) copies its
+        columns inline: ledgered as not prefetched, one cold wait each."""
+        from trivy_tpu_torch.obs import LEDGER
+        det = BatchDetector(big_table, device="cpu")
+        try:
+            det.detect_many([_dup_queries(5, 16), _dup_queries(6, 16)])
+        finally:
+            det.close()
+        stats = LEDGER.shard_upload_stats()["query_upload"]
+        assert stats["uploads"] == stats["cold_waits"] == 2
+        assert stats["prefetched"] == 0
+
+    def test_staging_error_fails_its_requests(self, big_table, monkeypatch):
+        """A staging error is recorded on the StagedQueries and the paired
+        launch raises it: the requests of that dispatch fail with it, and
+        detectd goes on serving."""
+        det = BatchDetector(big_table, device="cpu")
+        serial = BatchDetector(big_table, device="cpu")
+        request = [_dup_queries(77, 16)]
+        expected = serial.detect_many(request)
+        serial.close()
+        columns = _feed._columns
+        broken = {"on": True}
+
+        def failing(*a, **kw):
+            if broken["on"]:
+                raise RuntimeError("injected staging failure")
+            return columns(*a, **kw)
+        monkeypatch.setattr(_feed, "_columns", failing)
+        staged = _feed.stage_queries(np.zeros(4, np.int32),
+                                     np.zeros(4, np.int32),
+                                     np.zeros(4, np.int32),
+                                     torch.device("cpu"))
+        assert staged.refs is None
+        assert "injected" in str(staged.error)
+        sched = DispatchScheduler(det, SchedOptions())
+        try:
+            with pytest.raises(RuntimeError, match="injected staging"):
+                sched.detect_many(request)
+            broken["on"] = False
+            assert sched.detect_many(request) == expected
+        finally:
+            sched.close()
+            det.close()

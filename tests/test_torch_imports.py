@@ -46,7 +46,9 @@ need = ["trivy_tpu_torch." + m for m in (
     "iac.rego.builtins", "iac.rego.eval", "misconf", "misconf.dockerfile",
     "fanal.analyzers.misconf", "compliance", "compliance.spec",
     "compliance.report", "detect.feed", "detect.sched", "obs", "obs.cost",
-    "resilience", "resilience.admission", "resilience.retry", "server",
+    "obs.trace", "obs.recorder", "obs.slo", "obs.collect", "obs.check",
+    "obs.device", "obs.perf", "obs.perfcheck", "obs.exposition", "log",
+    "metrics", "resilience", "resilience.admission", "resilience.retry", "server",
     "server.protowire", "server.convert", "server.listen",
     "server.client")]
 bad += [m for m in need if m not in names]

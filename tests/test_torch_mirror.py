@@ -18,7 +18,14 @@ package's sentinel ever meets the other's module. A
 value that is immutable plain data (a str, a number, a tuple of them)
 goes on as the port's; any other (an object, a list, a dict, a class)
 goes on as a Twin of both, so that a later call, attribute, index,
-mutation or `isinstance` reaches both sides."""
+mutation or `isinstance` reaches both sides.
+
+`twin_cases` does the same with the JAX file's parametrised tests
+expanded; `port_cases` runs the JAX file's cases against the port
+alone (its `trivy_tpu` imports turned into `trivy_tpu_torch` ones), for
+cases whose values are clocks, random ids or process-wide state that
+two packages cannot share. Both take source edits (`subs`, each of
+which must apply) and global overrides (`env`)."""
 
 from __future__ import annotations
 
@@ -273,27 +280,56 @@ if not any(isinstance(f, _TwinFinder) for f in sys.meta_path):
     sys.meta_path.insert(0, _TwinFinder())
 
 
-def load_mirror(test_file: str) -> types.ModuleType:
+def load_mirror(test_file: str, root: str = ROOT, subs=(),
+                env=None) -> types.ModuleType:
     """The JAX test file, executed with its `trivy_tpu` imports turned
-    into `twin_trivy` ones. The file itself is not changed."""
+    into `root` ones: `twin_trivy` (the twins) or `trivy_tpu_torch` (the
+    port alone). `subs` are more (old, new) source replacements, each
+    of which must apply; `env` overrides module globals after the
+    load. The file itself is not changed."""
     path = os.path.join(HERE, test_file)
     with open(path, encoding="utf-8") as f:
         src = f.read()
-    for a, b in (("from trivy_tpu.", f"from {ROOT}."),
-                 ("from trivy_tpu import", f"from {ROOT} import"),
-                 ("import trivy_tpu.", f"import {ROOT}.")):
+    for a, b in (("from trivy_tpu.", f"from {root}."),
+                 ("from trivy_tpu import", f"from {root} import"),
+                 ("import trivy_tpu.", f"import {root}.")):
         src = src.replace(a, b)
-    mod = types.ModuleType("mirror_" + test_file[:-3])
+    for a, b in subs:
+        assert a in src, f"{test_file}: {a!r} not found"
+        src = src.replace(a, b)
+    mod = types.ModuleType(f"mirror_{root}_" + test_file[:-3])
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
+    mod.__dict__.update(env or {})
     return mod
+
+
+def port_cases(test_file: str, keep=None, subs=(), env=None) -> list:
+    """[(cls, function, params)] of the JAX file's tests run against the
+    port ALONE (its `trivy_tpu` imports turned into `trivy_tpu_torch`
+    ones, plus `subs`): for cases whose values are clocks, random ids or
+    process state that two packages cannot share. A parametrised test
+    gives one case per parameter set."""
+    return _cases(load_mirror(test_file, PORT, subs, env), keep,
+                  expand=True)
+
+
+def twin_cases(test_file: str, keep=None, subs=(), env=None) -> list:
+    """[(cls, function, params)] of the JAX file's tests through the
+    twins (each value equal to the reference's at tolerance 0), with
+    parametrised tests expanded."""
+    return _cases(load_mirror(test_file, ROOT, subs, env), keep,
+                  expand=True)
 
 
 def mirror_cases(test_file: str, keep=None) -> list:
     """[(case id, function)] of every test of the JAX file, in its
     order: the module's test_* functions and the test_* methods of its
     Test* classes. keep(case id) selects a subset."""
-    mod = load_mirror(test_file)
+    return _cases(load_mirror(test_file), keep)
+
+
+def _cases(mod, keep, expand: bool = False) -> list:
     found = []
     for name, obj in vars(mod).items():
         if name.startswith("test_") and inspect.isfunction(obj):
@@ -305,15 +341,33 @@ def mirror_cases(test_file: str, keep=None) -> list:
                                   f"{name}::{mname}", obj, meth))
     cases = []
     for _line, case_id, cls, fn in sorted(found, key=lambda c: c[0]):
-        # a parametrised JAX test would need its cases expanded here
-        assert not getattr(fn, "pytestmark", None), case_id
-        if keep is None or keep(case_id):
+        if keep is not None and not keep(case_id):
+            continue
+        marks = [m for m in getattr(fn, "pytestmark", ())
+                 if m.name == "parametrize"]
+        if not expand:
+            # a parametrised JAX test would need its cases expanded here
+            assert not marks, case_id
             cases.append(pytest.param(cls, fn, id=case_id))
+            continue
+        assert len(marks) <= 1, case_id
+        if not marks:
+            cases.append(pytest.param(cls, fn, {}, id=case_id))
+            continue
+        names, values = marks[0].args[:2]
+        names = [n.strip() for n in names.split(",")] \
+            if isinstance(names, str) else list(names)
+        for i, v in enumerate(values):
+            v = v if len(names) > 1 else (v,)
+            cases.append(pytest.param(cls, fn, dict(zip(names, v)),
+                                      id=f"{case_id}[{i}]"))
     return cases
 
 
-def run_case(cls, fn, request) -> None:
-    """One mirrored case, with the fixtures its signature names."""
+def run_case(cls, fn, request, given=None) -> None:
+    """One mirrored case, with the fixtures its signature names (and
+    the parameter values `given` for a parametrised one)."""
+    given = given or {}
     params = list(inspect.signature(fn).parameters)
     args = []
     if cls is not None:
@@ -322,7 +376,8 @@ def run_case(cls, fn, request) -> None:
             inst.setup_method(fn)
         args.append(inst)
         params = params[1:]
-    args += [request.getfixturevalue(p) for p in params]
+    args += [given[p] if p in given else request.getfixturevalue(p)
+             for p in params]
     fn(*args)
 
 

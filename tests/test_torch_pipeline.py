@@ -642,15 +642,13 @@ def test_tenant_byte_share_binds_only_under_a_tenant():
     dl = PP.Deadline(0.05)
     assert budget.acquire(80, dl)          # untenanted: exempt
     budget.release(80)
-    token = PP.TENANT.set("acme")
-    try:
+    from trivy_tpu_torch.obs.cost import request_ledger
+    with request_ledger("acme"):
         assert budget.acquire(50, dl)
         assert not budget.acquire(10, PP.Deadline(0.05))
         budget.release(50)
         assert budget.acquire(10, dl)
         budget.release(10)
-    finally:
-        PP.TENANT.reset(token)
 
 
 # --- flags ---------------------------------------------------------------

@@ -409,14 +409,14 @@ class TestFairQueue:
         """A request's fair-queue key is its tenant's clamped label, and
         "system" outside a request."""
         from trivy_tpu_torch.obs.cost import (TENANTS, normalize_tenant,
-                                              request_tenant)
+                                              request_ledger)
         from trivy_tpu_torch.detect.sched import _Request
         assert _Request(0).tenant == "system"
-        with request_tenant(normalize_tenant("team-a")):
+        with request_ledger(normalize_tenant("team-a")):
             assert _Request(0).tenant == TENANTS.resolve("team-a")
-        with request_tenant(normalize_tenant("\x00" * 3)):
+        with request_ledger(normalize_tenant("\x00" * 3)):
             assert _Request(0).tenant == "___"
-        with request_tenant(normalize_tenant("")):
+        with request_ledger(normalize_tenant("")):
             assert _Request(0).tenant == "default"
 
 

@@ -3,8 +3,10 @@ mirror of tests/test_cli_server.py's TestServer (/healthz, /version, a
 client scan, the cache hit, token auth) and of test_protowire.py's
 binary end to end, ScanSBOM, the admission queue (429 + Retry-After on
 a full queue, 503 while draining, a deadline that expires in the
-queue), a failed launch answered with Twirp `internal`, the refused
-server flags, the CLI server drained by SIGTERM with --debug-launches,
+queue), a failed launch answered with Twirp `internal`, the
+observability pages (/metrics open, /debug/* behind the token), the
+observability flags accepted and the other JAX server flags refused,
+the CLI server drained by SIGTERM with --debug-launches,
 and the wire both ways: the JAX client against the port's server and
 the port's client against the JAX server give what a same-package pair
 gives."""
@@ -129,11 +131,25 @@ class TestServer:
 
     @pytest.mark.parametrize("page", ["/metrics", "/debug/traces",
                                       "/debug/perf"])
-    def test_unported_pages_name_their_item(self, server, page):
+    def test_observability_pages_are_served(self, server, page):
+        """The pages that answered 404 naming their item before the
+        port had them: /metrics is open and strictly parseable, the
+        /debug pages answer 401 without the token and 200 with it."""
+        from trivy_tpu_torch.obs.exposition import parse_exposition
+        if page == "/metrics":
+            with urllib.request.urlopen(server + page) as r:
+                assert r.headers["Content-Type"].startswith("text/plain")
+                fams = parse_exposition(r.read().decode())
+            assert fams["trivy_tpu_slo_burn_rate"]["type"] == "gauge"
+            return
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(server + page)
-        assert e.value.code == 404
-        assert "ROADMAP A17" in json.loads(e.value.read())["msg"]
+        assert e.value.code == 401
+        req = urllib.request.Request(server + page,
+                                     headers={"Trivy-Token": TOKEN})
+        doc = json.loads(urllib.request.urlopen(req).read())
+        assert doc["pid"] == os.getpid()
+        assert ("spans" if page == "/debug/traces" else "shapes") in doc
 
     def test_client_server_scan(self, server, image_path):
         cache = client.RemoteCache(server, token=TOKEN)
@@ -388,6 +404,45 @@ class TestAdmission:
                 scanner.scan(ref.name, ref.id, ref.blob_ids)[0])
         finally:
             _stop(httpd, state)
+
+
+@pytest.mark.parametrize("flag,value,read", [
+    ("--trace", "t.json", None),
+    ("--incident-dir", "inc", lambda o: o.RECORDER.incident_dir),
+    ("--slow-trace-ms", "250", lambda o: o.RECORDER.slow_trace_s * 1e3),
+    ("--slo-latency-ms", "750",
+     lambda o: o.SLO.latency_threshold_s * 1e3),
+    ("--profile-auto-burn", "3", lambda o: o.PROF.auto_burn_threshold),
+    ("--profile-cooldown-s", "12", lambda o: o.PROF.cooldown_s),
+    ("--ingest-tenant-walker-share", "0.5", None),
+    ("--ingest-tenant-byte-share", "0.25", None)],
+    ids=lambda a: a if isinstance(a, str) and a.startswith("--") else "")
+def test_observability_server_flags_are_accepted(flag, value, read,
+                                                 tmp_path):
+    """The eight flags the port refused naming ROADMAP A17 before it
+    had the observability layer: parsed, refused no more, and applied
+    to the process singletons by the server command."""
+    from trivy_tpu_torch import obs
+    if flag in ("--trace", "--incident-dir"):
+        value = str(tmp_path / value)
+    args = cli.build_parser().parse_args(
+        ["server", "--device", "cpu", flag, value])
+    cli._refuse_server_flags(args)
+    got = getattr(args, flag[2:].replace("-", "_"))
+    assert got == (value if flag in ("--trace", "--incident-dir")
+                   else float(value))
+    if read is None:
+        return
+    saved = (obs.RECORDER.incident_dir, obs.RECORDER.slow_trace_s,
+             obs.SLO.latency_threshold_s)
+    try:
+        cli._configure_watch(args)
+        assert read(obs) == pytest.approx(got) \
+            if isinstance(got, float) else read(obs) == got
+    finally:
+        obs.RECORDER.incident_dir, obs.RECORDER.slow_trace_s, \
+            obs.SLO.latency_threshold_s = saved
+        obs.PROF.reset_for_tests()
 
 
 @pytest.mark.parametrize("argv", [

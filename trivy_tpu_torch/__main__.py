@@ -61,18 +61,31 @@ analyzer. Runs on CUDA unless `--device cpu` is given; `--device` and
 `--debug-launches` come from the command line only. Not ported, and
 refused: `--sbom-sources rekor` (ROADMAP A5).
 
+`--trace FILE` writes a Chrome trace-event JSON of the scan's spans
+(walk, analyzers, secret prefilter and confirm, query building, the
+detect phases, result assembly; open it in Perfetto), and
+`--profile-dir DIR` a torch.profiler capture of the scan (trace.json
+and a trivy-tpu-profile/1 manifest.json with the kernels seen and the
+card's busy ms); neither changes the report.
+
 `server` serves the Twirp scan and cache routes of the JAX package's
 server (server/listen.py) with the table on the card and detectd merging
 concurrent scans' launches; clients analyze on their side and send
-blobs (server/client.py). SIGTERM or SIGINT drains it. The JAX server's
-mesh, memo, table-streaming, breaker, failpoint, trace and graftwatch
-flags, and the redis:// and s3:// caches, are refused with the ROADMAP
-item that will port them (SERVER_REFUSED).
+blobs (server/client.py). SIGTERM or SIGINT drains it. It serves the
+JAX server's observability surface: `/metrics`, the token-gated
+`/debug/traces`, `/debug/incidents`, `/debug/perf`, `/debug/profile`
+and `/debug/costs` pages, and the `--trace`, `--incident-dir`,
+`--slow-trace-ms`, `--slo-latency-ms`, `--profile-auto-burn`,
+`--profile-cooldown-s` and `--ingest-tenant-*` flags. The JAX server's
+mesh, memo, table-streaming, breaker and failpoint flags, and the
+redis:// and s3:// caches, are refused with the ROADMAP item that will
+port them (SERVER_REFUSED).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime as dt
 import glob
 import json
@@ -201,8 +214,31 @@ def _misconf_settings(args):
         raise SystemExit(str(e)) from None
 
 
-def _scan(args, make_artifact, cache_for, artifact_type: str,
-          disabled: tuple, name: str = "", misconf=None) -> int:
+def _scan(args, *rest, **kw) -> int:
+    """_scan_inner under `--trace` (every span of the command, the walk
+    included, recorded and written to the file at the end) and
+    `--profile-dir` (a torch.profiler capture of the scan, through the
+    profiler's one-at-a-time exclusivity, reference cli.py:636-643)."""
+    with contextlib.ExitStack() as stack:
+        if args.trace:
+            from .obs import COLLECTOR, write_chrome_trace
+
+            def write_trace():
+                COLLECTOR.disable()
+                write_chrome_trace(args.trace)
+                print(f"graftscope trace written to {args.trace}",
+                      file=sys.stderr)
+            COLLECTOR.enable()
+            stack.callback(write_trace)
+        if args.profile_dir:
+            from .obs.perf import PROF
+            stack.enter_context(PROF.capture_dir(
+                args.profile_dir, device=resolve_device(args.device).type))
+        return _scan_inner(args, *rest, **kw)
+
+
+def _scan_inner(args, make_artifact, cache_for, artifact_type: str,
+                disabled: tuple, name: str = "", misconf=None) -> int:
     """The steps every scan command shares (reference
     _scan_common_inner, cli.py:648-719): the artifact's walk into the
     cache, the scan from the cache, VEX, the filters, the report and the
@@ -488,8 +524,6 @@ _STREAM = "streamed advisory tables are not ported yet (ROADMAP A10)"
 _GUARD = ("the port has no breaker, watchdog or failpoints: a failed "
           "launch or fetch fails the requests it carried (ROADMAP A, "
           "not ported by the north star)")
-_OBS = ("tracing, the flight recorder, SLOs and the tenant cost "
-        "controls are not ported yet (ROADMAP A17)")
 # the JAX server's flags that the port refuses, and why
 SERVER_REFUSED = {
     "mesh_devices": _MESH, "mesh_db_shards": _MESH,
@@ -500,13 +534,9 @@ SERVER_REFUSED = {
     "redetect_concurrency": "redetectd is not ported yet (ROADMAP A9)",
     "table_stream_slices": _STREAM, "table_device_budget_mb": _STREAM,
     "stream_prefetch": "the slice prefetch of streamed tables is not "
-                       "ported yet (ROADMAP A8, A10)",
+                       "ported yet (ROADMAP A10)",
     "failpoint": _GUARD, "breaker_fail_threshold": _GUARD,
     "breaker_reset_ms": _GUARD, "detect_dispatch_timeout_ms": _GUARD,
-    "trace": _OBS, "incident_dir": _OBS, "slow_trace_ms": _OBS,
-    "slo_latency_ms": _OBS, "profile_auto_burn": _OBS,
-    "profile_cooldown_s": _OBS, "ingest_tenant_walker_share": _OBS,
-    "ingest_tenant_byte_share": _OBS,
 }
 
 
@@ -538,6 +568,13 @@ def cmd_server(args) -> int:
     from .server.listen import LaunchRecord, serve
     _refuse_server_flags(args)
     device = resolve_device(args.device)
+    _configure_watch(args)
+    # the ingest defaults (the tenant shares) for walks run in the
+    # server's requests
+    from .fanal.pipeline import IngestOptions, set_default_ingest
+    set_default_ingest(IngestOptions(
+        tenant_walker_share=args.ingest_tenant_walker_share,
+        tenant_byte_share=args.ingest_tenant_byte_share))
     table = load_table(args.db, cache_dir=args.cache_dir,
                        repository=args.db_repository,
                        skip_update=args.skip_db_update)
@@ -559,7 +596,7 @@ def cmd_server(args) -> int:
             tenant_max_queue=args.admit_tenant_max_queue,
             tenant_rate=args.admit_tenant_rate),
         drain_grace_s=args.drain_grace_ms / 1e3, device=device,
-        launch_record=record)
+        launch_record=record, trace_path=args.trace)
     if record is not None:
         # after the drain: the launches by kernel (the dense and the
         # compacted route), what the merged dispatches carried, and a
@@ -577,6 +614,17 @@ def cmd_server(args) -> int:
             "merged_record": path,
             "merged_recorded": record.save(path)}), file=sys.stderr)
     return 0
+
+
+def _configure_watch(args) -> None:
+    """The flight recorder, SLO and profiler flags onto the process
+    singletons (reference cli.py:190-201)."""
+    from .obs import PROF, RECORDER, SLO
+    RECORDER.configure(incident_dir=args.incident_dir or None,
+                       slow_trace_ms=args.slow_trace_ms)
+    SLO.configure(latency_threshold_ms=args.slo_latency_ms)
+    PROF.configure(cooldown_s=args.profile_cooldown_s,
+                   auto_burn_threshold=args.profile_auto_burn)
 
 
 def _server_flags(p: argparse.ArgumentParser) -> None:
@@ -624,6 +672,37 @@ def _server_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--drain-grace-ms", type=float, default=10000.0,
                    help="SIGTERM/SIGINT: how long the requests in flight "
                         "may finish before the server closes")
+    p.add_argument("--trace", default="", metavar="FILE",
+                   help="record every span for the server's lifetime and "
+                        "write the Chrome trace-event JSON to FILE at "
+                        "shutdown")
+    p.add_argument("--incident-dir", default="",
+                   help="flight-recorder incident snapshots and live "
+                        "profiles land here (default: "
+                        "$TRIVY_TPU_INCIDENT_DIR or "
+                        "<tmp>/trivy-tpu-incidents), listed at "
+                        "/debug/incidents")
+    p.add_argument("--slow-trace-ms", type=float, default=1000.0,
+                   help="the flight recorder pins traces whose root span "
+                        "takes longer, so slow requests survive ring "
+                        "churn (default 1000)")
+    p.add_argument("--slo-latency-ms", type=float, default=2000.0,
+                   help="the scan-latency threshold of the p99 objective "
+                        "(default 2000)")
+    p.add_argument("--profile-auto-burn", type=float, default=0.0,
+                   help="short-window SLO burn rate at or above which one "
+                        "live profile is captured into the incident dir "
+                        "(cooldown-limited; 0 disables, the default)")
+    p.add_argument("--profile-cooldown-s", type=float, default=30.0,
+                   help="least time between live profile captures "
+                        "(/debug/profile and the SLO trigger share it; "
+                        "default 30)")
+    p.add_argument("--ingest-tenant-walker-share", type=float, default=1.0,
+                   help="largest share of the walker pool one tenant may "
+                        "hold (1.0 = off)")
+    p.add_argument("--ingest-tenant-byte-share", type=float, default=1.0,
+                   help="largest share of the in-flight byte window one "
+                        "tenant may hold (1.0 = off)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no automatic "
                         "fallback to the CPU")
@@ -756,6 +835,14 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
                    help="more rego namespaces to evaluate (comma-separated)")
     p.add_argument("--rego-trace", action="store_true",
                    help="print rego rule-evaluation traces to stderr")
+    p.add_argument("--trace", default="", metavar="FILE",
+                   help="write a Chrome trace-event JSON of the scan's "
+                        "spans (walk, analyzers, secret prefilter, query "
+                        "building, the detect phases, assembly) to FILE; "
+                        "open it in Perfetto or chrome://tracing")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler capture of the scan to "
+                        "this directory (trace.json, manifest.json)")
     p.add_argument("--helm-set", action="append", default=[],
                    help="helm value override key=value (repeatable)")
     p.add_argument("--helm-values", action="append", default=[],

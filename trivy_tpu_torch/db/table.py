@@ -116,6 +116,17 @@ class AdvisoryTable:
     def __len__(self):
         return self.hash.shape[0]
 
+    def nbytes_by_column(self) -> dict:
+        """Per-column bytes of the flattened table: the dispatch
+        ledger's `advisory_table.<col>` resident breakdown. `hash_u64`
+        appears once the lookup view has been built."""
+        cols = {"hash": self.hash, "lo_tok": self.lo_tok,
+                "hi_tok": self.hi_tok, "flags": self.flags,
+                "group": self.group}
+        if self._hash_u64 is not None:
+            cols["hash_u64"] = self._hash_u64
+        return {name: int(arr.nbytes) for name, arr in cols.items()}
+
     def content_digest(self) -> str:
         """Deterministic digest of everything that feeds a result: the
         join arrays, the groups' report metadata, the FillInfo details

@@ -25,14 +25,25 @@ hits from the same table.
 One detector serves every handler thread of the server: the version
 pool, the hash cache, the hit budget and the group columns are guarded
 by one lock. detectd (detect/sched.py) merges several threads' prepared
-batches into one launch (dispatch_merged) and fetches it on the
-detector's fetch thread (fetch_merged). There is no host join: a
-failed launch or fetch raises.
+batches into one launch (dispatch_merged), with its query columns
+staged ahead on a side stream (stage_merged, detect/feed.py), and
+fetches it on the detector's fetch thread (fetch_merged). There is no
+host join: a failed launch or fetch raises.
+
+Instrumentation follows the JAX package's engine: graftscope spans
+(detect.prepare, detect.dispatch, detect.compile on the first launch of
+a (t_pad, h_cap) shape, detect.assemble, and under `--trace` the
+fenced detect.device_fence / detect.device_wait), the detect series of
+METRICS, the dispatch ledger (obs/perf.py) and the cost charges
+(obs/cost.py). Nothing here synchronizes with the card outside the
+fetch, except the fence of a recorded (`--trace`) run, which trades the
+overlap for attribution as the JAX package's traced path does.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
@@ -43,6 +54,10 @@ import torch
 from .. import version as V
 from ..db.table import AdvisoryTable
 from ..device import resolve_device
+from ..metrics import METRICS
+from ..obs import SLO, note_dispatch, recording, span
+from ..obs import cost as _cost
+from ..obs.perf import LEDGER, stamp_table_resident
 from ..ops import bucket_ladder, bucket_size
 from ..ops import join as J
 from ..ops import next_pow2 as _next_pow2
@@ -103,6 +118,19 @@ class _PendingCompact(NamedTuple):
     dense: Any
     h_cap: int
     t_pad: int
+    site: str = "detect"
+
+
+class _StagedMerged(NamedTuple):
+    """stage_merged's product, handed back to dispatch_merged: the
+    merged descriptor set, the dedup plan (or None), the descriptors
+    the launch runs, whether dedup is on, and the staged query
+    upload."""
+    merged: tuple
+    plan: Any
+    launch: tuple
+    dedup: bool
+    queries: Any
 
 
 @dataclass(slots=True)
@@ -154,6 +182,7 @@ class BatchDetector:
                  device: str | torch.device | None = None):
         self.table = table
         self.device = resolve_device(device)
+        stamp_table_resident(table)
         self._hit_budget = _HIT_BUDGET_INIT
         self._hit_low_streak = 0
         self._hit_dense_streak = 0
@@ -173,6 +202,9 @@ class BatchDetector:
         self._g_arrays = None
         self._g_cols = None
         self._closed = False
+        # launch shapes (t_pad, h_cap) met so far: the first launch of
+        # each is the "compile" the ledger and the spans account
+        self._seen_shapes: set = set()
         # one fetch thread for detectd's merged dispatches (one thread
         # keeps the transfers in launch order)
         self._get_pool = ThreadPoolExecutor(
@@ -255,14 +287,26 @@ class BatchDetector:
             if self._ver_dev is None \
                     or self._ver_dev_rows < self._ver_count \
                     or self._ver_dev.shape[0] < u_pad:
-                self._ver_dev = torch.from_numpy(
-                    self._ver_snapshot_locked(u_pad)).to(self.device)
+                snap = self._ver_snapshot_locked(u_pad)
+                self._ver_dev = torch.from_numpy(snap).to(self.device)
                 self._ver_dev_rows = self._ver_count
+                LEDGER.note_resident("version_pool", snap.nbytes)
             return self._ver_dev
 
     # ---- batch pipeline -----------------------------------------------
 
     def _prepare(self, queries: list[PkgQuery]) -> Optional[_Prepared]:
+        """One graftscope span per batch around _prepare_impl, with the
+        padding it will cost."""
+        with span("detect.prepare", queries=len(queries)) as sp:
+            prep = self._prepare_impl(queries)
+            if prep is not None and prep.n_pairs:
+                sp.attrs.update(n_pairs=prep.n_pairs, t_pad=prep.t_pad,
+                                pad_waste=prep.t_pad - prep.n_pairs)
+            return prep
+
+    def _prepare_impl(self, queries: list[PkgQuery]
+                      ) -> Optional[_Prepared]:
         t = self.table
         usable: list[tuple[PkgQuery, bool]] = []
         ver_rows: list[int] = []
@@ -332,65 +376,170 @@ class BatchDetector:
         floor_cap = bucket_size(_HIT_FLOOR, _HIT_FLOOR, _PAIR_GROWTH,
                                 align=_HIT_ALIGN)
         if adapt and budget > _HIT_BUDGET_MIN and floor_cap * 8 < t_pad:
+            adapted = False
             with self._lock:
                 self._hit_dense_streak += 1
                 if self._hit_dense_streak >= _HIT_LOW_STREAK:
                     self._hit_budget = max(self._hit_budget / 2,
                                            _HIT_BUDGET_MIN)
                     self._hit_dense_streak = 0
+                    adapted = True
+            if adapted:
+                LEDGER.note_budget_adapt("down")
         return 0
 
-    def _note_hits(self, n_hits: int, h_cap: int) -> None:
-        """Adapt the hit budget from the observed buffer occupancy."""
+    def _note_hits(self, n_hits: int, h_cap: int, site: str = "detect",
+                   t_pad: int = 0) -> None:
+        """Adapt the hit budget from the observed buffer occupancy; one
+        occupancy observation and one ledger fill per compacted
+        dispatch."""
+        METRICS.observe("trivy_tpu_detect_hit_occupancy", n_hits / h_cap)
+        LEDGER.note_hits(site, t_pad, h_cap, n_hits)
+        adapted = None
         with self._lock:
             if n_hits > h_cap:
                 self._hit_budget = min(self._hit_budget * 2,
                                        _HIT_BUDGET_MAX)
                 self._hit_low_streak = 0
+                adapted = "up"
             elif n_hits * 4 <= h_cap:
                 self._hit_low_streak += 1
                 if self._hit_low_streak >= _HIT_LOW_STREAK:
                     self._hit_budget = max(self._hit_budget / 2,
                                            _HIT_BUDGET_MIN)
                     self._hit_low_streak = 0
+                    adapted = "down"
             else:
                 self._hit_low_streak = 0
+        if adapted:
+            LEDGER.note_budget_adapt(adapted)
+
+    def _note_shape(self, t_pad: int, h_cap: int) -> bool:
+        """→ whether this is the first launch of (t_pad, h_cap) on this
+        detector (counted in trivy_tpu_detect_compiles_total)."""
+        key = (t_pad, h_cap)
+        with self._lock:
+            new_shape = key not in self._seen_shapes
+            if new_shape:
+                self._seen_shapes.add(key)
+        if new_shape:
+            METRICS.inc("trivy_tpu_detect_compiles_total")
+        return new_shape
+
+    @staticmethod
+    def _account_traffic(n_pairs: int, t_pad: int, warm: bool) -> None:
+        """Per-launch traffic series: one batch and one occupancy
+        observation per accepted launch (a merged dispatch is one);
+        warmup launches are not traffic."""
+        if warm:
+            return
+        METRICS.inc("trivy_tpu_detect_batches_total")
+        SLO.observe_join(True)
+        if t_pad:
+            METRICS.observe("trivy_tpu_batch_occupancy_ratio",
+                            n_pairs / t_pad)
 
     def _launch(self, q_start: np.ndarray, q_count: np.ndarray,
                 q_ver: np.ndarray, n_queries: int, total: int, t_pad: int,
-                u_pad: int, h_cap: int | None = None):
+                u_pad: int, h_cap: int | None = None, warm: bool = False,
+                site: str = "detect", staged=None):
         """Upload the [Q] descriptors and launch the join (asynchronous
         on a GPU). → a _PendingCompact when the hit buffer engages, else
-        the dense int8[t_pad] bits tensor."""
+        the dense int8[t_pad] bits tensor.
+
+        `staged` (feed.StagedQueries) carries query columns copied ahead
+        on the side stream; without one they are copied here, inline
+        (the cold path, ledgered as such). A staging error is raised
+        here. `site` attributes the launch in the ledger ("detect" per
+        request, "detectd" for merged dispatches); `warm` marks warmup
+        launches, which are not traffic. The launch region's host wall
+        is charged as device ms (obs/cost.py)."""
         J.check_csr_descriptors(q_count, n_queries)
         if h_cap is None:
             h_cap = self._hit_capacity(t_pad)
+        if staged is not None and staged.error is not None:
+            raise staged.error
+        t_watch = time.perf_counter()
         adv_lo, adv_hi, adv_flags, lo_pre, hi_pre = \
             self.table.device_arrays(self.device)
         ver_dev = self._ver_device(u_pad)
-        qs, qc, qv = (torch.from_numpy(np.ascontiguousarray(a, np.int32))
-                      .to(self.device) for a in (q_start, q_count, q_ver))
+        new_shape = self._note_shape(t_pad, h_cap)
+        if staged is not None:
+            qs, qc, qv = staged.take()
+        else:
+            from . import feed as _feed
+            t_up = time.perf_counter()
+            qs, qc, qv = _feed.upload_queries(q_start, q_count, q_ver,
+                                              self.device)
+            LEDGER.note_shard_wait("query_upload",
+                                   (time.perf_counter() - t_up) * 1e3,
+                                   cold=True)
         args = (adv_lo, adv_hi, adv_flags, ver_dev, qs, qc, qv, total)
-        if h_cap:
-            hit_idx, hit_bits, n_hits, dense = J.csr_pair_join_compact(
-                *args, t_pad, h_cap, prefix=(lo_pre, hi_pre))
-            return _PendingCompact(hit_idx, hit_bits, n_hits, dense,
-                                   h_cap, t_pad)
-        return J.csr_pair_join(*args, t_pad, prefix=(lo_pre, hi_pre))
+
+        def _kernel():
+            if h_cap:
+                hit_idx, hit_bits, n_hits, dense = J.csr_pair_join_compact(
+                    *args, t_pad, h_cap, prefix=(lo_pre, hi_pre))
+                return _PendingCompact(hit_idx, hit_bits, n_hits, dense,
+                                       h_cap, t_pad, site)
+            return J.csr_pair_join(*args, t_pad, prefix=(lo_pre, hi_pre))
+
+        if new_shape:
+            # the first launch of a shape: its host wall (the kernel
+            # library's load or build on the first of all) is the
+            # ledger's "compile", spanned so it shows in the trace
+            with span("detect.compile", t_pad=t_pad, h_cap=h_cap,
+                      warm=warm):
+                t0 = time.perf_counter()
+                out = _kernel()
+                compile_ms = (time.perf_counter() - t0) * 1e3
+            LEDGER.note_compile(site, t_pad, h_cap, compile_ms, warm=warm)
+        else:
+            out = _kernel()
+        self._account_traffic(total, t_pad, warm)
+        LEDGER.note_dispatch(site, total, t_pad, h_cap, warm=warm)
+        _cost.charge_device_ms(
+            site, (time.perf_counter() - t_watch) * 1e3,
+            real_rows=0 if (warm or new_shape) else total)
+        return out
 
     def _fetch_bits(self, dev):
-        """Device→host fetch. A _PendingCompact fetches only the O(hits)
-        triple, in one transfer; when n_hits overflowed the buffer the
-        dense bits follow, so results are the same either way."""
+        """Device→host fetch, the launch's sync point: its wall is
+        charged as device ms to the launch's site. A _PendingCompact
+        fetches only the O(hits) triple, in one transfer; when n_hits
+        overflowed the buffer the dense bits follow, so results are the
+        same either way."""
         if not isinstance(dev, _PendingCompact):
-            return dev.cpu().numpy()
+            t0 = time.perf_counter()
+            out = dev.cpu().numpy()
+            _cost.charge_device_ms("detect",
+                                   (time.perf_counter() - t0) * 1e3)
+            METRICS.inc("trivy_tpu_detect_transfer_bytes_total",
+                        float(out.nbytes), path="dense")
+            _cost.ledgered_transfer("dense", float(out.nbytes))
+            return out
+        t0 = time.perf_counter()
         packed = torch.cat([dev.n_hits.reshape(1).to(torch.int32),
                             dev.hit_idx,
                             dev.hit_bits.to(torch.int32)]).cpu().numpy()
+        _cost.charge_device_ms(dev.site, (time.perf_counter() - t0) * 1e3)
         n = int(packed[0])
-        self._note_hits(n, dev.h_cap)
+        self._note_hits(n, dev.h_cap, site=dev.site, t_pad=dev.t_pad)
+        # what the hit buffers hold on the card: int32 indices, int8
+        # bits and the int32 count
+        compact_bytes = float(dev.h_cap * 5 + 4)
+        METRICS.inc("trivy_tpu_detect_transfer_bytes_total",
+                    compact_bytes, path="compact")
+        _cost.ledgered_transfer("compact", compact_bytes)
         if n > dev.h_cap:
-            return dev.dense.cpu().numpy()
+            t0 = time.perf_counter()
+            bits = dev.dense.cpu().numpy()
+            _cost.charge_device_ms(dev.site,
+                                   (time.perf_counter() - t0) * 1e3)
+            METRICS.inc("trivy_tpu_detect_transfer_bytes_total",
+                        float(bits.nbytes), path="dense")
+            _cost.ledgered_transfer("overflow", float(bits.nbytes))
+            return bits
         hit_idx = packed[1:1 + dev.h_cap]
         hit_bits = packed[1 + dev.h_cap:].astype(np.int8)
         return CompactBits(hit_idx[:n], hit_bits[:n], dev.t_pad)
@@ -426,7 +575,37 @@ class BatchDetector:
                     max(p.u_pad for p in preps))
         return q_start, q_count, q_ver, offsets, total, t_pad, u_pad
 
-    def dispatch_merged(self, preps: list[_Prepared], plan=None):
+    def _launch_args(self, preps: list[_Prepared], plan):
+        """The merged descriptor set and what one merged dispatch
+        launches: the unique descriptors under a dedup plan, every real
+        pair without one (stage_merged and dispatch_merged share it so
+        the two never disagree) → (merged, launch)."""
+        from . import feed as _feed
+        merged = self._merge_descriptors(preps)
+        if plan is not None:
+            launch = _feed.padded_unique(plan, _PAIR_FLOOR, _PAIR_GROWTH)
+        else:
+            q_start, q_count, q_ver, _offsets, total, t_pad, _u = merged
+            launch = (q_start, q_count, q_ver, total, t_pad)
+        return merged, launch
+
+    def stage_merged(self, preps: list[_Prepared], plan=None,
+                     dedup: bool | None = None) -> _StagedMerged:
+        """Merge, and copy the query columns of a FUTURE dispatch_merged
+        ahead (feed.stage_queries): detectd calls this before it parks
+        on backpressure, so the copy rides the previous dispatch's
+        device time. `dedup` says whether dedup is on (default: a plan
+        was given). The result goes back into dispatch_merged(staged=)."""
+        from . import feed as _feed
+        merged, launch = self._launch_args(preps, plan)
+        queries = _feed.stage_queries(launch[0], launch[1], launch[2],
+                                      self.device)
+        return _StagedMerged(merged, plan, launch,
+                             plan is not None if dedup is None else dedup,
+                             queries)
+
+    def dispatch_merged(self, preps: list[_Prepared], plan=None,
+                        staged: _StagedMerged | None = None):
         """ONE join launch covering several prepared batches, the
         primitive detectd is built on. Each prep's pairs land
         contiguously in the merged bits, so its slice [off, off +
@@ -436,22 +615,35 @@ class BatchDetector:
         With a dedup `plan` (feed.plan_from_preps of these preps), the
         launch covers the unique query triples only and fetch_merged
         scatters the bits back through the plan's map; without one it
-        covers every real pair. → (pending result, per-prep offsets,
+        covers every real pair. `staged` (stage_merged of these preps)
+        brings its plan and its staged query columns; without it the
+        columns are copied inline. → (pending result, per-prep offsets,
         t_pad), the offsets and t_pad in the full merged pair space
         either way."""
         from . import feed as _feed
-        q_start, q_count, q_ver, offsets, total, t_pad, u_pad = \
-            self._merge_descriptors(preps)
-        n_q = sum(p.n_queries for p in preps)
-        if plan is None:
-            return self._launch(q_start, q_count, q_ver, n_q, total,
-                                t_pad, u_pad), offsets, t_pad
-        ls, lc, lv, l_total, l_tpad = _feed.padded_unique(
-            plan, _PAIR_FLOOR, _PAIR_GROWTH)
-        dev = self._launch(ls, lc, lv, plan.n_unique, l_total, l_tpad,
-                           u_pad)
-        return _feed.PendingExpand(dev, plan, (ls, lc, lv, l_total,
-                                               l_tpad)), offsets, t_pad
+        if staged is not None:
+            merged, plan, launch = staged.merged, staged.plan, \
+                staged.launch
+            dedup, queries = staged.dedup, staged.queries
+        else:
+            merged, launch = self._launch_args(preps, plan)
+            dedup, queries = plan is not None, None
+        _qs, _qc, _qv, offsets, total, t_pad, u_pad = merged
+        ls, lc, lv, l_total, l_tpad = launch
+        if dedup:
+            _feed.note_dedup_ratio(l_total, total)
+        n_q = plan.n_unique if plan is not None \
+            else sum(p.n_queries for p in preps)
+        with span("detect.dispatch", n_pairs=total, t_pad=t_pad,
+                  merged=len(preps), deduped=plan is not None):
+            # one ledger row per merged dispatch, so the per-site sums
+            # reconcile with the batch counter
+            dev = self._launch(ls, lc, lv, n_q, l_total, l_tpad, u_pad,
+                               site="detectd", staged=queries)
+        note_dispatch(self.device)
+        if plan is not None:
+            dev = _feed.PendingExpand(dev, plan, launch)
+        return dev, offsets, t_pad
 
     def fetch_merged(self, dev, preps: list[_Prepared], offsets: list,
                      t_pad: int):
@@ -470,7 +662,8 @@ class BatchDetector:
         descriptors, and once more per neighbouring hit-buffer rung (one
         budget doubling up and one halving down), as the JAX package's
         warmup does; nothing is compiled per shape here, so this only
-        makes the same launches. → the rung count."""
+        makes the same launches (ledgered as warmup, not traffic).
+        → the rung count."""
         if len(self.table) == 0:
             return 0
         rungs = bucket_ladder(max_pairs, _PAIR_FLOOR, _PAIR_GROWTH)
@@ -481,13 +674,14 @@ class BatchDetector:
             q_pad = bucket_size(max(t_pad // 8, 1), 64, _PAIR_GROWTH,
                                 align=64)
             z = np.zeros(q_pad, np.int32)
-            self._launch(z, z, z, 0, 0, t_pad, u_pad)
+            self._launch(z, z, z, 0, 0, t_pad, u_pad, warm=True)
             warmed = {self._hit_capacity(t_pad, budget=budget)}
             for adapted in (budget * 2, budget / 2):
                 nxt = self._hit_capacity(t_pad, budget=adapted)
                 if nxt and nxt not in warmed:
                     warmed.add(nxt)
-                    self._launch(z, z, z, 0, 0, t_pad, u_pad, h_cap=nxt)
+                    self._launch(z, z, z, 0, 0, t_pad, u_pad, h_cap=nxt,
+                                 warm=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return len(rungs)
@@ -495,19 +689,60 @@ class BatchDetector:
     def detect(self, queries: list[PkgQuery]) -> list[Hit]:
         return self.detect_many([queries])[0]
 
+    def _dispatch(self, prep: _Prepared):
+        """One batch's launch under its detect.dispatch span, stamping
+        the device view /healthz serves."""
+        with span("detect.dispatch", n_pairs=prep.n_pairs,
+                  t_pad=prep.t_pad):
+            dev = self._launch(prep.q_start, prep.q_count, prep.q_ver,
+                               prep.n_queries, prep.n_pairs, prep.t_pad,
+                               prep.u_pad)
+        note_dispatch(self.device)
+        return dev
+
     def detect_many(self, batches: list[list[PkgQuery]]) -> list[list[Hit]]:
-        """prep → launch → fetch → assemble, one batch after another."""
+        """prep → launch → fetch → assemble, one batch after another.
+        Under graftscope recording (`--trace`) a fence after each
+        launch puts its device time in detect.device_fence and leaves
+        detect.device_wait the transfer; batches still run in the same
+        order, so the hit budget routes each launch as it would
+        untraced."""
         out: list = [[] for _ in batches]
         if len(self.table) == 0:
             return out
+        traced = recording()
+        n_pairs = 0
+        wait_s = 0.0
         for idx, qs in enumerate(batches):
             prep = self._prepare(qs) if qs else None
             if prep is None or prep.n_pairs == 0:
                 continue
-            dev = self._launch(prep.q_start, prep.q_count, prep.q_ver,
-                               prep.n_queries, prep.n_pairs, prep.t_pad,
-                               prep.u_pad)
-            out[idx] = self._assemble(prep, self._fetch_bits(dev))
+            n_pairs += prep.n_pairs
+            dev = self._dispatch(prep)
+            METRICS.gauge_add("trivy_tpu_dispatch_depth", 1.0)
+            try:
+                if traced:
+                    with span("detect.device_fence", batches=1):
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                    with span("detect.device_wait", n_pairs=prep.n_pairs):
+                        t_get = time.perf_counter()
+                        bits = self._fetch_bits(dev)
+                else:
+                    t_get = time.perf_counter()
+                    bits = self._fetch_bits(dev)
+            finally:
+                METRICS.gauge_add("trivy_tpu_dispatch_depth", -1.0)
+            t_asm = time.perf_counter()
+            METRICS.observe("trivy_tpu_device_get_stall_seconds",
+                            t_asm - t_get)
+            out[idx] = self._assemble(prep, bits)
+            wait_s += time.perf_counter() - t_get
+        METRICS.inc("trivy_tpu_detect_queries_total",
+                    sum(len(qs) for qs in batches))
+        METRICS.inc("trivy_tpu_detect_pairs_total", n_pairs)
+        METRICS.inc("trivy_tpu_detect_wait_assemble_seconds_total", wait_s)
+        METRICS.inc("trivy_tpu_detect_hits_total", sum(len(h) for h in out))
         return out
 
     @staticmethod
@@ -521,6 +756,13 @@ class BatchDetector:
         return prep.q_usable[seg], rows
 
     def _assemble(self, prep: _Prepared, bits) -> list[Hit]:
+        """One graftscope span per batch around _assemble_impl."""
+        with span("detect.assemble", n_pairs=prep.n_pairs) as sp:
+            hits = self._assemble_impl(prep, bits)
+            sp.attrs["hits"] = len(hits)
+            return hits
+
+    def _assemble_impl(self, prep: _Prepared, bits) -> list[Hit]:
         t = self.table
         if isinstance(bits, CompactBits):
             keep = bits.pair_idx

@@ -10,18 +10,41 @@ the unique queries only, and a host-side index map scatters the bits
 (dense or CompactBits) back into every duplicate's pair range: the same
 bits as the full merged dispatch, by construction.
 
-The JAX package's staged query uploads (`StagedQueries`,
-`upload_queries`, `stage_queries`) are not ported here (ROADMAP A8).
+Staged query uploads (`stage_queries`, `StagedQueries`,
+`upload_queries`): detectd issues the host→device copy of a merged
+dispatch's padded CSR query columns before it parks on backpressure,
+so the copy of dispatch i+1 runs while dispatch i computes. On the card
+the columns go into one pinned host buffer and up with one
+`non_blocking` copy on a side CUDA stream, which records an event;
+the launch makes its own (current) stream wait on that event, and
+marks the device tensor as used by that stream (`record_stream`) so
+the caching allocator does not hand its memory to another tensor while
+the join still reads it. The pinned buffer comes from PyTorch's caching
+host allocator, which does not reuse it before the copy's event has
+completed, and the StagedQueries keeps it alive until the launch.
+Uploads and waits are ledgered as `query_upload` rows
+(obs/perf.py): a staged copy counts as prefetched, the inline copy a
+launch makes without one (the cold path) does not. A staging error is
+recorded on the StagedQueries and the paired launch raises it, failing
+the requests it carried: there is no host join to degrade to.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..log import get as _get_logger
+from ..metrics import METRICS
+from ..obs.perf import LEDGER
 from ..ops import bucket_size
 from .engine import CompactBits
+
+_log = _get_logger("feed")
 
 
 @dataclass(slots=True)
@@ -120,6 +143,16 @@ def padded_unique(plan: DedupPlan, pair_floor: int, pair_growth: float):
     return qs, qc, qv, plan.unique_total, t_pad
 
 
+def note_dedup_ratio(unique_pairs: int, real_pairs: int) -> None:
+    """One merged dispatch's dedup win: unique pairs ÷ real pairs
+    (1.0 = nothing collapsed). Observed per merged dispatch whenever
+    dedup is on, so the histogram's mass says how duplicated the
+    admitted traffic is."""
+    if real_pairs > 0:
+        METRICS.observe("trivy_tpu_detect_dedup_ratio",
+                        unique_pairs / real_pairs)
+
+
 def expand_bits(plan: DedupPlan, bits_u, t_pad: int):
     """Scatter unique-space join results back to the merged dispatch's
     global pair space. `bits_u` is the unique dispatch's dense int8
@@ -163,3 +196,111 @@ class PendingExpand:
         self.dev = dev
         self.plan = plan
         self.launch = launch   # (q_start, q_count, q_ver, total, t_pad)
+
+
+# ---------------------------------------------------------------------------
+# staged query uploads
+
+
+class StagedQueries:
+    """One pre-issued host→device copy of a dispatch's CSR query
+    columns. `refs` are the three device tensors (views of one [3, Q]
+    upload); `event` is the side stream's event after the copy (None on
+    the CPU); `error` is a staging failure, which the paired launch
+    raises."""
+
+    __slots__ = ("refs", "event", "error", "_host")
+
+    def __init__(self):
+        self.refs = None
+        self.event = None
+        self.error: BaseException | None = None
+        self._host = None   # the pinned source buffer, alive until take
+
+    def take(self):
+        """The staged columns for a launch on the current stream: the
+        stream waits on the copy's event (on the card; the host does
+        not block) and each tensor is marked as used by it. The time
+        this takes is the dispatch's query-upload stall (≈ 0: the copy
+        rode the previous dispatch's compute)."""
+        t0 = time.perf_counter()
+        if self.error is not None:
+            raise self.error
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.refs[0].device)
+            stream.wait_event(self.event)
+            for t in self.refs:
+                t.record_stream(stream)
+        LEDGER.note_shard_wait("query_upload",
+                               (time.perf_counter() - t0) * 1e3,
+                               cold=False)
+        return self.refs
+
+
+_streams: dict = {}
+_streams_lock = threading.Lock()
+
+
+def _side_stream(device: torch.device):
+    """The staging stream of `device` (one per device, made once)."""
+    with _streams_lock:
+        st = _streams.get(device)
+        if st is None:
+            st = _streams[device] = torch.cuda.Stream(device)
+        return st
+
+
+def _columns(q_start, q_count, q_ver, pin: bool) -> torch.Tensor:
+    """The three int32 columns as one [3, Q] host tensor."""
+    host = torch.empty((3, len(q_start)), dtype=torch.int32,
+                       pin_memory=pin)
+    view = host.numpy()
+    view[0] = q_start
+    view[1] = q_count
+    view[2] = q_ver
+    return host
+
+
+def upload_queries(q_start: np.ndarray, q_count: np.ndarray,
+                   q_ver: np.ndarray, device: torch.device):
+    """Copy the CSR query columns to `device` inline, on the current
+    stream (the cold path of a launch that had nothing staged), and
+    ledger the bytes as a `query_upload` transfer, not prefetched.
+    → (q_start, q_count, q_ver) device tensors."""
+    host = _columns(q_start, q_count, q_ver, pin=False)
+    dev = host.to(device)
+    LEDGER.note_shard_upload("query_upload", host.numel() * 4,
+                             prefetched=False, path="query_upload")
+    return dev[0], dev[1], dev[2]
+
+
+def stage_queries(q_start: np.ndarray, q_count: np.ndarray,
+                  q_ver: np.ndarray,
+                  device: torch.device) -> StagedQueries:
+    """Issue the query-column copy for a FUTURE launch: on the card a
+    pinned buffer, a non_blocking copy on the side stream and an event
+    after it; on the CPU the columns as tensors. Never raises: a
+    failure is recorded on the result for the paired launch to
+    raise."""
+    staged = StagedQueries()
+    try:
+        if device.type == "cuda":
+            host = _columns(q_start, q_count, q_ver, pin=True)
+            side = _side_stream(device)
+            with torch.cuda.stream(side):
+                dev = host.to(device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(side)
+            staged._host = host
+            staged.event = event
+        else:
+            dev = _columns(q_start, q_count, q_ver, pin=False)
+        staged.refs = (dev[0], dev[1], dev[2])
+        LEDGER.note_shard_upload("query_upload", dev.numel() * 4,
+                                 prefetched=True, path="query_upload")
+    except Exception as exc:  # noqa: BLE001 — raised by the launch
+        _log.warning("staged query upload failed; the paired dispatch "
+                     "fails the requests it carries", exc_info=True)
+        staged.refs = None
+        staged.error = exc
+    return staged

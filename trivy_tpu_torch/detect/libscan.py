@@ -23,8 +23,8 @@ confirms the declaration; an observation whose tokens hit only other
 versions exposes a lying purl. `oracle` recomputes the same hits from
 first principles with NumPy, for the parity tests.
 
-The port's copy of the JAX package's module, without its metrics, its
-resident-memory ledger and the `libscan.flatten` failpoint.
+The port's copy of the JAX package's module, with its metrics and its
+resident-memory ledger, without the `libscan.flatten` failpoint.
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ import numpy as np
 
 from .. import version as V
 from ..db.table import AdvisoryTable, RawAdvisory, build_table
+from ..metrics import METRICS
+from ..obs.perf import LEDGER
 
 # version scheme of corpus versions; "semver" covers the java and native
 # library corpora of the fingerprint literature
@@ -94,7 +96,12 @@ class LibraryIndex:
             status="identified",
             data_source={"ID": "libfp", "Name": f.corpus},
         ) for f in fps]
-        return cls(build_table(raw, details={}, key_width=key_width), fps)
+        table = build_table(raw, details={}, key_width=key_width)
+        METRICS.inc("trivy_tpu_libscan_fingerprints_total", float(len(fps)))
+        LEDGER.note_resident("library_index", int(
+            table.hash.nbytes + table.lo_tok.nbytes + table.hi_tok.nbytes
+            + table.flags.nbytes + table.group.nbytes))
+        return cls(table, fps)
 
     def content_digest(self) -> str:
         """Salted table digest: a LibraryIndex and a CVE table built from
@@ -111,10 +118,12 @@ class LibraryIndex:
         observations are skipped (nothing to verify; they are absent
         from the hit map)."""
         from .engine import PkgQuery
-        return [PkgQuery(source=corpus_source(obs.corpus),
-                         ecosystem=LIB_ECOSYSTEM, name=obs.token,
-                         version=obs.declared_version, ref=obs)
-                for obs in observations if obs.declared_version]
+        out = [PkgQuery(source=corpus_source(obs.corpus),
+                        ecosystem=LIB_ECOSYSTEM, name=obs.token,
+                        version=obs.declared_version, ref=obs)
+               for obs in observations if obs.declared_version]
+        METRICS.inc("trivy_tpu_libscan_queries_total", float(len(out)))
+        return out
 
     @staticmethod
     def confirmations(hits) -> dict:

@@ -28,13 +28,24 @@ round's pair budget while another tenant waits.
 There is no host join: a launch or fetch that raises fails every
 request the dispatch carried.
 
-Follows the JAX package's detect/sched.py; its staged query uploads and
-slice prefetch wait for ROADMAP A8, its metrics and cost ledgers for
-A17.
+Before it parks on backpressure, the dispatcher stages the next
+chunk's query columns on the card (BatchDetector.stage_merged), so
+their copy rides the device time of the dispatch in flight. Each merged
+dispatch runs under the first request's captured context, so its
+spans (detectd.round, detect.dispatch) join that request's trace and
+the round lists every merged trace id; its device ms and transfer
+bytes are apportioned to the requests by their real pair shares
+(obs/cost.py), and the wait from submit to dispatch is each request's
+queue ms.
+
+Follows the JAX package's detect/sched.py, its metrics and cost
+charges included. Its slice prefetch (`_prefetch_pending`) waits for
+the streamed tables of ROADMAP A10.
 """
 
 from __future__ import annotations
 
+import contextvars
 import queue as queue_mod
 import threading
 import time
@@ -42,7 +53,9 @@ from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass
 
-from ..obs.cost import current_label
+from ..metrics import METRICS
+from ..obs import current_trace_id, span
+from ..obs import cost as _cost
 from . import feed as _feed
 from .engine import BatchDetector, Hit, PkgQuery, slice_bits
 
@@ -67,7 +80,8 @@ class _Request:
     [] and dispatched ones (prep, bits), which the caller assembles."""
 
     __slots__ = ("future", "results", "slots", "n_pairs", "_lock",
-                 "_remaining", "tenant")
+                 "_remaining", "tenant", "ctx", "trace_id", "cost",
+                 "t_submit", "queue_charged")
 
     def __init__(self, n_slots: int):
         self.future: Future = Future()
@@ -76,9 +90,20 @@ class _Request:
         self.n_pairs = 0
         self._lock = threading.Lock()
         self._remaining = 0
+        # the submitting request's context (trace id, span parentage):
+        # the merged dispatch runs under one request's context, so its
+        # spans join a real trace
+        self.ctx = contextvars.copy_context()
+        self.trace_id = current_trace_id()
+        # the request's cost ledger (None outside a request: its share
+        # of a merged dispatch is billed to SYSTEM); submit → first
+        # dispatch is its queue ms, charged once
+        self.cost = _cost.active()
+        self.t_submit = time.perf_counter()
+        self.queue_charged = False
         # the fair-queue key: the clamped tenant label, "system" outside
         # a request
-        self.tenant = current_label()
+        self.tenant = _cost.current_label()
 
     def arm(self) -> None:
         with self._lock:
@@ -143,6 +168,7 @@ class DispatchScheduler:
         to detect_many-shaped parts."""
         det = self.detector
         req = _Request(len(batches))
+        n_queries = sum(map(len, batches)) if len(det.table) else 0
         for i, qs in enumerate(batches):
             prep = det._prepare(qs) if qs and len(det.table) else None
             if prep is None or prep.n_pairs == 0:
@@ -151,6 +177,8 @@ class DispatchScheduler:
             req.slots.append((i, prep))
             req.n_pairs += prep.n_pairs
         req.arm()
+        METRICS.inc("trivy_tpu_detect_queries_total", n_queries)
+        METRICS.inc("trivy_tpu_detect_pairs_total", req.n_pairs)
         if not req.slots:
             req.future.set_result(req.results)
             return req.future
@@ -168,8 +196,11 @@ class DispatchScheduler:
         parts = self.submit(batches).result()
         # assembly runs here, on the requesting thread, so concurrent
         # requests assemble concurrently while their launches merge
-        return [self.detector._assemble(*part) if isinstance(part, tuple)
-                else part for part in parts]
+        out = [self.detector._assemble(*part) if isinstance(part, tuple)
+               else part for part in parts]
+        METRICS.inc("trivy_tpu_detect_hits_total",
+                    sum(len(h) for h in out))
+        return out
 
     def detect(self, queries: list[PkgQuery]) -> list[Hit]:
         return self.detect_many([queries])[0]
@@ -337,12 +368,29 @@ class DispatchScheduler:
                 pending = self._fair_take_locked(opts.max_pairs_in_flight)
             if not pending:
                 continue
+            METRICS.observe("trivy_tpu_detect_queue_depth",
+                            float(len(pending)))
+            self._observe_dispatch_share(pending)
             try:
                 self._dispatch_round(pending)
             except Exception as e:  # noqa: BLE001 — detectd outlives a
                 # round; the requests it carried fail with its error
                 for req in pending:
                     req.fail(e)
+
+    @staticmethod
+    def _observe_dispatch_share(pending: list[_Request]) -> None:
+        """Per merged round: each participating tenant's fraction of
+        the round's real pairs."""
+        total = sum(r.n_pairs for r in pending)
+        if total <= 0:
+            return
+        by_tenant: dict[str, int] = {}
+        for r in pending:
+            by_tenant[r.tenant] = by_tenant.get(r.tenant, 0) + r.n_pairs
+        for label, pairs in by_tenant.items():
+            METRICS.observe("trivy_tpu_tenant_qos_dispatch_share",
+                            pairs / total, tenant=label)
 
     def _dispatch_round(self, pending: list[_Request]) -> None:
         """Chunk the gathered slots under the pair budget and launch one
@@ -358,6 +406,11 @@ class DispatchScheduler:
             det = self.detector
             plan = _feed.plan_from_preps(preps) if self.opts.dedup \
                 else None
+            # merge and stage the query columns BEFORE parking on
+            # backpressure: while the dispatch in flight owns the card,
+            # its compute hides this chunk's host→device copy
+            staged = det.stage_merged(preps, plan=plan,
+                                      dedup=self.opts.dedup)
             # backpressure: admit this dispatch only when the in-flight
             # padded pairs leave room (a chunk bigger than the whole
             # budget still goes, alone, once the card drains)
@@ -366,20 +419,66 @@ class DispatchScheduler:
                     lambda: self._inflight_pairs == 0
                     or self._inflight_pairs + chunk_pairs <= budget,
                     timeout=30.0)
-            dev, offsets, t_pad = det.dispatch_merged(preps, plan=plan)
+            n_req = len({id(r) for r, _, _ in chunk})
+            # the merged dispatch runs under the FIRST request's captured
+            # context (fresh copies: a Context cannot be entered twice at
+            # once, and the fetch runs on another thread); the round's
+            # span lists every merged trace id
+            req0 = chunk[0][0]
+            tids = sorted({r.trace_id for r, _, _ in chunk if r.trace_id})
+            dispatch_ctx = req0.ctx.run(contextvars.copy_context)
+            fetch_ctx = req0.ctx.run(contextvars.copy_context)
+            # queue ms: submit → first dispatch, once per request. The
+            # launch's device ms and transfer bytes apportion by each
+            # request's real pair share — its UNIQUE pairs under a dedup
+            # plan, its collapsed duplicates billed as work avoided
+            now = time.perf_counter()
+            per_req: dict[int, int] = {}
+            avoided: dict[int, int] = {}
+            for k, (r, _, p) in enumerate(chunk):
+                w = (int(plan.unique_by_prep[k]) if plan is not None
+                     else p.n_pairs)
+                per_req[id(r)] = per_req.get(id(r), 0) + w
+                if plan is not None:
+                    avoided[id(r)] = (avoided.get(id(r), 0)
+                                      + int(plan.collapsed_by_prep[k]))
+                if not r.queue_charged:
+                    r.queue_charged = True
+                    _cost.charge_queue_ms((now - r.t_submit) * 1e3,
+                                          ledger=r.cost)
+            seen: set[int] = set()
+            shares = []
+            for r, _, _p in chunk:
+                if id(r) not in seen:
+                    seen.add(id(r))
+                    shares.append((r.cost, per_req[id(r)]))
+                    if avoided.get(id(r), 0) > 0:
+                        _cost.note_work_avoided(avoided[id(r)],
+                                                ledger=r.cost)
+            dispatch_ctx.run(_cost.install_shares, shares)
+            fetch_ctx.run(_cost.install_shares, shares)
+
+            def _dispatch():
+                with span("detectd.round", merged=n_req,
+                          trace_ids=",".join(tids[:16])):
+                    return det.dispatch_merged(preps, staged=staged)
+
+            dev, offsets, t_pad = dispatch_ctx.run(_dispatch)
+            METRICS.observe("trivy_tpu_detect_coalesce_size", float(n_req))
+            METRICS.gauge_add("trivy_tpu_dispatch_depth", 1.0)
             with self._cv:
                 self._inflight_pairs += t_pad
                 st = self.stats
                 st["dispatches"] += 1
                 st["batches"] += len(chunk)
-                st["requests"] += len({id(r) for r, _, _ in chunk})
+                st["requests"] += n_req
                 st["pairs"] += chunk_pairs
                 st["launched_pairs"] += (plan.unique_total
                                          if plan is not None
                                          else chunk_pairs)
                 st["deduped"] += plan is not None
-            gf = det._get_pool.submit(det.fetch_merged, dev, preps,
-                                      offsets, t_pad)
+            gf = det._get_pool.submit(fetch_ctx.run, det.fetch_merged, dev,
+                                      preps, offsets, t_pad)
             items = list(chunk)
             gf.add_done_callback(
                 lambda fut: self._on_fetched(fut, dev, items, offsets,
@@ -404,6 +503,7 @@ class DispatchScheduler:
         with self._cv:
             self._inflight_pairs -= t_pad
             self._cv.notify_all()
+        METRICS.gauge_add("trivy_tpu_dispatch_depth", -1.0)
         try:
             bits = fut.result()
         except Exception as e:  # noqa: BLE001 — a failed fetch fails

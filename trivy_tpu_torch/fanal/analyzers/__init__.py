@@ -186,9 +186,13 @@ class AnalyzerGroup:
 
     def analyze_file(self, path: str, content: bytes,
                      result: AnalysisResult) -> None:
+        # one span per analyzer that actually ran on the file
+        from ...obs import span
         for a in self.analyzers:
             if self._wants(a, path, len(content)):
-                r = a.analyze(path, content)
+                with span("fanal.analyze", analyzer=a.name, path=path,
+                          bytes=len(content)):
+                    r = a.analyze(path, content)
                 if r is not None:
                     result.merge(r)
 
@@ -200,29 +204,38 @@ class AnalyzerGroup:
         per file in that order. `on_error(analyzer, path, exc)` takes
         an analyzer's failure on hostile content and the batch goes on;
         without it the failure propagates, as in analyze_file."""
+        from ...obs import span
         results: list = [None] * len(files)
         for a in self.analyzers:
-            for i, (path, content) in enumerate(files):
-                if not self._wants(a, path, len(content)):
-                    continue
-                try:
-                    r = a.analyze(path, content)
-                except Exception as e:  # noqa: BLE001 — contained
-                    if on_error is None:
-                        raise
-                    on_error(a.name, path, e)
-                    continue
-                if r is not None:
-                    if results[i] is None:
-                        results[i] = AnalysisResult()
-                    results[i].merge(r)
+            wanted = [(i, p, c) for i, (p, c) in enumerate(files)
+                      if self._wants(a, p, len(c))]
+            if not wanted:
+                continue
+            with span("fanal.analyze", analyzer=a.name, batched=True,
+                      files=len(wanted),
+                      bytes=sum(len(c) for _, _, c in wanted)):
+                for i, path, content in wanted:
+                    try:
+                        r = a.analyze(path, content)
+                    except Exception as e:  # noqa: BLE001 — contained
+                        if on_error is None:
+                            raise
+                        on_error(a.name, path, e)
+                        continue
+                    if r is not None:
+                        if results[i] is None:
+                            results[i] = AnalysisResult()
+                        results[i].merge(r)
         return results
 
     def post_analyze(self, files: dict, result: AnalysisResult) -> None:
+        from ...obs import span
         for a in self.post_analyzers:
             subset = {p: c for p, c in files.items()
                       if self._wants(a, p, -1)}
             if subset:
-                r = a.post_analyze(subset)
+                with span("fanal.analyze", analyzer=a.name, post=True,
+                          files=len(subset)):
+                    r = a.post_analyze(subset)
                 if r is not None:
                     result.merge(r)

@@ -29,6 +29,16 @@ def _layer(blob: T.BlobInfo) -> T.Layer:
 
 
 def apply_layers(blobs: list[T.BlobInfo]) -> T.ArtifactDetail:
+    """_apply_layers_impl under its `fanal.apply_layers` span."""
+    from ..obs import span
+    with span("fanal.apply_layers", blobs=len(blobs)) as sp:
+        detail = _apply_layers_impl(blobs)
+        sp.attrs.update(packages=len(detail.packages),
+                        applications=len(detail.applications))
+        return detail
+
+
+def _apply_layers_impl(blobs: list[T.BlobInfo]) -> T.ArtifactDetail:
     detail = T.ArtifactDetail()
     pkg_files: dict[str, tuple[T.PackageInfo, T.Layer]] = {}
     app_files: dict[str, tuple[T.Application, T.Layer]] = {}

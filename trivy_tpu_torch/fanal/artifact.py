@@ -25,6 +25,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .. import types as T
+from ..obs import span
 from .analyzers import AnalyzerGroup
 from .cache import cache_key
 from .ingest import partial_blob_id
@@ -97,6 +98,16 @@ class _ImageInspectMixin(_Artifact):
         from .pipeline import default_ingest
         return self.ingest or default_ingest()
 
+    def _missing_blobs(self, artifact_id: str, blob_ids: list):
+        """The cache check, spanned with its hits and misses: a hit
+        skips a layer's walk altogether."""
+        with span("fanal.cache_check", blobs=len(blob_ids)) as sp:
+            missing_artifact, missing = self.cache.missing_blobs(
+                artifact_id, blob_ids)
+            sp.attrs.update(hits=len(blob_ids) - len(missing),
+                            misses=len(missing))
+            return missing_artifact, missing
+
     def _walk_missing_layers(self, diff_ids, blob_ids, created_by,
                              missing, open_layer, layer_digests=None,
                              stream_open=None) -> None:
@@ -116,14 +127,22 @@ class _ImageInspectMixin(_Artifact):
             walked = self._walk_pipelined(ingest, tasks, stream_open)
         else:
             walked = []
-            for i, _diff_id, _blob_id, _cb in tasks:
-                with open_layer(i) as layer_tf:
+            for i, diff_id, _blob_id, _cb in tasks:
+                # one span per layer walk: layer sizes are skewed, and
+                # one fat layer can dominate the walk
+                with span("fanal.layer_walk", layer=i,
+                          diff_id=diff_id) as sp, \
+                        open_layer(i) as layer_tf:
                     walked.append(walk_layer_tar(
                         layer_tf, self.group,
                         collect_secrets=self.want_secrets,
                         skip_files=self.skip_files,
                         skip_dir_globs=self.skip_dir_globs,
                         secret_config_path=self.secret_config_path))
+                    sp.attrs.update(
+                        packages=sum(len(p.packages) for p in
+                                     walked[-1].result.package_infos),
+                        applications=len(walked[-1].result.applications))
             self.ingest_figures = {"pipelined": False,
                                    "layers_walked": len(tasks)}
         finalized = []
@@ -154,10 +173,13 @@ class _ImageInspectMixin(_Artifact):
             secret_config_path=self.secret_config_path,
             skip_files=self.skip_files, skip_dir_globs=self.skip_dir_globs)
         try:
-            scans = pipe.run([LayerTask(
-                idx=i, diff_id=diff_id, blob_id=blob_id, created_by=cb,
-                open_stream=(lambda i=i: stream_open(i)))
-                for i, diff_id, blob_id, cb in tasks])
+            with span("fanal.pipeline", layers=len(tasks)) as sp:
+                scans = pipe.run([LayerTask(
+                    idx=i, diff_id=diff_id, blob_id=blob_id, created_by=cb,
+                    open_stream=(lambda i=i: stream_open(i)))
+                    for i, diff_id, blob_id, cb in tasks])
+                sp.attrs.update(partial=sum(
+                    1 for s in scans.values() if s.partial))
         except IngestIntegrityError as e:
             raise (e.__cause__ or e) from None
         finally:
@@ -239,7 +261,7 @@ class ImageArchiveArtifact(_ImageInspectMixin):
         image_id = "sha256:" + hashlib.sha256(
             json.dumps(config, sort_keys=True).encode()).hexdigest()
         artifact_id, blob_ids = self._image_keys(image_id, diff_ids)
-        missing_artifact, missing = self.cache.missing_blobs(
+        missing_artifact, missing = self._missing_blobs(
             artifact_id, blob_ids)
         self._walk_missing_layers(
             diff_ids, blob_ids, self._created_by(config, diff_ids),
@@ -268,7 +290,7 @@ class ImageArchiveArtifact(_ImageInspectMixin):
         diff_ids = config.get("rootfs", {}).get("diff_ids", [])
         image_id = manifest["config"]["digest"]
         artifact_id, blob_ids = self._image_keys(image_id, diff_ids)
-        missing_artifact, missing = self.cache.missing_blobs(
+        missing_artifact, missing = self._missing_blobs(
             artifact_id, blob_ids)
         layer_digests = [ld["digest"] for ld in manifest["layers"]]
         self._walk_missing_layers(
@@ -328,7 +350,7 @@ class RegistryArtifact(_ImageInspectMixin):
         layers = man.get("layers", [])
         image_id = man["config"]["digest"]
         artifact_id, blob_ids = self._image_keys(image_id, diff_ids)
-        missing_artifact, missing = self.cache.missing_blobs(
+        missing_artifact, missing = self._missing_blobs(
             artifact_id, blob_ids)
 
         @contextlib.contextmanager

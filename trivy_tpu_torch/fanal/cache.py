@@ -12,16 +12,16 @@ from __future__ import annotations
 
 import hashlib
 import json
-import logging
 import os
 import tempfile
 from typing import Optional
 
 from .. import types as T
+from ..log import get as _get_logger
 
 SCHEMA_VERSION = 2
 
-log = logging.getLogger(__name__)
+log = _get_logger("fanal.cache")
 
 
 def open_cache(backend: str, cache_dir: str = ""):
@@ -142,7 +142,11 @@ class FSCache(MemoryCache):
 
     def get_blob(self, blob_id):
         j = self._read_json(self._path("blob", blob_id))
-        return blob_from_json(j) if j is not None else None
+        if j is None:
+            return None
+        from ..metrics import METRICS
+        METRICS.inc("trivy_tpu_fleet_cache_hits_total", backend="fs")
+        return blob_from_json(j)
 
 
 # --- JSON → dataclass decoding (cache round trip) ---

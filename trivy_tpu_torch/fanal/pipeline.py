@@ -31,10 +31,13 @@ their missing layers here instead of one by one:
 
 The watchdog and the closed/open/half-open breakers live in this module
 with the JAX package's threshold (3 failures), reset time (5 s) and
-annotation kinds. The JAX package's general resilience layer, its
-failpoints, metrics and cost ledger are not ported. The tenant shares
-(`tenant_walker_share`, `tenant_byte_share`) bind only for work run
-under a tenant (`TENANT`); every CLI walk is untenanted.
+annotation kinds. The JAX package's general resilience layer and its
+failpoints are not ported; its ingest series (walker occupancy, the
+in-flight bytes, the analyzer depth, budget trips and partial scans),
+its `fanal.layer_walk` span and its per-layer ingest cost charge are.
+The tenant shares (`tenant_walker_share`, `tenant_byte_share`) bind
+only for work run under a server request's cost ledger (its tenant);
+every CLI walk is untenanted.
 """
 
 from __future__ import annotations
@@ -44,7 +47,6 @@ import contextlib
 import contextvars
 import gzip
 import io
-import logging
 import tarfile
 import threading
 import time
@@ -53,12 +55,16 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
 from concurrent.futures import wait as _fut_wait
 from dataclasses import dataclass
 
+from ..log import get as _get_logger
+from ..metrics import METRICS
+from ..obs import cost as _cost
+from ..obs import span
 from .analyzers import AnalysisResult, AnalyzerGroup
 from .ingest import ingest_error
 from .walker import (DEFAULT_SECRET_CONFIG, BlobScan, classify_member,
                      looks_binary, normalize_skip_globs)
 
-_log = logging.getLogger(__name__)
+_log = _get_logger("fanal.pipeline")
 
 
 @dataclass
@@ -309,6 +315,8 @@ class IngestSupervisor:
     def __init__(self):
         self._breakers = {s: _Breaker(s) for s in self.STAGES}
         self.watchdog = _Watchdog()
+        self._lock = threading.Lock()
+        self._busy = 0
 
     def breaker(self, stage: str) -> _Breaker:
         return self._breakers[stage]
@@ -321,21 +329,37 @@ class IngestSupervisor:
             if reset_timeout_s is not None:
                 br.reset_timeout_s = reset_timeout_s
 
+    def walker_busy(self, delta: int) -> None:
+        """Walker-pool occupancy (trivy_tpu_ingest_walker_busy)."""
+        with self._lock:
+            self._busy += delta
+            busy = self._busy
+        METRICS.set_gauge("trivy_tpu_ingest_walker_busy", float(busy))
+
+    def status(self) -> dict:
+        """→ /healthz's `resilience.ingest` block: each stage's breaker
+        and the walkers busy."""
+        with self._lock:
+            busy = self._busy
+        return {"breakers": {s: self._breakers[s].state_name()
+                             for s in self.STAGES},
+                "busy_walkers": busy}
+
     def reset_for_tests(self) -> None:
         for br in self._breakers.values():
             br.reset()
+        with self._lock:
+            self._busy = 0
 
 
 INGEST = IngestSupervisor()
 
-# the tenant of the work in this context (None: untenanted, exempt from
-# the tenant shares); set by a caller that serves tenants
-TENANT: contextvars.ContextVar = contextvars.ContextVar(
-    "ingest_tenant", default=None)
-
-
 def _qos_tenant():
-    label = TENANT.get()
+    """The clamped tenant label of the request this work serves (its
+    cost ledger, obs/cost.py); None, exempt from the tenant shares, for
+    untenanted and system work (every CLI walk)."""
+    led = _cost.active()
+    label = _cost.TENANTS.resolve(led.tenant) if led is not None else None
     return None if label in (None, "system") else label
 
 
@@ -410,6 +434,8 @@ class _ByteBudget:
             if cap:
                 self._t_bytes[tenant] = self._t_bytes.get(tenant, 0) + n
             self.high_water = max(self.high_water, self._bytes)
+            held = self._bytes
+        METRICS.set_gauge("trivy_tpu_ingest_inflight_bytes", float(held))
         return True
 
     def release(self, n: int) -> None:
@@ -427,7 +453,9 @@ class _ByteBudget:
                     self._t_bytes[tenant] = cur
                 else:
                     self._t_bytes.pop(tenant, None)
+            held = self._bytes
             self._cv.notify_all()
+        METRICS.set_gauge("trivy_tpu_ingest_inflight_bytes", float(held))
 
 
 class _SpoolWindow:
@@ -872,6 +900,11 @@ class IngestPipeline:
                     _log.exception("ingest: layer %d walk raised", t.idx)
                     out[t.idx] = self._partial(
                         t, "walk", "internal", f"{type(e).__name__}: {e}")
+        # counted once per layer returned: an abandoned walker that
+        # finishes later does not count its layer again
+        for t in tasks:
+            if t.idx in out and out[t.idx].partial:
+                METRICS.inc("trivy_tpu_ingest_partial_scans_total")
         return out
 
     def _acquire_walker_slot(self, tenant: str, cap: int,
@@ -917,29 +950,43 @@ class IngestPipeline:
                 layer=task.idx))
         else:
             self.walker_threads.add(threading.current_thread().name)
+            INGEST.walker_busy(+1)
             st = _LayerState()
             deadline = Deadline(opts.layer_deadline_ms / 1e3)
+            t_walk = time.perf_counter()
             try:
-                try:
-                    with INGEST.watchdog.watch(opts.watch_timeout_s(),
-                                               br) as tok:
-                        self._stream_layer(task, scan, st, deadline, tok)
-                except StageTimeout:
-                    scan.errors.append(ingest_error(
-                        "walk", "timeout",
-                        "layer walk outlived the ingest watchdog "
-                        "deadline", layer=task.idx))
-                except StageError as e:
-                    cause = e.__cause__ or e
-                    scan.errors.append(ingest_error(
-                        "walk", "error", f"{type(cause).__name__}: {cause}",
-                        layer=task.idx))
-                # the spooled chunks died with the layer stream: give
-                # their window back before the analyzer drain
-                self.spool.release(st)
-                self._collect(task, scan, st)
+                with span("fanal.layer_walk", layer=task.idx,
+                          diff_id=task.diff_id, pipelined=True) as sp:
+                    try:
+                        with INGEST.watchdog.watch(opts.watch_timeout_s(),
+                                                   br) as tok:
+                            self._stream_layer(task, scan, st, deadline,
+                                               tok)
+                    except StageTimeout:
+                        scan.errors.append(ingest_error(
+                            "walk", "timeout",
+                            "layer walk outlived the ingest watchdog "
+                            "deadline", layer=task.idx))
+                    except StageError as e:
+                        cause = e.__cause__ or e
+                        scan.errors.append(ingest_error(
+                            "walk", "error",
+                            f"{type(cause).__name__}: {cause}",
+                            layer=task.idx))
+                    # the spooled chunks died with the layer stream:
+                    # give their window back before the analyzer drain
+                    self.spool.release(st)
+                    self._collect(task, scan, st)
+                    sp.attrs.update(partial=bool(scan.errors),
+                                    members=st.members,
+                                    read_bytes=st.layer_bytes)
             finally:
+                INGEST.walker_busy(-1)
                 self.spool.release(st)
+                # one layer's ingest bill: the bytes read and the
+                # walker's wall ms, on the requesting tenant's ledger
+                _cost.charge_ingest(float(st.layer_bytes),
+                                    (time.perf_counter() - t_walk) * 1e3)
             if st.integrity_error is not None:
                 # raised outside the watch, so content integrity (the
                 # input's fault) never charges the walk breaker
@@ -1032,6 +1079,8 @@ class IngestPipeline:
                         continue
                     size = member.size
                     if size > opts.max_file_bytes:
+                        METRICS.inc("trivy_tpu_ingest_budget_trips_total",
+                                    kind="budget.file_bytes")
                         scan.errors.append(ingest_error(
                             "walk", "budget.file_bytes",
                             f"{size} bytes exceeds "
@@ -1092,6 +1141,8 @@ class IngestPipeline:
                         # analysis window is over for these bytes
                         self.budget.release(size)
             except IngestBudgetTrip as trip:
+                METRICS.inc("trivy_tpu_ingest_budget_trips_total",
+                            kind=trip.kind)
                 scan.errors.append(ingest_error(
                     "walk", trip.kind, trip.detail, layer=task.idx))
             except _HOSTILE_INPUT_ERRORS as e:
@@ -1121,10 +1172,12 @@ class IngestPipeline:
                       batch: list) -> None:
         ctx = contextvars.copy_context()
         items = list(batch)
+        METRICS.gauge_add("trivy_tpu_ingest_analyze_depth", 1.0)
         try:
             fut = self._an_pool.submit(ctx.run, self._analyze_batch,
                                        task, items)
         except RuntimeError as e:
+            METRICS.gauge_add("trivy_tpu_ingest_analyze_depth", -1.0)
             # "cannot schedule new futures after shutdown": close() raced
             # this walker. The batch never runs, so release its budget
             # here, and empty it so the caller's finally cannot resubmit
@@ -1141,6 +1194,7 @@ class IngestPipeline:
         br = INGEST.breaker("analyze")
         results: dict = {}
         errors: list = []
+        t_batch = time.perf_counter()
         try:
             if not br.allow():
                 errors.append(ingest_error(
@@ -1178,6 +1232,10 @@ class IngestPipeline:
         finally:
             for _seq, _p, _c, sz in items:
                 self.budget.release(sz)
+            METRICS.gauge_add("trivy_tpu_ingest_analyze_depth", -1.0)
+            # the analyzers' wall ms joins the layer's ingest bill (its
+            # bytes were charged at the walk)
+            _cost.charge_ingest(0.0, (time.perf_counter() - t_batch) * 1e3)
             self._note_progress()
 
     # ---- layer finalize ------------------------------------------------

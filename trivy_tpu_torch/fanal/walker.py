@@ -120,6 +120,21 @@ def walk_layer_tar(tf: tarfile.TarFile, group: AnalyzerGroup,
                    skip_dir_globs: tuple = (),
                    secret_config_path: str = DEFAULT_SECRET_CONFIG
                    ) -> BlobScan:
+    """_walk_layer_tar_impl under its `fanal.walk_tar` span."""
+    from ..obs import span
+    with span("fanal.walk_tar") as sp:
+        scan = _walk_layer_tar_impl(tf, group, collect_secrets,
+                                    skip_files, skip_dir_globs,
+                                    secret_config_path)
+        sp.attrs.update(secret_files=len(scan.secret_files),
+                        post_files=len(scan.post_files))
+        return scan
+
+
+def _walk_layer_tar_impl(tf: tarfile.TarFile, group: AnalyzerGroup,
+                         collect_secrets: bool, skip_files: tuple,
+                         skip_dir_globs: tuple,
+                         secret_config_path: str) -> BlobScan:
     """Walk one layer's tar in archive order. --skip-files/--skip-dirs
     apply to layers too (reference walker.go CleanSkipPaths)."""
     skip_files = normalize_skip_globs(skip_files)
@@ -208,6 +223,21 @@ def walk_fs(root: str, group: AnalyzerGroup,
             secret_config_path: str = DEFAULT_SECRET_CONFIG,
             skip_files: tuple = (), skip_dir_globs: tuple = (),
             file_checksum: bool = False) -> BlobScan:
+    """_walk_fs_impl under its `fanal.walk_fs` span (the walk is serial:
+    `--parallel` is not ported, ROADMAP A18)."""
+    from ..obs import span
+    with span("fanal.walk_fs", parallel=1) as sp:
+        scan = _walk_fs_impl(root, group, collect_secrets,
+                             secret_config_path, skip_files,
+                             skip_dir_globs, file_checksum)
+        sp.attrs.update(secret_files=len(scan.secret_files),
+                        post_files=len(scan.post_files))
+        return scan
+
+
+def _walk_fs_impl(root: str, group: AnalyzerGroup, collect_secrets: bool,
+                  secret_config_path: str, skip_files: tuple,
+                  skip_dir_globs: tuple, file_checksum: bool) -> BlobScan:
     """Walk a directory tree through the analyzers; per-file results
     merge in sorted path order so the output is deterministic. The skip
     globs match root-relative paths; the walk-relative

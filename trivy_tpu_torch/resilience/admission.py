@@ -16,9 +16,9 @@ armed no tenant may hold more than max_queue - max(1, max_queue/4)
 queued slots. The Retry-After hint follows the queue's observed drain
 rate, floored at 1 s. Label "system" (and tenant=None) is exempt.
 
-Follows the JAX package's resilience/admission.py, without its metrics
-and its quota failpoint; `Deadline` is copied alone from its
-resilience/breaker.py.
+Follows the JAX package's resilience/admission.py, its shed, queue
+depth and tenant quota series included, without its quota failpoint;
+`Deadline` is copied alone from its resilience/breaker.py.
 """
 
 from __future__ import annotations
@@ -27,6 +27,17 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
+
+from ..metrics import METRICS
+
+# shed reason → the trivy_tpu_tenant_qos_sheds_total reason label
+_SHED_SLUG = {
+    "queue overflow": "queue_overflow",
+    "tenant queue overflow": "tenant_queue",
+    "tenant rate limited": "tenant_rate",
+    "deadline exceeded in queue": "deadline",
+    "queue wait budget exhausted": "budget",
+}
 
 # quota state stays bounded even if a caller skips the label clamp:
 # past this many distinct labels, new tenants share "other"
@@ -223,9 +234,18 @@ class AdmissionQueue:
 
     def _shed(self, reason: str, tenant: str | None = None,
               retry_after_s: float | None = None) -> Shed:
+        METRICS.inc("trivy_tpu_requests_shed_total")
+        if tenant is not None:
+            METRICS.inc("trivy_tpu_tenant_qos_sheds_total", tenant=tenant,
+                        reason=_SHED_SLUG.get(reason, "other"))
         if retry_after_s is None:
             retry_after_s = self._retry_after(tenant)
         return Shed(reason, 429, max(1.0, retry_after_s))
+
+    @staticmethod
+    def _quota_depth(label: str, ts: _TenantState) -> None:
+        METRICS.set_gauge("trivy_tpu_tenant_qos_quota_depth",
+                          float(ts.queued), tenant=label)
 
     def _blocked(self, ts: _TenantState | None) -> bool:
         if (self.opts.max_active > 0
@@ -271,6 +291,9 @@ class AdmissionQueue:
             self._queued += 1
             if ts is not None:
                 ts.queued += 1
+                self._quota_depth(tenant, ts)
+            METRICS.set_gauge("trivy_tpu_admission_queue_depth",
+                              float(self._queued))
             try:
                 while self._blocked(ts):
                     left = budget.remaining()
@@ -298,6 +321,9 @@ class AdmissionQueue:
                 self._queued -= 1
                 if ts is not None:
                     ts.queued -= 1
+                    self._quota_depth(tenant, ts)
+                METRICS.set_gauge("trivy_tpu_admission_queue_depth",
+                                  float(self._queued))
 
     def release(self, tenant: str | None = None) -> None:
         with self._cv:

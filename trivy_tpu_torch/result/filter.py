@@ -5,15 +5,15 @@ port's copy of the JAX package's result/filter.py."""
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass, field
 from typing import Optional
 
 from .. import types as T
 from ..iac import rego
+from ..log import get as _get_logger
 from .ignore import IgnoreFile
 
-log = logging.getLogger(__name__)
+log = _get_logger("result.filter")
 
 
 @dataclass

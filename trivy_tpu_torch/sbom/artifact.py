@@ -17,10 +17,10 @@ path behind it is the one every scan takes.
                     canonical key stays missing. `inspect()` never
                     raises on the document's content.
 
-This is the port's copy of the JAX package's module without its
-supervision: no parse watchdog, no parse breaker, no failpoints, no
-metrics and no cost accounting, which the port does not carry (the
-breaker and failpoints by its design, ROADMAP "not ported"). So the
+This is the port's copy of the JAX package's module, with its
+trivy_tpu_sbom_* series and its parse-time cost charge, without its
+supervision: no parse watchdog, no parse breaker and no failpoints,
+which the port does not carry by design (ROADMAP "not ported"). So the
 `timeout`, `error` and `breaker_open` annotations of the JAX package
 cannot arise here; every input fault gives the same annotations and the
 same salted id as there.
@@ -30,9 +30,12 @@ from __future__ import annotations
 
 import hashlib
 import json
+import time
 from dataclasses import dataclass
 
 from .. import types as T
+from ..metrics import METRICS
+from ..obs import cost as _cost
 from ..fanal.cache import cache_key
 from ..fanal.ingest import ingest_error, partial_blob_id
 
@@ -204,12 +207,22 @@ class SBOMArtifact:
         from ..fanal.artifact import ArtifactReference
 
         errors: list = []
+        t0 = time.perf_counter()
         blob = self._decode(errors)
+        ms = (time.perf_counter() - t0) * 1e3
+        _cost.charge_sbom_parse(ms)
+        METRICS.inc("trivy_tpu_sbom_docs_total",
+                    format=self.format or "unknown")
+        METRICS.inc("trivy_tpu_sbom_parse_seconds_total", ms / 1e3)
+        METRICS.inc("trivy_tpu_sbom_components_total", float(
+            sum(len(pi.packages) for pi in blob.package_infos)
+            + sum(len(app.packages) for app in blob.applications)))
         blob.diff_id = self.digest
         if errors:
             blob.ingest_errors = errors
         blob_id = cache_key(self.digest, DECODER_VERSIONS, {})
         if errors:
+            METRICS.inc("trivy_tpu_sbom_partial_total")
             blob_id = partial_blob_id(blob_id, errors)
         self.cache.put_blob(blob_id, blob)
         self.cache.put_artifact(blob_id, {"SchemaVersion": 2})

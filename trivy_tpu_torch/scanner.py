@@ -10,7 +10,12 @@ Given SchedOptions (the server passes them), detection goes through
 detectd instead, so concurrent scans' batches merge into shared
 launches. Then come the results that need no join: the ingest degradations, the
 misconfigurations, the secrets and, under the license scanner, the
-license results."""
+license results.
+
+Each scan_many call runs under one trace (unless the server already
+stamped a per-RPC one) with the JAX package's spans: `scan`, and under
+it `scan.apply_layers`, `scan.build_queries`, `scan.detect` and
+`scan.assemble_results`."""
 
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from .detect.langpkg import LangpkgScanner
 from .detect.ospkg import OspkgScanner
 from .fanal.applier import apply_layers
 from .licensing import scan_license_name
+from .obs import ensure_trace, span
 
 if TYPE_CHECKING:
     from .detect.sched import SchedOptions
@@ -69,54 +75,73 @@ class LocalScanner:
                   now: Optional[dt.datetime] = None
                   ) -> list[tuple[list[T.Result], T.OS]]:
         """Scan many targets with one detect_many call over all their
-        query batches."""
+        query batches, under one trace."""
+        with ensure_trace(), span("scan", targets=len(items)):
+            return self._scan_many_traced(items, options, now)
+
+    def _scan_many_traced(self, items, options, now):
         options = options or T.ScanOptions()
         details = []
-        for _target, artifact_id, blob_ids in items:
-            blobs = []
-            for bid in blob_ids:
-                blob = self.cache.get_blob(bid)
-                if blob is None:
-                    raise KeyError(f"missing blob {bid} in cache "
-                                   f"(artifact {artifact_id})")
-                blobs.append(blob)
-            detail = apply_layers(blobs)
-            # OS-independent packages without a detected OS report
-            # Family "none" (reference local/scan.go:66-71)
-            if not detail.os.detected and detail.packages:
-                detail.os = T.OS(family=T.OSFamily.NONE)
-            # dev dependencies are removed unless --include-dev-deps
-            # (reference local/scan.go:109-111 excludeDevDeps)
-            if not options.include_dev_deps:
-                for app in detail.applications:
-                    app.packages = [p for p in app.packages if not p.dev]
-            details.append(detail)
+        with span("scan.apply_layers", targets=len(items)):
+            for _target, artifact_id, blob_ids in items:
+                blobs = []
+                for bid in blob_ids:
+                    blob = self.cache.get_blob(bid)
+                    if blob is None:
+                        raise KeyError(f"missing blob {bid} in cache "
+                                       f"(artifact {artifact_id})")
+                    blobs.append(blob)
+                detail = apply_layers(blobs)
+                # OS-independent packages without a detected OS report
+                # Family "none" (reference local/scan.go:66-71)
+                if not detail.os.detected and detail.packages:
+                    detail.os = T.OS(family=T.OSFamily.NONE)
+                # dev dependencies are removed unless --include-dev-deps
+                # (reference local/scan.go:109-111 excludeDevDeps)
+                if not options.include_dev_deps:
+                    for app in detail.applications:
+                        app.packages = [p for p in app.packages
+                                        if not p.dev]
+                details.append(detail)
 
         # phase 1: every query batch (host)
         units = []    # (item index, "os" | app, finish)
         batches = []
-        if T.Scanner.VULN in options.scanners:
-            for idx, detail in enumerate(details):
-                if detail.os.detected and "os" in options.pkg_types:
-                    qs, fin = self.ospkg.prepare(
-                        detail.os, detail.repository, detail.packages,
-                        now=now)
-                    if fin is not None:  # family supported
-                        units.append((idx, "os", fin))
-                        batches.append(qs)
-                if "library" in options.pkg_types:
-                    for app in sorted(detail.applications,
-                                      key=lambda a: (a.file_path, a.type)):
-                        qs, fin = self.langpkg.prepare_app(app)
-                        units.append((idx, app, fin))
-                        batches.append(qs)
+        with span("scan.build_queries") as sp:
+            if T.Scanner.VULN in options.scanners:
+                for idx, detail in enumerate(details):
+                    if detail.os.detected and "os" in options.pkg_types:
+                        qs, fin = self.ospkg.prepare(
+                            detail.os, detail.repository,
+                            detail.packages, now=now)
+                        if fin is not None:  # family supported
+                            units.append((idx, "os", fin))
+                            batches.append(qs)
+                    if "library" in options.pkg_types:
+                        for app in sorted(detail.applications,
+                                          key=lambda a: (a.file_path,
+                                                         a.type)):
+                            qs, fin = self.langpkg.prepare_app(app)
+                            units.append((idx, app, fin))
+                            batches.append(qs)
+            sp.attrs.update(batches=len(batches),
+                            queries=sum(len(b) for b in batches))
 
         # phase 2: one detect_many over every batch (device), through
         # detectd when the owner turned it on
-        detect = self.sched or self.detector
-        hit_lists = detect.detect_many(batches) if batches else []
+        hit_lists = []
+        if batches:
+            with span("scan.detect", batches=len(batches)):
+                detect = self.sched or self.detector
+                hit_lists = detect.detect_many(batches)
 
         # phase 3: per-target results (host)
+        with span("scan.assemble_results"):
+            return self._assemble_results(items, options, details, units,
+                                          hit_lists)
+
+    def _assemble_results(self, items, options, details, units,
+                          hit_lists):
         vuln_results: dict[int, list[T.Result]] = {}
         for (idx, unit, finish), hits in zip(units, hit_lists):
             target = items[idx][0]

@@ -20,12 +20,21 @@ The prefilter takes one of three paths, counted per scanner in
          (2 MiB): a device launch cannot pay for itself there. This is
          the routing policy of the JAX package, not a fallback: a
          kernel that fails to build or launch raises.
+
+Instrumented as the JAX package's engine is: `secret.prefilter` and
+`secret.confirm` spans, the trivy_tpu_secret_* series (the prefilter
+path label takes the values above), the dispatch ledger's "secret" rows
+(the first launch of a (rows, chunk_len) shape is its "compile"), the
+bank's resident bytes, and device ms / transfer bytes / scanned bytes
+charged to the request's cost ledger.
 """
 
 from __future__ import annotations
 
 import hashlib
 import re
+import threading
+import time
 from collections import Counter
 from typing import Optional
 
@@ -34,6 +43,10 @@ import torch
 
 from .. import types as T
 from ..device import resolve_device
+from ..metrics import METRICS
+from ..obs import cost as _cost
+from ..obs import note_dispatch, span
+from ..obs.perf import LEDGER, ndarray_bytes
 from ..ops import ac, next_pow2
 from ..ops import shiftor as so
 from .rules import BUILTIN_RULES, GLOBAL_ALLOW_RULES, Rule
@@ -81,6 +94,14 @@ class SecretScanner:
         self._bank = ac.build_literal_bank(self._keywords) \
             if self._keywords else None
         self._bank_dev = None   # the bank on self.device, uploaded once
+        # launch shapes (rows, chunk_len) met so far: the ledger's
+        # first-of-shape "compile"
+        self._shape_lock = threading.Lock()
+        self._seen_shapes: set = set()
+        if self._bank is not None:
+            LEDGER.note_resident(
+                "secret_bank", ndarray_bytes(self._bank.kw_words,
+                                             self._bank.kw_masks))
 
     # --- keyword prefilter ---
 
@@ -95,7 +116,17 @@ class SecretScanner:
         else:
             out, path = self._keyword_masks_host(files), "host"
         self.prefilter_path[path] += 1
+        self._note_path(path, total)
         return out
+
+    @staticmethod
+    def _note_path(path: str, n_bytes: int) -> None:
+        METRICS.inc("trivy_tpu_secret_prefilter_path_total", path=path)
+        METRICS.inc("trivy_tpu_secret_scan_bytes_total", n_bytes,
+                    path=path)
+        # the scanned bytes, billed to the requesting tenant by the
+        # path that served them
+        _cost.charge_secret_bytes(path, float(n_bytes))
 
     def _keyword_masks_host(self, files: list[bytes]) -> list[set[int]]:
         out = []
@@ -146,16 +177,32 @@ class SecretScanner:
         uniq = chunks[np.asarray(uniq_rows)] \
             if len(uniq_rows) < chunks.shape[0] else chunks
         arrays, index = self._bank_arrays()
+        site = "secret"
         pieces = []
         for off in range(0, uniq.shape[0], DEVICE_ROWS):
             piece = uniq[off:off + DEVICE_ROWS]
-            b = next_pow2(piece.shape[0], floor=64)
-            padded = np.zeros((b, piece.shape[1]), np.uint8)
-            padded[:piece.shape[0]] = piece
+            real_rows, row_len = int(piece.shape[0]), int(piece.shape[1])
+            b = next_pow2(real_rows, floor=64)
+            with self._shape_lock:
+                new_shape = (b, row_len) not in self._seen_shapes
+                self._seen_shapes.add((b, row_len))
+            t0 = time.perf_counter()
+            padded = np.zeros((b, row_len), np.uint8)
+            padded[:real_rows] = piece
             dev_piece = torch.from_numpy(padded).to(self.device)
             pieces.append(so.shiftor(*arrays, dev_piece, n_words=bank.words,
                                      index=index))
-        masks = torch.cat(pieces).cpu().numpy()[:uniq.shape[0]][remap]
+            launch_ms = (time.perf_counter() - t0) * 1e3
+            if new_shape:
+                LEDGER.note_compile(site, b, 0, launch_ms)
+            LEDGER.note_dispatch(site, real_rows, b, row_bytes=row_len)
+            _cost.charge_device_ms(site, launch_ms)
+        note_dispatch(self.device)
+        t_get = time.perf_counter()
+        fetched = torch.cat(pieces).cpu().numpy()
+        _cost.charge_device_ms(site, (time.perf_counter() - t_get) * 1e3)
+        _cost.ledgered_transfer("dense", float(fetched.nbytes))
+        masks = fetched[:uniq.shape[0]][remap]
         # decode the exact bitmask: a set bit means the full keyword
         # occurs in that chunk row, so file hits are direct unions
         u8 = np.ascontiguousarray(masks.astype(np.uint32)).view(np.uint8)
@@ -181,20 +228,42 @@ class SecretScanner:
         scan_files calls (the prefilter is exact either way; only the
         device launch is shared)."""
         files = [fc for batch in batches for fc in batch]
-        masks = self._keyword_masks([c for _, c in files])
+        contents = [c for _, c in files]
+        n_bytes = sum(len(c) for c in contents)
+        with span("secret.prefilter", files=len(files),
+                  batches=len(batches), bytes=n_bytes) as sp:
+            masks = self._keyword_masks(contents)
+            flagged = sum(len(m) for m in masks)
+            sp.attrs["candidates"] = flagged
         results: list[list[T.Secret]] = []
+        confirmed = 0
         it = iter(zip(files, masks))
-        for batch in batches:
-            out = []
-            for _ in batch:
-                (path, content), rule_idx = next(it)
-                sec = self.scan_file(
-                    path, content,
-                    candidate_rules=set(rule_idx)
-                    | set(self._no_keyword_rules))
-                if sec.findings:
-                    out.append(sec)
-            results.append(out)
+        with span("secret.confirm", files=len(files)) as sp:
+            for batch in batches:
+                out = []
+                for _ in batch:
+                    (path, content), rule_idx = next(it)
+                    gated = set(rule_idx)
+                    sec = self.scan_file(
+                        path, content,
+                        candidate_rules=gated
+                        | set(self._no_keyword_rules))
+                    if sec.findings:
+                        out.append(sec)
+                        hit_ids = {f.rule_id for f in sec.findings}
+                        confirmed += sum(1 for ri in gated
+                                         if self.rules[ri].id in hit_ids)
+                results.append(out)
+            n_findings = sum(len(s.findings) for out in results
+                             for s in out)
+            sp.attrs["findings"] = n_findings
+        if flagged:
+            # the regex yield of the keyword gate
+            METRICS.observe("trivy_tpu_secret_candidate_precision",
+                            confirmed / flagged)
+        METRICS.inc("trivy_tpu_secret_files_total", len(files))
+        METRICS.inc("trivy_tpu_secret_bytes_total", n_bytes)
+        METRICS.inc("trivy_tpu_secret_findings_total", n_findings)
         return results
 
     def scan_file(self, path: str, content: bytes,

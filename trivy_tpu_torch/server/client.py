@@ -6,9 +6,13 @@ to detect.
 Transient failures retry through RetryPolicy (full jitter, capped by a
 sleep budget); 429 and 503 sheds retry no sooner than their Retry-After.
 Each RPC carries its timeout as X-Trivy-Deadline-Ms, so the server
-never queues it past that. Speaks the JAX package's wire
-(trivy_tpu/server/client.py), JSON-encoded; its list of failover URLs
-belongs to the fleet (ROADMAP A12) and is not ported.
+never queues it past that. Each RPC also carries the active trace id
+(X-Trivy-Trace-Id) and span (X-Trivy-Parent-Span), so the server's
+spans and log lines join the client's trace; `scan` and `scan_sbom`
+run under a `client.scan` / `client.scan_sbom` span, and the response's
+X-Trivy-Cost document lands in `last_cost`. Speaks the JAX package's
+wire (trivy_tpu/server/client.py), JSON-encoded; its list of failover
+URLs belongs to the fleet (ROADMAP A12) and is not ported.
 """
 
 from __future__ import annotations
@@ -18,9 +22,12 @@ import urllib.error
 import urllib.request
 
 from .. import types as T
+from ..obs import current_span_id, current_trace_id, ensure_trace, span
+from ..obs.cost import parse_cost_header
 from ..report.writer import report_from_json
 from ..resilience.retry import RetryPolicy, http_should_retry
-from . import DEADLINE_HEADER, TENANT_HEADER, TOKEN_HEADER
+from . import (COST_HEADER, DEADLINE_HEADER, PARENT_SPAN_HEADER,
+               TENANT_HEADER, TOKEN_HEADER, TRACE_HEADER)
 
 DEFAULT_RETRY = RetryPolicy(attempts=3, base_delay_s=0.2, max_delay_s=2.0,
                             budget_s=15.0)
@@ -44,12 +51,18 @@ class _Base:
         self.retry = retry or DEFAULT_RETRY
         # X-Trivy-Tenant on every RPC; empty → the server's "default"
         self.tenant = tenant
+        # the X-Trivy-Cost document of the last answered RPC
+        self.last_cost: dict | None = None
 
     def _call(self, service: str, method: str, payload: dict) -> dict:
         body = json.dumps(payload).encode()
+        tid = current_trace_id()
+        psid = current_span_id()
         headers = {
             "Content-Type": "application/json",
             DEADLINE_HEADER: str(int(self.timeout * 1e3)),
+            **({TRACE_HEADER: tid} if tid else {}),
+            **({PARENT_SPAN_HEADER: psid} if tid and psid else {}),
             **({TOKEN_HEADER: self.token} if self.token else {}),
             **({TENANT_HEADER: self.tenant} if self.tenant else {}),
         }
@@ -59,7 +72,11 @@ class _Base:
             req = urllib.request.Request(url, data=body, method="POST",
                                          headers=headers)
             with urllib.request.urlopen(req, timeout=self.timeout) as r:
-                return json.loads(r.read() or b"{}")
+                result = json.loads(r.read() or b"{}")
+                raw_cost = r.headers.get(COST_HEADER)
+            if raw_cost:
+                self.last_cost = parse_cost_header(raw_cost)
+            return result
 
         try:
             return self.retry.call(attempt, should_retry=_SHOULD_RETRY)
@@ -112,13 +129,14 @@ class RemoteScanner(_Base):
 
     def scan(self, target: str, artifact_id: str, blob_ids: list,
              options: T.ScanOptions | None = None):
-        r = self._call(self.SERVICE, "Scan", {
-            "target": target,
-            "artifact_id": artifact_id,
-            "blob_ids": blob_ids,
-            "options": self._options_json(options or T.ScanOptions()),
-        })
-        return self._decode_response(r)
+        with ensure_trace(), span("client.scan", target=target):
+            r = self._call(self.SERVICE, "Scan", {
+                "target": target,
+                "artifact_id": artifact_id,
+                "blob_ids": blob_ids,
+                "options": self._options_json(options or T.ScanOptions()),
+            })
+            return self._decode_response(r)
 
     def scan_sbom(self, target: str, raw: bytes,
                   options: T.ScanOptions | None = None):
@@ -133,14 +151,16 @@ class RemoteScanner(_Base):
             kind = "cyclonedx"
         elif b"spdxVersion" in raw or b"SPDXVersion:" in raw:
             kind = "spdx"
-        r = self._call(self.SERVICE, "ScanSBOM", {
-            "target": target,
-            "artifact_id": doc_digest(raw),
-            "kind": kind,
-            "document": base64.b64encode(raw).decode(),
-            "options": self._options_json(options or T.ScanOptions()),
-        })
-        return self._decode_response(r)
+        with ensure_trace(), span("client.scan_sbom", target=target,
+                                  kind=kind):
+            r = self._call(self.SERVICE, "ScanSBOM", {
+                "target": target,
+                "artifact_id": doc_digest(raw),
+                "kind": kind,
+                "document": base64.b64encode(raw).decode(),
+                "options": self._options_json(options or T.ScanOptions()),
+            })
+            return self._decode_response(r)
 
     @staticmethod
     def _options_json(options: T.ScanOptions) -> dict:

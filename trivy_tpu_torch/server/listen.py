@@ -10,18 +10,26 @@ detectd merges concurrent requests' batches into shared join launches
 on the card.
 
 Answers equal the JAX package's server's (trivy_tpu/server/listen.py)
-on every route. Its /metrics and /debug/* pages are not ported
-(ROADMAP A17), nor the mesh, the memo, redetectd, the breaker and its
-recovery, or the trace recording.
+on every route, its observability surface included: every POST runs
+under a trace id (X-Trivy-Trace-Id, honored or minted, and
+X-Trivy-Parent-Span from the client) with a `server.rpc` root span and
+a request cost ledger (X-Trivy-Cost on the response); GET /metrics
+serves METRICS in the Prometheus text format; /debug/traces,
+/debug/incidents, /debug/perf, /debug/profile?ms=N and /debug/costs are
+gated by the token that gates the POST routes; `serve(trace_path=)`
+records a Chrome trace for the server's lifetime. Not ported: the mesh,
+the memo, redetectd, and the breaker and its recovery.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import queue
 import sys
 import threading
 import time
+from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -30,13 +38,25 @@ from .. import __version__
 from .. import types as T
 from ..detect.sched import SchedOptions
 from ..fanal.cache import blob_from_json, open_cache
-from ..obs.cost import current_label, normalize_tenant, request_tenant
+from ..log import get as _get_logger
+from ..metrics import METRICS
+from ..obs import PROF, SLO, device_status, new_trace, span
+from ..obs import cost as _cost
+from ..obs.device import note_device
+from ..obs.perf import Profiler, debug_perf_payload, debug_profile_payload
+from ..obs.recorder import debug_incidents_payload, debug_traces_payload
 from ..resilience import AdmissionQueue, Deadline, Shed
 from ..scanner import LocalScanner
-from . import (DB_VERSION_HEADER, DEADLINE_HEADER, ROUTE_DESCRIPTORS,
-               TENANT_HEADER, TOKEN_HEADER)
+from . import (COST_HEADER, DB_VERSION_HEADER, DEADLINE_HEADER,
+               PARENT_SPAN_HEADER, ROUTE_DESCRIPTORS, TENANT_HEADER,
+               TOKEN_HEADER, TRACE_HEADER)
 
-UNPORTED_PAGES = ("/metrics", "/debug/")
+_log = _get_logger("server")
+
+# the pages that carry scan detail (file paths in analyzer spans, other
+# tenants' trace ids) or cost (a live profile): gated by the token
+DEBUG_PAGES = ("/debug/traces", "/debug/incidents", "/debug/perf",
+               "/debug/profile", "/debug/costs")
 
 
 class LaunchRecord:
@@ -92,19 +112,6 @@ class LaunchRecord:
         return len(entries)
 
 
-def device_status(device) -> dict:
-    """/healthz's view of the card: its name and memory, or the CPU."""
-    import torch
-    if device.type != "cuda":
-        return {"platform": "cpu", "count": 0}
-    free, total = torch.cuda.mem_get_info(device)
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": torch.cuda.device_count(),
-            "memory": {"free_bytes": int(free), "total_bytes": int(total),
-                       "allocated_bytes":
-                           int(torch.cuda.memory_allocated(device))}}
-
-
 class ServerState:
     def __init__(self, table, cache_dir: str, token: str = "",
                  cache_backend: str = "fs", detect_opts=None,
@@ -143,6 +150,10 @@ class ServerState:
     def _new_scanner(self, table) -> LocalScanner:
         scanner = LocalScanner(self.cache, table, self.device,
                                sched=self.detect_opts)
+        # the identity /healthz names (never read from torch.cuda
+        # there), and the profiler's activities
+        self.device_name = note_device(scanner.detector.device)
+        PROF.configure(device=scanner.detector.device.type)
         if self.launch_record is not None and scanner.sched is not None:
             det = scanner.detector
             scanner.sched.record = \
@@ -265,16 +276,30 @@ class ServerState:
                          daemon=True).start()
 
     def healthz(self) -> dict:
-        """The JSON /healthz: status, the DB identity, the card, the
-        admission queue and what detectd's merged dispatches did."""
+        """The JSON /healthz: status, the DB identity, the cached device
+        view (obs/device.py: it never touches torch.cuda) and the card's
+        name read at start, the admission queue and the ingest breakers,
+        the SLO burn rates, the tenants' cost split and what detectd's
+        merged dispatches did."""
+        from ..fanal.pipeline import INGEST
         scanner = self.scanner
+        admission = self.admission.snapshot()
         return {
             "status": "draining" if self.draining else "ok",
             "db_version": self.db_version,
             "db_previous_version": self.db_previous_version,
             "db_swapped_at": self.db_swapped_at,
-            "device": device_status(scanner.detector.device),
-            "resilience": {"admission": self.admission.snapshot()},
+            "device": device_status(),
+            "device_name": self.device_name,
+            "resilience": {"admission": admission,
+                           "ingest": INGEST.status()},
+            "slo": SLO.export(),
+            "tenants": {
+                **_cost.TENANTS.healthz_block(),
+                "qos": {"quotas": admission.get("tenant_quotas"),
+                        "admission": admission.get("tenants", {}),
+                        "burn_rates": SLO.tenant_burn_rates()},
+            },
             "detectd": dict(scanner.sched.stats)
             if scanner.sched is not None else None,
         }
@@ -289,6 +314,7 @@ class ScanServer(ThreadingHTTPServer):
 class Handler(BaseHTTPRequestHandler):
     state: ServerState = None  # set per server by serve()
     protocol_version = "HTTP/1.1"
+    _trace_id = ""    # per request; set by do_POST
     _db_version = ""  # stamped on Scan responses only
     _is_proto = False
 
@@ -300,8 +326,15 @@ class Handler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
+        if self._trace_id:
+            self.send_header(TRACE_HEADER, self._trace_id)
         if self._db_version:
             self.send_header(DB_VERSION_HEADER, self._db_version)
+        # the request's cost split rides every response made inside a
+        # request ledger (do_POST installs one; GET pages have none)
+        led = _cost.active()
+        if led is not None:
+            self.send_header(COST_HEADER, led.header_json())
         for k, v in (headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
@@ -324,6 +357,9 @@ class Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         st = self.state
+        # a probe on a keep-alive connection must not echo the trace id
+        # a previous POST stamped on this handler
+        self._trace_id = ""
         self._db_version = ""
         gen = st.request_started()
         try:
@@ -332,6 +368,21 @@ class Handler(BaseHTTPRequestHandler):
             st.request_finished(gen)
 
     def _do_get(self):
+        if self.path.startswith(DEBUG_PAGES):
+            if self.state.token and \
+                    self.headers.get(TOKEN_HEADER) != self.state.token:
+                return self._twirp_error(401, "unauthenticated",
+                                         "invalid token")
+            if self.path.startswith("/debug/traces"):
+                return self._json(200, debug_traces_payload(self.path))
+            if self.path.startswith("/debug/perf"):
+                return self._json(200, debug_perf_payload())
+            if self.path.startswith("/debug/profile"):
+                code, payload = debug_profile_payload(self.path)
+                return self._json(code, payload)
+            if self.path.startswith("/debug/costs"):
+                return self._json(200, _cost.debug_costs_payload())
+            return self._json(200, debug_incidents_payload())
         if self.path == "/healthz":
             # `Accept: text/plain` keeps the byte-exact probe answer
             if "text/plain" in (self.headers.get("Accept") or ""):
@@ -339,22 +390,35 @@ class Handler(BaseHTTPRequestHandler):
             return self._json(200, self.state.healthz())
         if self.path == "/version":
             return self._json(200, {"Version": __version__})
-        if self.path.startswith(UNPORTED_PAGES):
-            return self._twirp_error(
-                404, "not_found", f"{self.path}: the metrics and debug "
-                "pages are not ported yet (ROADMAP A17)")
+        if self.path == "/metrics":
+            # the burn-rate gauges are window functions of the SLO
+            # event store: recomputed at scrape time
+            SLO.export()
+            return self._send(200, METRICS.render().encode(),
+                              "text/plain; version=0.0.4")
         self._twirp_error(404, "not_found", self.path)
 
     def do_POST(self):
         st = self.state
         self._db_version = ""
         gen = st.request_started()
-        # the raw header is the client's to choose: it is clamped here,
-        # before it can key a queue
-        tenant = normalize_tenant(self.headers.get(TENANT_HEADER))
+        # the client's trace id when it sent one, a fresh one otherwise;
+        # its forwarded span parents this process's root span
+        tid = self.headers.get(TRACE_HEADER) or ""
+        parent = self.headers.get(PARENT_SPAN_HEADER) or ""
+        # the raw tenant header is the client's to choose: it is clamped
+        # here, before it can mint a ledger, a quota or a metric label
+        tenant = _cost.normalize_tenant(self.headers.get(TENANT_HEADER))
         try:
-            with request_tenant(tenant):
-                self._do_post(st)
+            with new_trace(tid or None, parent_id=parent or None) as tid:
+                self._trace_id = tid
+                with _cost.request_ledger(tenant) as led:
+                    try:
+                        with span("server.rpc", route=self.path,
+                                  tenant=tenant):
+                            self._do_post(st)
+                    finally:
+                        _cost.TENANTS.settle(led, led.outcome)
         finally:
             st.request_finished(gen)
 
@@ -428,7 +492,13 @@ class Handler(BaseHTTPRequestHandler):
         time, and the X-Trivy-Deadline-Ms deadline, so a handler thread
         is never parked past the point its client has given up."""
         st = self.state
+        led = _cost.active()
         if st.draining:
+            METRICS.inc("trivy_tpu_requests_shed_total")
+            SLO.observe_scan(0.0, "shed", tenant=_cost.current_label())
+            if led is not None:
+                led.outcome = "shed"
+            _log.warning("scan shed (draining): 503")
             return self._shed_response(
                 Shed("server draining", 503, st.drain_retry_after_s))
         deadline = None
@@ -438,15 +508,35 @@ class Handler(BaseHTTPRequestHandler):
                 deadline = Deadline(max(float(hdr), 0.0) / 1e3)
             except ValueError:
                 deadline = None  # an unparseable header sets none
-        label = current_label()   # the clamped label do_POST installed
+        label = _cost.current_label()   # the tenant do_POST installed
+        # time parked in the admission queue is the request's queue ms,
+        # on the shed path too
+        t_adm = time.perf_counter()
         try:
             st.admission.admit(deadline, tenant=label)
         except Shed as s:
+            _cost.charge_queue_ms((time.perf_counter() - t_adm) * 1e3,
+                                  ledger=led)
+            if led is not None:
+                led.outcome = "shed"
+            _log.warning("scan shed (%s): %d", s.reason, s.http_code)
+            # a 429/503 is load the server refused on purpose: the SLO
+            # counts it, but not as an error
+            SLO.observe_scan(0.0, "shed", tenant=label)
             return self._shed_response(s)
+        _cost.charge_queue_ms((time.perf_counter() - t_adm) * 1e3,
+                              ledger=led)
         try:
             if sbom:
                 return self._scan_sbom(req)
             return self._scan(req)
+        except KeyError:
+            raise   # 400 invalid_argument: the client's error
+        except Exception:
+            if led is not None:
+                led.outcome = "error"
+            SLO.observe_scan(0.0, "error", tenant=label)
+            raise
         finally:
             st.admission.release(tenant=label)
 
@@ -482,10 +572,21 @@ class Handler(BaseHTTPRequestHandler):
             pkg_types=tuple(opts_j.get("vuln_type") or ("os", "library")),
             list_all_packages=bool(opts_j.get("list_all_packages")),
         )
+        t0 = time.perf_counter()
         scanner, self._db_version = self.state.scanner_with_version()
         results, os_info = scanner.scan(
             req.get("target", ""), req.get("artifact_id", ""),
             req.get("blob_ids") or [], opts)
+        elapsed = time.perf_counter() - t0
+        METRICS.inc("trivy_tpu_scans_total")
+        METRICS.inc("trivy_tpu_scan_seconds_total", elapsed)
+        METRICS.observe("trivy_tpu_scan_latency_seconds", elapsed)
+        led = _cost.active()
+        if led is not None:
+            led.outcome = "ok"
+        SLO.observe_scan(elapsed, "ok", tenant=_cost.current_label())
+        _log.debug("scan %s: %d results in %.1fms", req.get("target", ""),
+                   len(results), elapsed * 1e3)
         if self._is_proto:
             from .convert import results_to_proto
             return self._reply(results_to_proto(results, os_info),
@@ -542,22 +643,61 @@ def _bind(host: str, port: int, state: ServerState) -> ScanServer:
 def serve(host: str, port: int, table, cache_dir: str, token: str = "",
           ready_event: threading.Event | None = None, cache_backend="fs",
           detect_opts=None, admission=None, drain_grace_s: float = 10.0,
-          device=None, launch_record: LaunchRecord | None = None
-          ) -> ServerState:
+          device=None, launch_record: LaunchRecord | None = None,
+          trace_path: str = "") -> ServerState:
     """Serve until SIGTERM/SIGINT drains the server (`drain_grace_s`
-    bounds the wait for requests in flight) → the closed state."""
+    bounds the wait for requests in flight) → the closed state.
+    `trace_path` records every span for the server's lifetime and
+    writes the Chrome trace there at shutdown (`server --trace FILE`)."""
+    if trace_path:
+        from ..obs import COLLECTOR
+        COLLECTOR.enable()
     state = ServerState(table, cache_dir, token, cache_backend,
                         detect_opts=detect_opts, admission=admission,
                         device=device, launch_record=launch_record)
     httpd = _bind(host, port, state)
     install_drain_handlers(httpd, state, drain_grace_s)
+    # the accept loop runs on its own thread; this (main) thread runs
+    # the profiler captures the handler threads ask for (/debug/profile,
+    # the SLO trigger): the profiler sees the card only from here
+    jobs: queue.SimpleQueue = queue.SimpleQueue()
+
+    def on_main(fn):
+        fut: Future = Future()
+        jobs.put((fn, fut))
+        return fut.result(timeout=Profiler.MAX_MS / 1e3 + 60.0)
+    loop = threading.Thread(target=httpd.serve_forever, name="scan-server")
+    PROF.run_captures_on(on_main)
+    loop.start()
     if ready_event is not None:
         ready_event.set()
     try:
-        httpd.serve_forever()
+        while loop.is_alive():
+            try:
+                fn, fut = jobs.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 — the asker's
+                fut.set_exception(e)
     finally:
+        PROF.run_captures_on(None)
+        while True:   # a capture asked for as the loop ended
+            try:
+                _fn, fut = jobs.get_nowait()
+            except queue.Empty:
+                break
+            fut.set_exception(RuntimeError("the server is stopping"))
+        httpd.shutdown()
+        loop.join()
         httpd.server_close()
         state.close()
+        if trace_path:
+            from ..obs import COLLECTOR, write_chrome_trace
+            COLLECTOR.disable()
+            write_chrome_trace(trace_path)
+            _log.warning("graftscope trace written to %s", trace_path)
     return state
 
 
