@@ -62,8 +62,10 @@ Phases, one JSON line each; any failure exits non-zero:
            from CreatedAt), cold with --device cpu --scanners vuln as
            the reference (equal vulnerability results; the secret lane
            is held by shift-or against its plain version on the image's
-           rows), and the same layers as an OCI layout (equal results).
-           Expects one
+           rows); start-up (up to the scan command's start: the CUDA
+           context is made inside the scan) and the table load from the
+           cold run's debug line. (OCI layouts are scanned on the card
+           in the `memo` phase.) Expects one
            shift-or launch for the whole image, a join launch, exactly
            the surviving planted secrets; then each kernel on the very
            inputs this image hands it, against its plain version.
@@ -232,12 +234,45 @@ Phases, one JSON line each; any failure exits non-zero:
            200 during a further c=16 round (asked again, at most five
            rounds, while its window holds no kernel) with the join's
            CUDA events; the trace file written at shutdown, validated.
+  memo     a registry sweep across a DB update, on the apps table: an
+           in-process server (serve_background, --memo-backend fs,
+           --redetect-concurrency 2, --detect-warmup) on the card; 12
+           docker-save images on one Debian 12 base layer (430 dpkg
+           packages from the table's Debian names), each with a thin
+           layer of one or two server_lockfiles lockfiles and a planted
+           token, every other one an OCI layout, analyzed here into its
+           cache through RemoteCache.
+           Round A (c=1, cold): the base layer's OS unit detected once
+           (its memo entry 1 store, 11 hits), joins launched. Round B
+           (all 12 at once): every unit replayed, no join launched
+           (/debug/perf, detectd, the kernel counters), the reports
+           equal round A's, memo hits up by the unit count, avoided_ms
+           in /debug/costs. Then table2: the same raw advisories with 1%
+           of their fixed versions moved (at least 20 on names the
+           images hold) and 50 added on held names, flattened through
+           the apps build's FlattenMemo (its misses exactly the moved
+           and added advisories; flatten_full_s beside flatten_delta_s),
+           swapped in; redetectd's sweep refreshes all 13 known blobs
+           (/healthz memo.sweep done, its launches at ledger site
+           "redetect" and no merged dispatch, the redetect series in
+           /metrics), sweep_s. Round C (all 12 at once): every unit
+           replayed under table2's digest (X-Trivy-DB-Version), no join.
+           Rounds A and C are held to memo-less LocalScanners on the
+           card on the same cache and table, and at least one report
+           changed with table2; image 1 (an OCI layout) as a docker-save
+           archive, analyzed on the card into a cache of its own, gives
+           equal results apart from layers and the artifact name. Figures: p50 and scans/s per round,
+           dispatches by ledger site, sweep_s, the flatten figures, the
+           memo's stats. `memo_kernels`: the batches of the largest
+           swept blob through both joins on table2, and shift-or on the
+           clients' secret rows, against their plain versions.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
 the language phases' under "at_fs", "at_image_apps", "at_sbom",
-"at_ci", "at_image_remote", "at_misconf", "at_misconf_image" and
-"at_server" (the server's merged dispatches);
+"at_ci", "at_image_remote", "at_misconf", "at_misconf_image",
+"at_server" (the server's merged dispatches) and "at_memo" (the
+largest blob the memo phase's sweep replayed);
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -1232,17 +1267,13 @@ def compact_case(torch, table, det, prep, h_cap: int, label: str) -> dict:
 
 
 def run_image_at_size(torch, tmp: str) -> tuple:
-    """The synthetic Debian 12 image, gzip docker-save and OCI layout,
-    through `image --input`: cold and warm on the card, cold with
-    --device cpu --scanners vuln as the reference (the secret lane's
-    reference is shift-or's plain version on the image's rows, below),
-    and the OCI layout cold on the card;
-    then the kernels on the very inputs this image hands them → (launch
-    counts of the cold cuda scan, the kernels' measurements)."""
-    from trivy_tpu_torch.db.table import AdvisoryTable
-    from trivy_tpu_torch.fanal.fixtures import (gz_bytes,
-                                                write_docker_archive,
-                                                write_oci_layout)
+    """The synthetic Debian 12 image, gzip docker-save, through `image
+    --input`: cold and warm on the card, cold with --device cpu
+    --scanners vuln as the reference (the secret lane's reference is
+    shift-or's plain version on the image's rows, below); then the
+    kernels on the very inputs this image hands them → (launch counts
+    of the cold cuda scan, the kernels' measurements)."""
+    from trivy_tpu_torch.fanal.fixtures import gz_bytes, write_docker_archive
     rng = np.random.default_rng(SEED + 3)
     t0 = time.perf_counter()
     table, deb, pip = image_table(rng)
@@ -1251,22 +1282,9 @@ def run_image_at_size(torch, tmp: str) -> tuple:
     layers, expected, removed = image_layers(rng, deb, pip)
     gz = [gz_bytes(b, 6) for b in layers]
     docker = os.path.join(tmp, "debian-app.tar")
-    oci = os.path.join(tmp, "debian-app-oci.tar")
     write_docker_archive(docker, gz, _diff_ids(layers),
                          repo_tags=("synthetic/debian-app:12",))
-    write_oci_layout(oci, gz, _diff_ids(layers))
     setup_s = time.perf_counter() - t0
-    # two fixed costs of every scan process: start-up (interpreter,
-    # torch, the CLI's imports, the CUDA context) and the table's load
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-c",
-                    "import torch, trivy_tpu_torch.__main__; "
-                    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
-                   cwd=REPO, check=True, timeout=300)
-    startup_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    AdvisoryTable.load(db)
-    table_load_s = time.perf_counter() - t0
 
     detail, secret_files = walk_image(layers)
     batches = scan_batches(table, detail)
@@ -1280,9 +1298,6 @@ def run_image_at_size(torch, tmp: str) -> tuple:
     cpu, _cpu_counts, cpu_s = run_port_cli(
         ["image", "--input", docker, "--db", db, "--scanners", "vuln",
          "--device", "cpu"])
-    oci_report, _oci_counts, oci_s = run_port_cli(
-        ["image", "--input", oci, "--db", db, "--scanners", "vuln,secret",
-         "--cache-dir", os.path.join(tmp, "oci-cache")])
 
     def body(report):   # the report as written, CreatedAt left out
         return json.dumps({k: v for k, v in report.items()
@@ -1292,8 +1307,6 @@ def run_image_at_size(torch, tmp: str) -> tuple:
                              "differ")
     if body(warm) != body(cold):
         raise AssertionError("the warm-cache report differs from the cold")
-    if layerless_results(oci_report) != layerless_results(cold):
-        raise AssertionError("the OCI layout's results differ")
     vulns, secrets = findings(cold)
     if secrets != expected or secrets & removed:
         raise AssertionError(f"image secrets {sorted(secrets)} != "
@@ -1312,10 +1325,16 @@ def run_image_at_size(torch, tmp: str) -> tuple:
           pairs=sum(f["pairs"] for f in figures),
           hits=sum(f.get("hits", 0) for f in figures),
           vulnerabilities=len(vulns), secrets=sorted(secrets),
-          table_rows=len(table), setup_s=setup_s, startup_s=startup_s,
-          table_load_s=table_load_s, kernel_ms=kernel_ms,
+          table_rows=len(table), setup_s=setup_s,
+          # two fixed costs of every scan process: start-up (interpreter,
+          # torch and the CLI's imports, up to the scan command's start;
+          # the CUDA context is made inside the scan, in scan_s) and the
+          # table load
+          startup_s=cold_s - cold_counts["scan_s"],
+          table_load_s=cold_counts["table"].get("table_s", 0.0),
+          kernel_ms=kernel_ms,
           kernel_share_cold=kernel_ms / 1e3 / cold_s, wall_s_cold=cold_s,
-          wall_s_warm=warm_s, wall_s_cpu=cpu_s, wall_s_oci=oci_s,
+          wall_s_warm=warm_s, wall_s_cpu=cpu_s,
           launches=launches, warm_launches=warm_counts["launches"],
           prefilter_path=cold_counts["prefilter_path"])
     return launches, at_image
@@ -1378,7 +1397,15 @@ def apps_table(rng, shrink: int = 1):
     bench-shaped, with every name count divided by `shrink` (the CPU
     tests' small copy) → (table, debian names, {ecosystem: names}, the
     raw advisories)."""
-    from trivy_tpu_torch.db.table import RawAdvisory, build_table
+    from trivy_tpu_torch.db.table import build_table
+    deb, names, raw = apps_raw(rng, shrink)
+    return build_table(raw), deb, names, raw
+
+
+def apps_raw(rng, shrink: int = 1) -> tuple:
+    """apps_table's raw advisories → (debian names, {ecosystem: names},
+    the raw advisories)."""
+    from trivy_tpu_torch.db.table import RawAdvisory
     deb = [f"src{i:05d}" for i in range(22_000 // shrink)]
     raw = _debian_rows(rng, deb)
     names = {}
@@ -1390,7 +1417,7 @@ def apps_table(rng, shrink: int = 1):
             vuln_id=f"GHSA-{eco}-{name[-5:]}-{j:04d}",
             vulnerable_ranges=_lang_range(rng, eco, fix)))
     raw += _linux_rows(rng)
-    return build_table(raw), deb, names, raw
+    return deb, names, raw
 
 
 def _installed(rng, prefix: str = "") -> str:
@@ -4939,15 +4966,496 @@ def run_server_at_size(torch, tmp: str, table, db: str, names: dict
     return launches, at
 
 
+# --- the memo phase: a registry sweep across a DB update -------------------
+
+MEMO_IMAGES = 12
+MEMO_MOVED_SHARE = 0.01     # advisories whose fixed version table2 moves
+MEMO_MOVED_HELD = 20        # of those, at least this many on held names
+MEMO_ADDED = 50             # advisories table2 adds on held names
+MEMO_FIX = "9.40.0"         # above every installed 9.x.0: a new hit
+
+
+def memo_images(rng, deb: list, names: dict, n_images: int,
+                text=(5 << 19, 4 << 20)) -> tuple:
+    """Registry images on one shared Debian 12 base layer (os-release and
+    a dpkg status of 430 packages drawn from the apps table's Debian
+    names, as image_layers draws them), each with a thin layer of its
+    own: one or two lockfiles of server_lockfiles' generator, 2.5-4 MiB
+    of text (`text`: enough for the secret lane's card route) and a
+    planted token → (base tar, [(thin tar, {(path, rule)})], the
+    {(ecosystem, name)} the images hold)."""
+    from trivy_tpu_torch.fanal.fixtures import tar_bytes
+
+    def installed(below: bool) -> str:
+        return "0.9.1-1" if below else f"9.{rng.integers(0, 31)}.0-1"
+    srcs = rng.choice(len(deb), 429, replace=False)
+    pkgs = [(f"lib{deb[s]}-{k}", deb[s], installed(rng.random() < 0.05))
+            for k, s in enumerate(srcs)]
+    pkgs.append(("linux-libc-dev", "linux", "8.15.0-1"))
+    base = tar_bytes({"etc/os-release": b'PRETTY_NAME="Debian GNU/Linux 12 '
+                                        b'(bookworm)"\nID=debian\n'
+                                        b'VERSION_ID="12"\n',
+                      "etc/debian_version": b"12.5\n",
+                      "var/lib/dpkg/status": _dpkg_status(pkgs)})
+    held = {("debian", src) for _n, src, _v in pkgs}
+    eco_of = {n: eco for eco, ns in names.items() for n in ns}
+    versions = {}
+
+    def version_of(name):
+        if name not in versions:
+            versions[name] = _installed(rng)
+            held.add((eco_of[name], name))
+        return versions[name]
+    # yarn draws past the first 3,000 npm names, which a shrunk table
+    # (the CPU tests') does not have
+    kinds = tuple(k for k in SERVER_KINDS
+                  if k != "yarn" or len(names["npm"]) > 3000)
+    thins = []
+    for i in range(n_images):
+        pick = tuple(rng.choice(kinds, int(rng.integers(1, 3)),
+                                replace=False))
+        files = {f"srv/app{i:02d}/{p}": b for p, b in
+                 server_lockfiles(rng, names, pick, version_of).items()}
+        n_bytes = int(rng.integers(*text))
+        for j in range(0, n_bytes, 1 << 20):
+            files[f"srv/app{i:02d}/docs/part{j >> 20}.txt"] = filler_text(
+                rng, min(1 << 20, n_bytes - j))
+        rule = SERVER_SECRETS[i % len(SERVER_SECRETS)]
+        files[f"srv/app{i:02d}/secret.env"] = planted_token(rng, rule)
+        thins.append((tar_bytes(files),
+                      {(f"srv/app{i:02d}/secret.env", rule)}))
+    return base, thins, held
+
+
+def _lang_source(eco: str) -> str:
+    return {e: f"{e}::GitHub Security Advisory {label}"
+            for e, _n, label in APP_ECOSYSTEMS}[eco]
+
+
+def memo_table2(rng, raw: list, held: set) -> tuple:
+    """table2's raw advisories: `raw` with the fixed version of 1% of its
+    advisories moved to MEMO_FIX (at least MEMO_MOVED_HELD of them on
+    names the images hold), and MEMO_ADDED advisories on held names →
+    (raw2, moved, added)."""
+    import dataclasses
+
+    from trivy_tpu_torch.db.table import RawAdvisory
+    n_moved = max(int(len(raw) * MEMO_MOVED_SHARE), MEMO_MOVED_HELD)
+    on_held = [i for i, a in enumerate(raw)
+               if (a.ecosystem, a.pkg_name) in held]
+    first = rng.choice(on_held, min(2 * MEMO_MOVED_HELD, len(on_held)),
+                       replace=False)
+    rest = np.setdiff1d(np.arange(len(raw)), first)
+    moved = set(first.tolist()) | set(
+        rng.choice(rest, n_moved - len(first), replace=False).tolist())
+    raw2 = list(raw)
+    for i in moved:
+        a = raw[i]
+        raw2[i] = dataclasses.replace(a, fixed_version=f"{MEMO_FIX}-1") \
+            if a.ecosystem == "debian" else \
+            dataclasses.replace(a, vulnerable_ranges=f"< {MEMO_FIX}")
+    picks = sorted(held)
+    for k, j in enumerate(rng.choice(len(picks), MEMO_ADDED,
+                                     replace=False)):
+        eco, name = picks[j]
+        raw2.append(RawAdvisory(
+            source=DEBIAN_SOURCE, ecosystem=eco, pkg_name=name,
+            vuln_id=f"CVE-2027-{k:05d}", fixed_version=f"{MEMO_FIX}-1",
+            severity="HIGH") if eco == "debian" else RawAdvisory(
+            source=_lang_source(eco), ecosystem=eco, pkg_name=name,
+            vuln_id=f"GHSA-memo-{k:05d}",
+            vulnerable_ranges=f"< {MEMO_FIX}"))
+    return raw2, len(moved), MEMO_ADDED
+
+
+def _scan_rpc(base: str, ref, opts) -> tuple:
+    """One Scan RPC as the Twirp JSON client sends it, decoded by the
+    client → (results, os, the X-Trivy-DB-Version header)."""
+    import urllib.request
+
+    from trivy_tpu_torch.server.client import RemoteScanner
+    req = urllib.request.Request(
+        base + "/twirp/trivy.scanner.v1.Scanner/Scan", method="POST",
+        data=json.dumps({"target": ref.name, "artifact_id": ref.id,
+                         "blob_ids": ref.blob_ids,
+                         "options": RemoteScanner._options_json(opts)
+                         }).encode(),
+        headers={"Content-Type": "application/json",
+                 "Trivy-Token": SERVER_TOKEN})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        version = r.headers.get("X-Trivy-DB-Version")
+        body = json.loads(r.read())
+    results, os_info = RemoteScanner._decode_response(body)
+    return results, os_info, version
+
+
+def _site_dispatches(base: str) -> dict:
+    """/debug/perf's dispatches by ledger site."""
+    out: dict = {}
+    for r in _debug(base, "perf")["shapes"]:
+        if r["dispatches"]:
+            out[r["site"]] = out.get(r["site"], 0) + r["dispatches"]
+    return out
+
+
+def _sample(base: str, name: str, **labels) -> float:
+    import urllib.request
+
+    from trivy_tpu_torch.obs.exposition import parse_exposition
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        fams = parse_exposition(r.read().decode())
+    return sum(v for n, lab, v in fams.get(name, {"samples": []})["samples"]
+               if n == name and all(lab.get(k) == x
+                                    for k, x in labels.items()))
+
+
+def memo_phase(tmp: str, table, deb: list, names: dict, raw: list,
+               n_images: int = MEMO_IMAGES, device: str = "cuda",
+               flatten=None, flatten_full_s: float | None = None,
+               text=(5 << 19, 4 << 20)) -> dict:
+    """A registry sweep across a DB update, on an in-process server with
+    `--memo-backend fs` on `device`: `n_images` images on one base
+    layer, analyzed here into its cache; round A (c=1, cold), round B
+    (all at once, every unit replayed, no join); table2 flattened from
+    `raw` through the delta flatten memo `flatten` (a fresh one, primed
+    by a full build, when None) and swapped in, which sweeps every known
+    blob onto it; round C (all at once, every unit
+    replayed under table2). Each report is held to a memo-less
+    LocalScanner on the same table and cache → the figures (also
+    printed as the `memo` phase)."""
+    import threading
+
+    from trivy_tpu_torch import types as T
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.db.table import FlattenMemo, build_table
+    from trivy_tpu_torch.detect.redetect import RedetectOptions
+    from trivy_tpu_torch.detect.sched import SchedOptions
+    from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
+                                                 AnalyzerGroup)
+    from trivy_tpu_torch.fanal.artifact import ImageArchiveArtifact
+    from trivy_tpu_torch.fanal.cache import FSCache
+    from trivy_tpu_torch.fanal.fixtures import (write_docker_archive,
+                                                write_oci_layout)
+    from trivy_tpu_torch.scanner import LocalScanner
+    from trivy_tpu_torch.secret import SecretScanner
+    from trivy_tpu_torch.server.client import RemoteCache
+    from trivy_tpu_torch.server.listen import serve_background
+    rng = np.random.default_rng(SEED + 12)
+    if flatten is None:   # prime a delta flatten memo with the full build
+        flatten = FlattenMemo()
+        t0 = time.perf_counter()
+        build_table(raw, memo=flatten)
+        flatten_full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base_tar, thins, held = memo_images(rng, deb, names, n_images, text)
+    paths = []
+    for i, (thin, _secrets) in enumerate(thins):
+        paths.append(os.path.join(tmp, f"memo-img{i:02d}.tar"))
+        # every other image an OCI layout, the rest docker-save
+        if i % 2:
+            write_oci_layout(paths[-1], [base_tar, thin],
+                             _diff_ids([base_tar, thin]))
+        else:
+            write_docker_archive(paths[-1], [base_tar, thin],
+                                 _diff_ids([base_tar, thin]),
+                                 repo_tags=(f"registry/app{i:02d}:1",))
+    setup_s = time.perf_counter() - t0
+    cache_dir = os.path.join(tmp, "memo-cache")
+    counts0 = launch_counts()
+    # --detect-warmup: the ladder's shapes are launched once at start, so
+    # round A's launches feed the cost layer's ms-per-row rate (a
+    # first-of-shape launch does not), which prices the replays
+    httpd, state = serve_background(
+        "127.0.0.1", 0, table, cache_dir, SERVER_TOKEN, memo_backend="fs",
+        redetect_opts=RedetectOptions(concurrency=2), device=device,
+        detect_opts=SchedOptions(warmup=True))
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    v1 = table.content_digest()
+    try:
+        # the ledger is the process's: the phase's launches are the
+        # difference from here
+        sites0 = _site_dispatches(base)
+        cache = RemoteCache(base, token=SERVER_TOKEN)
+        group = AnalyzerGroup(disabled=INDIVIDUAL_PKG_ANALYZERS + ("sbom",))
+        secrets = SecretScanner(device=device)
+        t0 = time.perf_counter()
+        refs = [ImageArchiveArtifact(p, cache, group=group,
+                                     scanners=("vuln", "secret"),
+                                     secret_scanner=secrets).inspect()
+                for p in paths]
+        analyze_s = time.perf_counter() - t0
+        base_blob = refs[0].blob_ids[0]
+        if any(r.blob_ids[0] != base_blob for r in refs):
+            raise AssertionError("memo: the images' base blobs differ")
+        opts = T.ScanOptions(scanners=("vuln", "secret"))
+
+        def memo_totals():
+            return {k: _sample(base, f"trivy_tpu_memo_{k}_total",
+                               backend="fs")
+                    for k in ("hits", "misses", "stores")}
+
+        def one(i):
+            t = time.perf_counter()
+            results, os_info, version = _scan_rpc(base, refs[i], opts)
+            return ((_canon(results), _os_key(os_info)), version,
+                    time.perf_counter() - t)
+
+        def c16_round():
+            got = [None] * len(refs)
+            barrier = threading.Barrier(len(refs))
+
+            def worker(i):
+                barrier.wait()
+                got[i] = one(i)
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(len(refs))]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t
+            if any(g is None for g in got):
+                raise AssertionError("memo: a c=16 scan did not answer")
+            return got, wall
+
+        def round_figures(lat, wall, before, after, sites0, sites1):
+            memo = {k: after[k] - before[k] for k in after}
+            return {"p50_s": _pct(lat, 50), "scans_per_s": len(lat) / wall,
+                    "wall_s": wall,
+                    "units": memo["hits"] + memo["misses"],
+                    "replayed": memo["hits"], "stored": memo["stores"],
+                    "dispatches": {s: sites1.get(s, 0) - sites0.get(s, 0)
+                                   for s in sites1
+                                   if sites1.get(s, 0) != sites0.get(s, 0)}}
+
+        # round A: cold, one image after another
+        m0, s0 = memo_totals(), _site_dispatches(base)
+        t = time.perf_counter()
+        got_a = [one(i) for i in range(len(refs))]
+        wall = time.perf_counter() - t
+        round_a = round_figures([g[2] for g in got_a], wall, m0,
+                                memo_totals(), s0, _site_dispatches(base))
+        stats = state.memo.key_stats(base_blob, v1)
+        if stats != {"hits": len(refs) - 1, "stores": 1}:
+            raise AssertionError(f"memo: the base layer's entry {stats}")
+        if not round_a["dispatches"].get("detectd"):
+            raise AssertionError(f"memo round A: no join {round_a}")
+        reports_a = [g[0] for g in got_a]
+
+        # round B: all at once, every unit replays, no join
+        m0, s0 = memo_totals(), _site_dispatches(base)
+        k0, d0 = launch_counts(), dict(state.scanner.sched.stats)
+        avoided0 = sum(r["avoided_ms"] for r in _debug(
+            base, "costs")["tenants"].values())
+        got_b, wall = c16_round()
+        round_b = round_figures([g[2] for g in got_b], wall, m0,
+                                memo_totals(), s0, _site_dispatches(base))
+        k1 = launch_counts()
+        if round_b["replayed"] != round_a["units"] or \
+                round_b["units"] != round_a["units"] or \
+                round_b["dispatches"] or state.scanner.sched.stats != d0 \
+                or k1["csr_join"] + k1["csr_join_compact"] \
+                != k0["csr_join"] + k0["csr_join_compact"]:
+            raise AssertionError(f"memo round B: {round_b}, round A "
+                                 f"{round_a}")
+        if [g[0] for g in got_b] != reports_a:
+            raise AssertionError("memo round B: a report differs from "
+                                 "round A's")
+        # a request settles into its tenant's cost row after its answer
+        # is on the wire
+        t0 = time.perf_counter()
+        while state.inflight and time.perf_counter() - t0 < 30:
+            time.sleep(0.01)
+        costs = _debug(base, "costs")
+        avoided_ms = sum(r["avoided_ms"] for r in
+                         costs["tenants"].values()) - avoided0
+        if not avoided_ms > 0:
+            raise AssertionError(f"memo: /debug/costs avoided_ms "
+                                 f"{avoided_ms}, ms per row "
+                                 f"{costs['avoided_ms_per_row_ewma']}")
+
+        # table2: the same raw list with a delta, through the same memo
+        raw2, moved, added = memo_table2(rng, raw, held)
+        h0, x0 = flatten.hits, flatten.misses
+        t0 = time.perf_counter()
+        table2 = build_table(raw2, memo=flatten)
+        flatten_delta_s = time.perf_counter() - t0
+        flat = {"full_s": flatten_full_s, "delta_s": flatten_delta_s,
+                "rows": len(table2), "advisories": len(raw2),
+                "hits": flatten.hits - h0, "misses": flatten.misses - x0,
+                "moved": moved, "added": added}
+        if flat["misses"] != moved + added or \
+                flat["hits"] != len(raw2) - moved - added:
+            raise AssertionError(f"memo: delta flatten {flat}")
+        v2 = table2.content_digest()
+
+        # the swap, and redetectd's sweep onto table2
+        refreshed0 = _sample(base, "trivy_tpu_redetect_blobs_total",
+                             outcome="refreshed")
+        s0 = _site_dispatches(base)
+        t0 = time.perf_counter()
+        state.swap_table(table2)
+        while True:
+            sweep = _get_json(base + "/healthz")["memo"]["sweep"]
+            if sweep["phase"] not in ("pending", "sweeping"):
+                break
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"memo: sweep {sweep} after 300 s")
+            time.sleep(0.01)
+        sweep_s = time.perf_counter() - t0
+        s1 = _site_dispatches(base)
+        known = state.memo.status()["known_blobs"]
+        sweep_sites = {s: s1.get(s, 0) - s0.get(s, 0) for s in s1
+                       if s1.get(s, 0) != s0.get(s, 0)}
+        refreshed = _sample(base, "trivy_tpu_redetect_blobs_total",
+                            outcome="refreshed") - refreshed0
+        active = _sample(base, "trivy_tpu_redetect_active")
+        if sweep["phase"] != "done" or not \
+                sweep["done"] == sweep["total"] == known == len(refs) + 1 \
+                or sweep["db_version"] != v2 \
+                or list(sweep_sites) != ["redetect"] \
+                or refreshed != known or active != 0:
+            raise AssertionError(f"memo: sweep {sweep}, known {known}, "
+                                 f"dispatches {sweep_sites}, refreshed "
+                                 f"{refreshed}, active {active}")
+
+        # round C: all at once under table2, every unit replays
+        m0, s0 = memo_totals(), _site_dispatches(base)
+        k0 = launch_counts()
+        got_c, wall = c16_round()
+        round_c = round_figures([g[2] for g in got_c], wall, m0,
+                                memo_totals(), s0, _site_dispatches(base))
+        k1 = launch_counts()
+        if round_c["replayed"] != round_c["units"] \
+                or round_c["units"] != round_a["units"] \
+                or round_c["dispatches"] or k1 != k0 \
+                or {g[1] for g in got_c} != {v2}:
+            raise AssertionError(f"memo round C: {round_c}, versions "
+                                 f"{ {g[1] for g in got_c} }")
+        counts = launch_counts()
+        launches = {k: counts[k] - counts0[k] for k in counts}
+        sites = {s: n - sites0.get(s, 0)
+                 for s, n in _site_dispatches(base).items()
+                 if n != sites0.get(s, 0)}
+        memo_status = state.memo.status()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        state.close()
+
+    # the references: memo-less LocalScanners on the same cache (the
+    # server's FSCache) and tables, on `device`, after the path's counts
+    for tbl, got, label in ((table, got_a, "A"), (table2, got_c, "C")):
+        local = LocalScanner(FSCache(cache_dir), tbl, device=device)
+        try:
+            for i, ref in enumerate(refs):
+                results, os_info = local.scan(ref.name, ref.id,
+                                              ref.blob_ids, opts)
+                if (_canon(results), _os_key(os_info)) != got[i][0]:
+                    raise AssertionError(f"memo round {label}: image {i}'s "
+                                         "report differs from a memo-less "
+                                         "LocalScanner's")
+                found = {(r.target, f.rule_id) for r in results
+                         for f in r.secrets}
+                if found != thins[i][1]:
+                    raise AssertionError(f"memo: image {i} secrets "
+                                         f"{sorted(found)}")
+        finally:
+            local.close()
+    # the container formats agree: image 1, an OCI layout, as a
+    # docker-save archive analyzed on `device` into a cache of its own
+    twin = os.path.join(tmp, "memo-img01-docker.tar")
+    layers1 = [base_tar, thins[1][0]]
+    write_docker_archive(twin, layers1, _diff_ids(layers1),
+                         repo_tags=("registry/app01:1",))
+    twin_cache = FSCache(os.path.join(tmp, "memo-twin-cache"))
+    twin_ref = ImageArchiveArtifact(twin, twin_cache, group=group,
+                                    scanners=("vuln", "secret"),
+                                    secret_scanner=secrets).inspect()
+    local = LocalScanner(twin_cache, table, device=device)
+    try:
+        results, _os_info = local.scan(twin_ref.name, twin_ref.id,
+                                       twin_ref.blob_ids, opts)
+    finally:
+        local.close()
+    if layerless_results({"ArtifactName": twin_ref.name,
+                          "Results": json.loads(_canon(results))}) != \
+            layerless_results({"ArtifactName": refs[1].name,
+                               "Results": json.loads(reports_a[1][0])}):
+        raise AssertionError("memo: the OCI layout's results differ from "
+                             "its docker-save twin's")
+    changed = sum(a[0] != c[0] for a, c in zip(reports_a, got_c))
+    if not changed:
+        raise AssertionError("memo: no report changed with table2")
+    fig = {"images": len(refs), "setup_s": setup_s,
+           "analyze_s": analyze_s, "round_a": round_a, "round_b": round_b,
+           "round_c": round_c, "reports_changed_by_table2": changed,
+           "base_key_stats": stats, "avoided_ms": avoided_ms,
+           "flatten": flat,
+           "sweep": {**sweep, "sweep_s": sweep_s,
+                     "dispatches": sweep_sites},
+           "sweep_s": sweep_s, "memo": memo_status,
+           "launches_by_site": sites, "launches": launches,
+           "vulnerabilities": sum(
+               len(r.get("Vulnerabilities") or [])
+               for (rep, _os), _v, _t in got_c for r in json.loads(rep))}
+    phase("memo", **fig)
+    fig["table2"] = table2
+    fig["refs"] = refs
+    fig["layers"] = [base_tar] + [thin for thin, _s in thins]
+    return fig
+
+
+def run_memo_at_size(torch, tmp: str, table, deb: list, names: dict,
+                     raw: list, flatten, flatten_full_s: float) -> tuple:
+    """The memo phase on the card, then the batches of the largest swept
+    blob through the join kernels against their plain versions, on
+    table2, and shift-or on the clients' secret rows → (launch counts,
+    the kernels on its inputs)."""
+    from trivy_tpu_torch.fanal.applier import apply_layers
+    from trivy_tpu_torch.fanal.cache import FSCache
+    fig = memo_phase(tmp, table, deb, names, raw, device="cuda",
+                     flatten=flatten, flatten_full_s=flatten_full_s)
+    launches = fig["launches"]
+    if launches["shiftor"] != len(fig["refs"]) or \
+            launches["csr_join"] + launches["csr_join_compact"] == 0:
+        raise AssertionError(f"memo: launches {launches}")
+    cache = FSCache(os.path.join(tmp, "memo-cache"))
+    swept = {bid for ref in fig["refs"] for bid in ref.blob_ids}
+    largest = None
+    for bid in sorted(swept):
+        batches = scan_batches(fig["table2"],
+                               apply_layers([cache.get_blob(bid)]))
+        n = sum(len(qs) for _, qs in batches)
+        if largest is None or n > largest[0]:
+            largest = (n, bid, batches)
+    figures, at, _ms = batch_kernels(torch, fig["table2"], largest[2],
+                                     "memo_sweep")
+    _detail, secret_files = walk_image(fig["layers"])
+    padded, bank, rows = secret_rows(secret_files)
+    at["shiftor"] = shiftor_case(torch, bank, padded, "memo_client")
+    phase("memo_kernels", blob=largest[1][:19], queries=largest[0],
+          batches=figures, client_secret_rows=rows)
+    return launches, at
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
-    """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`
-    and `server` phases over one apps table, saved as .npz (written as a
+    """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`,
+    `server` and `memo` phases over one apps table, saved as .npz (written as a
     trivy.db for `ci`) → ({path: launch counts}, {path: kernels on its
     inputs})."""
+    from trivy_tpu_torch.db.table import FlattenMemo, build_table
     from trivy_tpu_torch.ops.constants import INEXACT
     rng = np.random.default_rng(SEED + 6)
     t0 = time.perf_counter()
-    table, deb, names, raw = apps_table(rng)
+    deb, names, raw = apps_raw(rng)
+    # the full flatten primes the delta flatten memo the memo phase's
+    # table2 goes through
+    flatten = FlattenMemo()
+    t1 = time.perf_counter()
+    table = build_table(raw, memo=flatten)
+    flatten_s = time.perf_counter() - t1
     db = os.path.join(tmp, "apps-table.npz")
     table.save(db)
     build_s = time.perf_counter() - t0
@@ -4956,7 +5464,8 @@ def run_language_phases(torch, tmp: str) -> tuple:
           inexact_rows=int(((table.flags & INEXACT) != 0).sum()),
           device_bytes=sum(t.numel() * t.element_size()
                            for t in (lo, hi, flags, lo_pre, hi_pre)),
-          npz_bytes=os.path.getsize(db), build_s=build_s)
+          npz_bytes=os.path.getsize(db), build_s=build_s,
+          flatten_s=flatten_s)
     fs_launches, at_fs, root, fs_report, detail, secrets = run_fs_at_size(
         torch, tmp, table, db, names)
     apps_launches, at_apps, apps_image, apps_report, apps_rows, \
@@ -4974,13 +5483,15 @@ def run_language_phases(torch, tmp: str) -> tuple:
         torch, tmp, table, db, deb, names, root)
     server_launches, at_server = run_server_at_size(torch, tmp, table, db,
                                                     names)
+    memo_launches, at_memo = run_memo_at_size(torch, tmp, table, deb, names,
+                                              raw, flatten, flatten_s)
     return ({"fs": fs_launches, "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
              "image_remote": remote_launches, **misconf_launches,
-             "server": server_launches},
+             "server": server_launches, "memo": memo_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
              "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf,
-             "at_server": at_server})
+             "at_server": at_server, "at_memo": at_memo})
 
 
 def main() -> int:

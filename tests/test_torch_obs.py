@@ -17,7 +17,8 @@ Beside them: the span names and parent edges of one seeded image scan
 equal the reference's, the metric catalog (names, types, help, bucket
 edges) and the label names of every family both packages emit equal
 the reference's, the series fed only by unported modules are listed
-with their ROADMAP item and read 0, an fs report is byte-equal with and
+with their ROADMAP item and read 0, the memo and redetectd series are
+fed by a memo scan and a swap, an fs report is byte-equal with and
 without --trace and --profile-dir and to the JAX CLI's, and the phase
 totals of a written trace file equal the collector's.
 """
@@ -27,6 +28,7 @@ import io
 import json
 import os
 import socket
+import time
 
 import pytest
 
@@ -219,11 +221,7 @@ def test_unfed_series_name_their_item_and_read_zero(obs_server, tmp_path):
             "device_lost_total", "host_lost_total")},
         **{f"trivy_tpu_fleet_{s}": "A12" for s in (
             "replica_state", "failovers_total", "db_version_skew_total",
-            "router_latency_seconds")},
-        **{f"trivy_tpu_{s}": "A9" for s in (
-            "memo_hits_total", "memo_misses_total", "memo_stores_total",
-            "redetect_sweeps_total", "redetect_blobs_total",
-            "redetect_active")}}
+            "router_latency_seconds")}}
     _remote_scan(obs_server, tmp_path)
     SLO.export()
     fams = exposition.parse_exposition(METRICS.render())
@@ -231,6 +229,66 @@ def test_unfed_series_name_their_item_and_read_zero(obs_server, tmp_path):
         assert name not in fams, name
         assert METRICS.get(name) == 0.0
     assert METRICS.get("trivy_tpu_device_serving_ratio") == 1.0
+
+
+MEMO_SERIES = ("trivy_tpu_memo_hits_total", "trivy_tpu_memo_misses_total",
+               "trivy_tpu_memo_stores_total",
+               "trivy_tpu_redetect_sweeps_total",
+               "trivy_tpu_redetect_blobs_total", "trivy_tpu_redetect_active")
+
+
+def test_memo_series_are_fed_after_a_memo_scan(tmp_path):
+    """The six memo and redetectd series, declared unfed until the memo
+    was ported: after two scans through a server with a memo and a swap
+    to another table, /metrics carries each with the reference's HELP
+    and TYPE, the second scan's units as hits and the sweep's blobs."""
+    from trivy_tpu.metrics import METRICS as REF
+    from trivy_tpu_torch.db import build_table
+    from trivy_tpu_torch.db.fixtures import load_fixture_files
+    from trivy_tpu_torch.db.table import RawAdvisory
+    from trivy_tpu_torch.metrics import METRICS, UNFED
+    from trivy_tpu_torch.server.listen import serve_background
+    assert not set(MEMO_SERIES) & set(UNFED)
+    table_raw, details, _ = load_fixture_files(sorted(glob.glob(FIXGLOB)))
+    table = build_table(table_raw, details)
+    httpd, state = serve_background(
+        "127.0.0.1", 0, table, cache_dir=str(tmp_path / "cache"),
+        memo_backend="fs", device="cpu")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        before = {n: METRICS.family_sum(n) for n in MEMO_SERIES}
+        first, _ = _remote_scan(base, tmp_path)
+        stored = METRICS.family_sum("trivy_tpu_memo_stores_total") \
+            - before["trivy_tpu_memo_stores_total"]
+        assert stored == METRICS.family_sum(
+            "trivy_tpu_memo_misses_total") \
+            - before["trivy_tpu_memo_misses_total"] > 0
+        second, _ = _remote_scan(base, tmp_path)
+        assert [r.to_json() for r in second] == \
+            [r.to_json() for r in first]
+        assert METRICS.get("trivy_tpu_memo_hits_total", backend="fs") \
+            - before["trivy_tpu_memo_hits_total"] == stored
+        state.swap_table(build_table(table_raw + [RawAdvisory(
+            source="alpine 3.17", ecosystem="alpine", pkg_name="musl",
+            vuln_id="CVE-2099-0001", fixed_version="9.0.0-r0")],
+            details))
+        deadline = time.monotonic() + 30
+        while state.redetect.status()["phase"] != "done":
+            assert time.monotonic() < deadline, state.redetect.status()
+            time.sleep(0.02)
+        fams = exposition.parse_exposition(METRICS.render())
+        for name in MEMO_SERIES:
+            assert name in fams, name
+            assert fams[name]["type"] == REF._types[name]
+            assert fams[name]["help"] == REF._help[name]
+        assert METRICS.get("trivy_tpu_redetect_sweeps_total") \
+            - before["trivy_tpu_redetect_sweeps_total"] == 1
+        assert METRICS.get("trivy_tpu_redetect_blobs_total",
+                           outcome="refreshed") >= 1
+        assert METRICS.get("trivy_tpu_redetect_active") == 0.0
+    finally:
+        httpd.shutdown()
+        state.close()
 
 
 def _remote_scan(base: str, tmp_path, client=None):

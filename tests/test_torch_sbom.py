@@ -20,12 +20,17 @@ package's, on the CPU, with the same inputs:
 - `LibraryIndex` against the port's NumPy oracle and against the JAX
   LibraryIndex, hit for hit.
 
+- TestSBOMMemo's two cases against the port (test_torch_mirror's
+  `port_cases`, the scanner and the server on the CPU): duplicate
+  documents are one memo store and N-1 hits, and a DB swap re-detects
+  the document through redetectd's sweep, whose entry the next scan
+  replays.
+
 Not mirrored here: the cases of tests/test_sbom.py for the parse
-breaker and watchdog, the failpoints, the memo and redetectd, the server
-route and the storm lane. The breaker, watchdog and failpoints are not
-ported by design (ROADMAP, "Not ported"), the SBOMArtifact of the port
-has no metrics, the memo and redetectd are still queued (ROADMAP A9),
-the storm lane with A12, and tests/test_torch_server.py holds the
+breaker and watchdog, the failpoints, the server route and the storm
+lane. The breaker, watchdog and failpoints are not ported by design
+(ROADMAP, "Not ported"), the SBOMArtifact of the port has no metrics,
+the storm lane comes with A12, and tests/test_torch_server.py holds the
 server's ScanSBOM route both ways."""
 
 import json
@@ -35,6 +40,7 @@ import types as pytypes
 import pytest
 
 from helpers import ALPINE_OS_RELEASE, APK_INSTALLED, make_image
+from test_torch_mirror import port_cases, run_case
 import trivy_tpu.detect.libscan as ref_libscan
 import trivy_tpu.fanal.applier as ref_applier
 import trivy_tpu.fanal.cache as ref_cache
@@ -532,3 +538,35 @@ def test_third_party_document_keeps_last_application_like_reference(
     assert detail.to_json() == REF.applier.apply_layers([want[1]]).to_json()
     assert [a.type for a in detail.applications] == ["node-pkg"]
     assert len(detail.packages) == 8 and detail.os.family == "debian"
+
+
+# ---- TestSBOMMemo of tests/test_sbom.py, against the port ----------------
+
+def _sbom_table():
+    """tests/test_sbom.py's `table` fixture: advisories on the
+    APK_INSTALLED packages."""
+    raw, details = [], {}
+    for name, fixed in (("musl", "1.2.4-r0"), ("zlib", "1.2.14-r0"),
+                        ("libcrypto3", "3.0.8-r0")):
+        vid = f"CVE-2026-{name.upper()}"
+        raw.append(RawAdvisory(source="alpine 3.17", ecosystem="alpine",
+                               pkg_name=name, vuln_id=vid,
+                               fixed_version=fixed))
+        details[vid] = {"Title": f"planted {vid}", "Severity": "HIGH"}
+    return build_table(raw, details)
+
+
+@pytest.mark.parametrize("cls,fn,given", port_cases(
+    "test_sbom.py", keep=lambda c: c.startswith("TestSBOMMemo::"),
+    subs=[("from trivy_tpu_torch.resilience import FAILPOINTS, GUARD\n",
+           ""),
+          ("from trivy_tpu_torch.resilience.storm import _post",
+           "from test_torch_memo import _post"),
+          ("scanner = LocalScanner(cache, table, memo=memo)",
+           "scanner = LocalScanner(cache, table, device=\"cpu\", "
+           "memo=memo)"),
+          ('cache_backend="memory", memo_backend="memory")',
+           'cache_backend="memory", memo_backend="memory", '
+           'device="cpu")')]))
+def test_sbom_memo_case_on_port(cls, fn, given, request):
+    run_case(cls, fn, request, {"table": _sbom_table(), **given})

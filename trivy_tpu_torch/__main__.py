@@ -76,10 +76,12 @@ JAX server's observability surface: `/metrics`, the token-gated
 `/debug/traces`, `/debug/incidents`, `/debug/perf`, `/debug/profile`
 and `/debug/costs` pages, and the `--trace`, `--incident-dir`,
 `--slow-trace-ms`, `--slo-latency-ms`, `--profile-auto-burn`,
-`--profile-cooldown-s` and `--ingest-tenant-*` flags. The JAX server's
-mesh, memo, table-streaming, breaker and failpoint flags, and the
-redis:// and s3:// caches, are refused with the ROADMAP item that will
-port them (SERVER_REFUSED).
+`--profile-cooldown-s` and `--ingest-tenant-*` flags, and the
+detection-result memo with its post-swap sweep (`--memo-backend off|fs|
+memory`, `--redetect-concurrency N`). The JAX server's mesh,
+table-streaming, breaker and failpoint flags, and the redis:// and s3://
+caches and memos, are refused with the ROADMAP item that will port them
+(SERVER_REFUSED).
 """
 
 from __future__ import annotations
@@ -530,8 +532,6 @@ SERVER_REFUSED = {
     "mesh_min_devices": _MESH, "mesh_rebuild_cooldown_ms": _MESH,
     "mesh_probe_timeout_ms": _MESH, "mesh_hosts": _MESH,
     "mesh_host_loss_window_ms": _MESH,
-    "memo_backend": "the detection memo is not ported yet (ROADMAP A9)",
-    "redetect_concurrency": "redetectd is not ported yet (ROADMAP A9)",
     "table_stream_slices": _STREAM, "table_device_budget_mb": _STREAM,
     "stream_prefetch": "the slice prefetch of streamed tables is not "
                        "ported yet (ROADMAP A10)",
@@ -544,8 +544,7 @@ def _refuse_server_flags(args) -> None:
     """Exit naming the ROADMAP item of each refused flag given (on the
     command line, in TRIVY_* env or in trivy.yaml)."""
     given = [d for d in SERVER_REFUSED if getattr(args, d, None)
-             is not None and not (d == "memo_backend"
-                                  and getattr(args, d) == "off")]
+             is not None]
     if given:
         raise SystemExit("server: " + "; ".join(
             f"--{d.replace('_', '-')}: {SERVER_REFUSED[d]}"
@@ -557,12 +556,23 @@ def _refuse_server_flags(args) -> None:
     if backend not in ("fs", "memory"):
         raise SystemExit(f"--cache-backend: unknown cache backend "
                          f"{backend!r} (fs | memory)")
+    # the memo backend's spelling, before the (slow) table load
+    from .fleet.memo import known_backend
+    memo = args.memo_backend
+    if memo.startswith(("redis://", "s3://")):
+        raise SystemExit(f"--memo-backend {memo}: the Redis and S3 memos "
+                         "are not ported yet (ROADMAP A5.3)")
+    if not known_backend(memo):
+        raise SystemExit(f"--memo-backend: unknown memo backend "
+                         f"{memo!r} (off | fs | memory | redis://... | "
+                         f"s3://...)")
 
 
 def cmd_server(args) -> int:
     """The scan server (reference cli.py:1153): the table on the card,
     detectd merging concurrent scans' launches, until SIGTERM or SIGINT
     drains it."""
+    from .detect.redetect import RedetectOptions
     from .detect.sched import SchedOptions
     from .resilience import AdmissionOptions
     from .server.listen import LaunchRecord, serve
@@ -596,7 +606,10 @@ def cmd_server(args) -> int:
             tenant_max_queue=args.admit_tenant_max_queue,
             tenant_rate=args.admit_tenant_rate),
         drain_grace_s=args.drain_grace_ms / 1e3, device=device,
-        launch_record=record, trace_path=args.trace)
+        launch_record=record, trace_path=args.trace,
+        memo_backend=args.memo_backend,
+        redetect_opts=RedetectOptions(
+            concurrency=max(args.redetect_concurrency, 0)))
     if record is not None:
         # after the drain: the launches by kernel (the dense and the
         # compacted route), what the merged dispatches carried, and a
@@ -641,6 +654,14 @@ def _server_flags(p: argparse.ArgumentParser) -> None:
                    help="require this Trivy-Token header on every POST")
     p.add_argument("--cache-backend", default="fs",
                    help="fs | memory (redis:// and s3:// are refused)")
+    p.add_argument("--memo-backend", default="off",
+                   help="the detection-result memo, keyed by (blob "
+                        "digest, db version): off (default) | fs | "
+                        "memory (redis:// and s3:// are refused)")
+    p.add_argument("--redetect-concurrency", type=int, default=2,
+                   help="redetectd: blobs replayed in parallel by the "
+                        "sweep after a DB swap (0 disables it; the sweep "
+                        "yields to queued scans; default 2)")
     p.add_argument("--detect-coalesce-wait-ms", type=float, default=2.0,
                    help="detectd: how long pending requests gather while "
                         "a dispatch is in flight")

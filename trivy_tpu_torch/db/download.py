@@ -192,6 +192,20 @@ def ensure_db(cache_dir: str, repository: str = DEFAULT_REPO,
     return table, {**stats, "downloaded": pulled}
 
 
+# the process-lifetime delta-flatten memo (table.FlattenMemo): a second
+# flatten in one process (a new DB swapped into a long-lived server)
+# re-encodes only the advisories that changed
+_FLATTEN_MEMO = None
+
+
+def _flatten_memo():
+    global _FLATTEN_MEMO
+    if _FLATTEN_MEMO is None:
+        from .table import FlattenMemo
+        _FLATTEN_MEMO = FlattenMemo()
+    return _FLATTEN_MEMO
+
+
 def flatten_db(bolt_path: str):
     """trivy.db → (AdvisoryTable, stats), through the `<db>.npz` memo
     keyed by the bolt file's sha256."""
@@ -232,7 +246,8 @@ def flatten_db(bolt_path: str):
     t1 = time.perf_counter()
     table = build_table(advisories, details,
                         aux={"Red Hat CPE": sources["Red Hat CPE"]}
-                        if "Red Hat CPE" in sources else None)
+                        if "Red Hat CPE" in sources else None,
+                        memo=_flatten_memo())
     t2 = time.perf_counter()
     # the stamp lands only after the memo's atomic save, so a crash in
     # between never pairs a partial memo with a matching stamp

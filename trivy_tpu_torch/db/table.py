@@ -360,10 +360,67 @@ def _flatten_advisory(adv: RawAdvisory, key_width: int,
     return g, rows_out
 
 
+def _adv_content_key(adv: RawAdvisory, key_width: int) -> tuple:
+    """Content identity of one advisory for the flatten memo: every
+    field _flatten_advisory reads, plus the token width."""
+    return (adv.source, adv.ecosystem, adv.pkg_name, adv.vuln_id,
+            adv.fixed_version, adv.affected_version,
+            adv.vulnerable_ranges, adv.patched_versions,
+            adv.unaffected_versions, adv.status, adv.severity,
+            # repr of the sorted items: distinct content never shares a
+            # key (json.dumps, the reference's, costs 5x more per call)
+            repr(sorted(adv.data_source.items()))
+            if adv.data_source else "",
+            tuple(adv.vendor_ids), tuple(adv.arches),
+            tuple(adv.cpe_indices), key_width)
+
+
+class FlattenMemo:
+    """Delta-flatten cache: per-advisory flatten segments keyed by
+    advisory content, so a new DB in a long-lived process re-flattens
+    only the advisories that changed (the sort and stack tail still
+    runs over every row). Each reuse hands out a FRESH AdvisoryGroup
+    (rows list copied), so two tables never alias mutable group state;
+    the token arrays are shared read-only (build_table copies them into
+    its columns with np.stack). Thread-safe and bounded: once full, new
+    segments are not cached."""
+
+    def __init__(self, max_entries: int = 1 << 21):
+        self.max_entries = max_entries
+        self._lock = threading.Lock()
+        self._segments: dict[tuple, tuple] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def flatten(self, adv: RawAdvisory, key_width: int,
+                pad_row: np.ndarray):
+        key = _adv_content_key(adv, key_width)
+        with self._lock:
+            seg = self._segments.get(key)
+            if seg is not None:
+                self.hits += 1
+        if seg is None:
+            seg = _flatten_advisory(adv, key_width, pad_row)
+            with self._lock:
+                self.misses += 1
+                if len(self._segments) < self.max_entries:
+                    self._segments[key] = seg
+        g0, rows_out = seg
+        # a shallow copy with its own rows list, as the reference's
+        # dataclasses.replace makes, without running __init__ again
+        g = object.__new__(AdvisoryGroup)
+        g.__dict__.update(g0.__dict__)
+        g.rows = list(g0.rows)
+        return g, rows_out
+
+
 def build_table(raw: list[RawAdvisory], details: dict | None = None,
                 key_width: int = KEY_WIDTH,
-                aux: dict | None = None) -> AdvisoryTable:
-    """Flatten raw advisories into the sorted columnar table."""
+                aux: dict | None = None,
+                memo: FlattenMemo | None = None) -> AdvisoryTable:
+    """Flatten raw advisories into the sorted columnar table. With
+    `memo`, unchanged advisories reuse their cached flatten segments
+    (the delta flatten); the table is identical either way."""
     hash_vals: list[int] = []
     lo_rows: list[np.ndarray] = []
     hi_rows: list[np.ndarray] = []
@@ -373,7 +430,10 @@ def build_table(raw: list[RawAdvisory], details: dict | None = None,
     pad_row = np.full(key_width, 1, dtype=np.int32)  # PAD
 
     for adv in raw:
-        g, rows_out = _flatten_advisory(adv, key_width, pad_row)
+        if memo is not None:
+            g, rows_out = memo.flatten(adv, key_width, pad_row)
+        else:
+            g, rows_out = _flatten_advisory(adv, key_width, pad_row)
         gid = len(groups)
         h = key_hash(adv.source, adv.pkg_name)
         for lo_tok, hi_tok, flags in rows_out:

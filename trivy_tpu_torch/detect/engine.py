@@ -62,6 +62,7 @@ from ..ops import bucket_ladder, bucket_size
 from ..ops import join as J
 from ..ops import next_pow2 as _next_pow2
 from ..ops.hashing import fnv1a64_batch
+from ..resilience import blameless_active
 
 # hit-buffer budget: the fraction of a dispatch's padded pairs the
 # compaction buffer is sized for, adapted by powers of two from observed
@@ -451,12 +452,17 @@ class BatchDetector:
         on the side stream; without one they are copied here, inline
         (the cold path, ledgered as such). A staging error is raised
         here. `site` attributes the launch in the ledger ("detect" per
-        request, "detectd" for merged dispatches); `warm` marks warmup
+        request, "detectd" for merged dispatches, "redetect" for any
+        launch under resilience.blameless()); `warm` marks warmup
         launches, which are not traffic. The launch region's host wall
         is charged as device ms (obs/cost.py)."""
         J.check_csr_descriptors(q_count, n_queries)
         if h_cap is None:
             h_cap = self._hit_capacity(t_pad)
+        if blameless_active():
+            # redetectd's sweep: its launches stand apart from live ones
+            # in the dispatch ledger and the cost ledger
+            site = "redetect"
         if staged is not None and staged.error is not None:
             raise staged.error
         t_watch = time.perf_counter()

@@ -634,10 +634,4 @@ UNFED = {
     "trivy_tpu_fleet_failovers_total": "A12",
     "trivy_tpu_fleet_db_version_skew_total": "A12",
     "trivy_tpu_fleet_router_latency_seconds": "A12",
-    "trivy_tpu_memo_hits_total": "A9",
-    "trivy_tpu_memo_misses_total": "A9",
-    "trivy_tpu_memo_stores_total": "A9",
-    "trivy_tpu_redetect_sweeps_total": "A9",
-    "trivy_tpu_redetect_blobs_total": "A9",
-    "trivy_tpu_redetect_active": "A9",
 }

@@ -12,10 +12,16 @@ launches. Then come the results that need no join: the ingest degradations, the
 misconfigurations, the secrets and, under the license scanner, the
 license results.
 
+With a memo (fleet/memo.py), each attributable unit (the OS batch, one
+application's batch) whose (blob, db version) entry matches replays its
+stored hits instead of joining; the live remainder joins and publishes
+back. Under `resilience.blameless()` (redetectd's post-swap sweep) the
+join takes the direct engine path, never a merged detectd dispatch.
+
 Each scan_many call runs under one trace (unless the server already
 stamped a per-RPC one) with the JAX package's spans: `scan`, and under
-it `scan.apply_layers`, `scan.build_queries`, `scan.detect` and
-`scan.assemble_results`."""
+it `scan.apply_layers`, `scan.build_queries`, `scan.memo` (with a
+memo), `scan.detect` and `scan.assemble_results`."""
 
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ from .detect.langpkg import LangpkgScanner
 from .detect.ospkg import OspkgScanner
 from .fanal.applier import apply_layers
 from .licensing import scan_license_name
+from .obs import cost as _cost
 from .obs import ensure_trace, span
+from .resilience import blameless_active
 
 if TYPE_CHECKING:
     from .detect.sched import SchedOptions
@@ -41,9 +49,11 @@ if TYPE_CHECKING:
 class LocalScanner:
     def __init__(self, cache, table: AdvisoryTable,
                  device: str | torch.device | None = None,
-                 sched: "SchedOptions | None" = None):
+                 sched: "SchedOptions | None" = None, memo=None):
         self.cache = cache
         self.table = table
+        # graftmemo: an open fleet.memo.MemoStore (None = no memo)
+        self.memo = memo
         self.detector = BatchDetector(table, device=device)
         # detectd: the server's scans merge their batches' launches
         self.sched = None
@@ -82,6 +92,7 @@ class LocalScanner:
     def _scan_many_traced(self, items, options, now):
         options = options or T.ScanOptions()
         details = []
+        item_blobs = []   # per item: its BlobInfos, in blob_ids order
         with span("scan.apply_layers", targets=len(items)):
             for _target, artifact_id, blob_ids in items:
                 blobs = []
@@ -103,6 +114,7 @@ class LocalScanner:
                         app.packages = [p for p in app.packages
                                         if not p.dev]
                 details.append(detail)
+                item_blobs.append(blobs)
 
         # phase 1: every query batch (host)
         units = []    # (item index, "os" | app, finish)
@@ -127,13 +139,48 @@ class LocalScanner:
             sp.attrs.update(batches=len(batches),
                             queries=sum(len(b) for b in batches))
 
-        # phase 2: one detect_many over every batch (device), through
-        # detectd when the owner turned it on
-        hit_lists = []
-        if batches:
-            with span("scan.detect", batches=len(batches)):
-                detect = self.sched or self.detector
-                hit_lists = detect.detect_many(batches)
+        # graftmemo: a unit whose (blob, db version) entry matches its
+        # query digest replays its stored hits; the rest join live and
+        # publish their hits back. A memo fault reads as a miss.
+        session = None
+        replayed: dict[int, list] = {}
+        store_tokens: dict[int, tuple] = {}
+        if self.memo is not None and units:
+            from .fleet.memo import MemoSession
+            session = MemoSession(self.memo, self.table.content_digest())
+            with span("scan.memo", units=len(units)) as sp:
+                for u_i, ((idx, unit, _fin), qs) in enumerate(
+                        zip(units, batches)):
+                    hits, token = session.consult(
+                        unit, qs, details[idx], item_blobs[idx],
+                        items[idx][2])
+                    if hits is not None:
+                        replayed[u_i] = hits
+                    elif token is not None:
+                        store_tokens[u_i] = token
+                sp.attrs.update(replayed=len(replayed))
+                # replays are work avoided, priced per replayed query
+                if replayed:
+                    _cost.note_work_avoided(
+                        sum(len(batches[i]) for i in replayed))
+
+        # phase 2: one detect_many over the live batches (device),
+        # through detectd when the owner turned it on, except for
+        # blameless (background) work, which never shares a merged
+        # launch with live requests
+        hit_lists: list = [replayed.get(i) for i in range(len(batches))]
+        live = [i for i in range(len(batches)) if i not in replayed]
+        if live:
+            with span("scan.detect", batches=len(live)):
+                detect = self.sched if self.sched is not None and \
+                    not blameless_active() else self.detector
+                live_hits = detect.detect_many([batches[i] for i in live])
+            for u_i, hits in zip(live, live_hits):
+                hit_lists[u_i] = hits
+        if session is not None:
+            for u_i, token in store_tokens.items():
+                session.record(token, hit_lists[u_i])
+            session.flush()
 
         # phase 3: per-target results (host)
         with span("scan.assemble_results"):

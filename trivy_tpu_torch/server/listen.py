@@ -17,8 +17,11 @@ a request cost ledger (X-Trivy-Cost on the response); GET /metrics
 serves METRICS in the Prometheus text format; /debug/traces,
 /debug/incidents, /debug/perf, /debug/profile?ms=N and /debug/costs are
 gated by the token that gates the POST routes; `serve(trace_path=)`
-records a Chrome trace for the server's lifetime. Not ported: the mesh,
-the memo, redetectd, and the breaker and its recovery.
+records a Chrome trace for the server's lifetime. With a memo backend
+(`memo_backend`, fleet/memo.py) scans replay their units' memoized hits,
+and a swap to a table of another content digest schedules redetectd's
+sweep (detect/redetect.py); /healthz shows both under `memo`. Not
+ported: the mesh and the breaker and its recovery.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ import numpy as np
 
 from .. import __version__
 from .. import types as T
+from ..detect.redetect import RedetectDaemon
 from ..detect.sched import SchedOptions
 from ..fanal.cache import blob_from_json, open_cache
+from ..fleet.memo import open_memo
 from ..log import get as _get_logger
 from ..metrics import METRICS
 from ..obs import PROF, SLO, device_status, new_trace, span
@@ -116,8 +121,12 @@ class ServerState:
     def __init__(self, table, cache_dir: str, token: str = "",
                  cache_backend: str = "fs", detect_opts=None,
                  admission=None, device=None, sbom_opts=None,
-                 launch_record: LaunchRecord | None = None):
+                 launch_record: LaunchRecord | None = None,
+                 memo_backend="", redetect_opts=None):
         self.cache = open_cache(cache_backend, cache_dir)
+        # graftmemo: the detection-result memo ("" = none), keyed by
+        # (blob, table content digest)
+        self.memo = open_memo(memo_backend, cache_dir)
         self.token = token
         self.device = device
         self._lock = threading.Lock()
@@ -146,10 +155,18 @@ class ServerState:
         # swapped-out scanner closes when its generation's count drains
         self._gen = 0
         self._gen_active = {0: 0}
+        # redetectd: after a swap to a new table, sweep the memo's known
+        # blobs onto its version in the background
+        self.redetect = None
+        if self.memo is not None:
+            self.redetect = RedetectDaemon(
+                self.memo, self.cache, self.admission,
+                self.scanner_with_version, redetect_opts,
+                track=(self.request_started, self.request_finished))
 
     def _new_scanner(self, table) -> LocalScanner:
         scanner = LocalScanner(self.cache, table, self.device,
-                               sched=self.detect_opts)
+                               sched=self.detect_opts, memo=self.memo)
         # the identity /healthz names (never read from torch.cuda
         # there), and the profiler's activities
         self.device_name = note_device(scanner.detector.device)
@@ -204,6 +221,9 @@ class ServerState:
             if retry_after_s is not None:
                 self.drain_retry_after_s = retry_after_s
             self._draining = True
+        # a draining server's sweep is work nobody will be served from
+        if self.redetect is not None:
+            self.redetect.cancel()
 
     def drain(self, timeout_s: float) -> bool:
         """Wait (bounded) for every request in flight to finish. → True
@@ -225,14 +245,18 @@ class ServerState:
                 return
             self._closed = True
             scanner = self._scanner
+        if self.redetect is not None:
+            self.redetect.close()
         scanner.close()
 
     def swap_table(self, table) -> None:
         """DB hot swap (reference listen.go dbWorker). The new scanner
         is built outside the lock; requests that started before the swap
-        keep the old one, which closes once the last of them finishes."""
+        keep the old one, which closes once the last of them finishes.
+        A new content digest schedules redetectd's sweep."""
         new_scanner = self._new_scanner(table)
         new_version = table.content_digest()
+        version_changed = False
         with self._lock:
             if self._closed:
                 old_scanner = None
@@ -244,7 +268,8 @@ class ServerState:
                     del self._gen_active[old_gen]
                 self._scanner = new_scanner
                 self._table = table
-                if new_version != self.db_version:
+                version_changed = new_version != self.db_version
+                if version_changed:
                     self.db_previous_version = self.db_version
                     self.db_swapped_at = time.strftime(
                         "%Y-%m-%dT%H:%M:%SZ", time.gmtime())
@@ -252,6 +277,14 @@ class ServerState:
         if old_scanner is None:   # closed while the scanner was built
             new_scanner.close()
             return
+        if version_changed and self.redetect is not None \
+                and not self._draining:
+            self.redetect.schedule(new_version)
+            # a begin_drain racing in between found no sweep to cancel
+            with self._lock:
+                draining = self._draining
+            if draining:
+                self.redetect.cancel()
         # the old table's object graph is garbage once nothing holds it
         gc.collect()
         self._close_when_idle(old_scanner, old_gen)
@@ -279,12 +312,13 @@ class ServerState:
         """The JSON /healthz: status, the DB identity, the cached device
         view (obs/device.py: it never touches torch.cuda) and the card's
         name read at start, the admission queue and the ingest breakers,
-        the SLO burn rates, the tenants' cost split and what detectd's
-        merged dispatches did."""
+        the SLO burn rates, the tenants' cost split, what detectd's
+        merged dispatches did and, with a memo, its backend, known
+        blobs and redetectd's sweep."""
         from ..fanal.pipeline import INGEST
         scanner = self.scanner
         admission = self.admission.snapshot()
-        return {
+        payload = {
             "status": "draining" if self.draining else "ok",
             "db_version": self.db_version,
             "db_previous_version": self.db_previous_version,
@@ -303,6 +337,12 @@ class ServerState:
             "detectd": dict(scanner.sched.stats)
             if scanner.sched is not None else None,
         }
+        if self.memo is not None:
+            memo = self.memo.status()
+            if self.redetect is not None:
+                memo["sweep"] = self.redetect.status()
+            payload["memo"] = memo
+        return payload
 
 
 class ScanServer(ThreadingHTTPServer):
@@ -644,7 +684,8 @@ def serve(host: str, port: int, table, cache_dir: str, token: str = "",
           ready_event: threading.Event | None = None, cache_backend="fs",
           detect_opts=None, admission=None, drain_grace_s: float = 10.0,
           device=None, launch_record: LaunchRecord | None = None,
-          trace_path: str = "") -> ServerState:
+          trace_path: str = "", memo_backend="",
+          redetect_opts=None) -> ServerState:
     """Serve until SIGTERM/SIGINT drains the server (`drain_grace_s`
     bounds the wait for requests in flight) → the closed state.
     `trace_path` records every span for the server's lifetime and
@@ -654,7 +695,9 @@ def serve(host: str, port: int, table, cache_dir: str, token: str = "",
         COLLECTOR.enable()
     state = ServerState(table, cache_dir, token, cache_backend,
                         detect_opts=detect_opts, admission=admission,
-                        device=device, launch_record=launch_record)
+                        device=device, launch_record=launch_record,
+                        memo_backend=memo_backend,
+                        redetect_opts=redetect_opts)
     httpd = _bind(host, port, state)
     install_drain_handlers(httpd, state, drain_grace_s)
     # the accept loop runs on its own thread; this (main) thread runs
@@ -704,12 +747,14 @@ def serve(host: str, port: int, table, cache_dir: str, token: str = "",
 def serve_background(host: str, port: int, table, cache_dir: str,
                      token: str = "", cache_backend: str = "fs",
                      detect_opts=None, admission=None, device=None,
-                     sbom_opts=None):
+                     sbom_opts=None, memo_backend="", redetect_opts=None):
     """Serve from a daemon thread → (httpd, state) once listening. The
     caller shuts down: `httpd.shutdown()`, then `state.close()`."""
     state = ServerState(table, cache_dir, token, cache_backend,
                         detect_opts=detect_opts, admission=admission,
-                        device=device, sbom_opts=sbom_opts)
+                        device=device, sbom_opts=sbom_opts,
+                        memo_backend=memo_backend,
+                        redetect_opts=redetect_opts)
     httpd = _bind(host, port, state)
     threading.Thread(target=httpd.serve_forever, name="scan-server",
                      daemon=True).start()
