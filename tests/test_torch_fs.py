@@ -344,9 +344,17 @@ def test_secret_config_is_excluded_like_reference(in_tmp, capsys):
 
 
 def test_repo_url_is_refused(in_tmp):
-    with pytest.raises(SystemExit, match="remote repositories are not"):
-        cli.main(["repo", "https://github.com/aquasecurity/trivy-ci-test",
-                  "--db", DB, "--device", "cpu"])
+    """A repository URL that does not clone ends both CLIs with the JAX
+    message (remote repositories are cloned: a file:// URL
+    here, so nothing leaves the machine)."""
+    url = f"file://{in_tmp}/none.git"
+    msgs = []
+    for main, extra in ((cli.main, ["--device", "cpu"]), (ref_cli.main, [])):
+        with pytest.raises(SystemExit, match=r"git clone .* failed: ") as e:
+            main(["repo", url, "--db", DB, "--cache-dir",
+                  str(in_tmp / "c"), *extra])
+        msgs.append(e.value.code)
+    assert msgs[0] == msgs[1]
 
 
 def test_fs_cli_identical_to_reference_in_subprocesses(tmp_path):

@@ -50,7 +50,8 @@ need = ["trivy_tpu_torch." + m for m in (
     "obs.device", "obs.perf", "obs.perfcheck", "obs.exposition", "log",
     "metrics", "resilience", "resilience.admission", "resilience.retry", "server",
     "server.protowire", "server.convert", "server.listen",
-    "server.client")]
+    "server.client", "cloud", "cloud.sigv4", "cloud.aws", "fanal.vm",
+    "fanal.gitrepo")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """
@@ -100,6 +101,10 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
                                    str(tmp_path / "cache")]),
                  lambda: cli.main(["sbom", image, "--scanners", "license",
                                    "--cache-dir", str(tmp_path / "cache")]),
+                 lambda: cli.main(["vm", image, "--scanners", "secret"]),
+                 # a remote repository raises before it is cloned
+                 lambda: cli.main(["repo", f"file://{tmp_path}/none.git",
+                                   "--scanners", "secret"]),
                  # an image by name raises before any source is tried
                  # (this name would go to a registry on 127.0.0.1)
                  lambda: cli.main(["image", "http://127.0.0.1:1/a:1",

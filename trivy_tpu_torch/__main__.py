@@ -3,10 +3,12 @@
     python -m trivy_tpu_torch image --input ARCHIVE [...]
     python -m trivy_tpu_torch rootfs DIR [...]
     python -m trivy_tpu_torch fs DIR [...]          (alias: filesystem)
-    python -m trivy_tpu_torch repo DIR [...]        (alias: repository)
+    python -m trivy_tpu_torch repo DIR|URL [...]    (alias: repository)
+    python -m trivy_tpu_torch vm DISK|ebs:SNAPSHOT [...]
     python -m trivy_tpu_torch sbom FILE [...]
     python -m trivy_tpu_torch convert REPORT.json --format F [...]
     python -m trivy_tpu_torch server --listen HOST:PORT --db DB [...]
+    python -m trivy_tpu_torch version               (or --version)
 
 Mirrors `python -m trivy_tpu.cli` for these commands and the scanners
 `vuln`, `secret`, `license` and `misconfig` (aliases `config`,
@@ -52,14 +54,20 @@ image by name from the sources of `--image-src` in order: the docker
 and podman daemons' sockets, a containerd store, and a registry, whose
 layers stream into the walk. Image layers walk through the ingest
 pipeline (`--ingest-*` budgets; `--ingest-serial` walks them one by
-one); a hostile layer becomes an "Ingest Degradations" result. Remote
-repositories are not ported. Each command
-disables the analyzers the reference disables for it (run.go:167-224):
-image and rootfs the lockfiles, fs the installed packages, repo the
-installed packages and the OS; fs and repo also the in-image `sbom`
+one); a hostile layer becomes an "Ingest Degradations" result.
+`repo` takes a local checkout, or a URL that it clones with the host's
+`git` (`--branch`, `--tag`, `--commit`) and scans as a checkout named by
+the URL. `vm` reads a raw disk image (a bare ext4 filesystem, or one
+behind an MBR or GPT partition table), a monolithic-sparse VMDK, or an
+EBS snapshot (`ebs:snap-…`, over the EBS direct APIs) without mounting
+it. `--parallel N` reads the files of an fs, rootfs or repo tree with N
+threads; the report does not depend on N. Each command disables the
+analyzers the reference disables for it (run.go:167-252): image, rootfs
+and vm the lockfiles, fs the installed packages, repo the installed
+packages and the OS; fs, repo and vm also the in-image `sbom`
 analyzer. Runs on CUDA unless `--device cpu` is given; `--device` and
 `--debug-launches` come from the command line only. Not ported, and
-refused: `--sbom-sources rekor` (ROADMAP A5).
+refused: `--sbom-sources rekor` (ROADMAP A5.4).
 
 `--trace FILE` writes a Chrome trace-event JSON of the scan's spans
 (walk, analyzers, secret prefilter and confirm, query building, the
@@ -194,7 +202,7 @@ def _refuse_unported(args) -> None:
     if "rekor" in getattr(args, "sbom_sources", ""):
         raise SystemExit("--sbom-sources rekor needs the Rekor client and "
                          "the executable analyzer, which are not ported "
-                         "yet (ROADMAP A5)")
+                         "yet (ROADMAP A5.4)")
 
 
 def _misconf_settings(args):
@@ -484,9 +492,6 @@ def cmd_fs(args) -> int:
         disabled = LOCKFILE_ANALYZERS
         artifact_type = T.ArtifactType.FILESYSTEM
     elif args.command in ("repo", "repository"):
-        if not os.path.exists(args.target):
-            raise SystemExit(f"{args.target}: no such path; remote "
-                             f"repositories are not ported")
         disabled = INDIVIDUAL_PKG_ANALYZERS + OS_ANALYZERS + ("sbom",)
         artifact_type = T.ArtifactType.REPOSITORY
         args.pkg_types = "library"  # repo scans only language packages
@@ -494,18 +499,73 @@ def cmd_fs(args) -> int:
         disabled = INDIVIDUAL_PKG_ANALYZERS + ("sbom",)
         artifact_type = T.ArtifactType.FILESYSTEM
 
+    target, name, cleanup = args.target, "", None
+    if args.command in ("repo", "repository"):
+        target, name, cleanup = _repo_checkout(args)
+
     def artifact(cache, group, scanners, device):
         secrets, secret_cfg = _secret_scanner(args, scanners, device,
-                                              root=args.target)
+                                              root=target)
         return FilesystemArtifact(
-            args.target, cache, group=group, scanners=scanners,
+            target, cache, group=group, scanners=scanners,
             secret_scanner=secrets, secret_config_path=secret_cfg,
-            skip_files=_rel_globs(args.skip_files, args.target),
-            skip_dirs=_rel_globs(args.skip_dirs, args.target),
+            skip_files=_rel_globs(args.skip_files, target),
+            skip_dirs=_rel_globs(args.skip_dirs, target),
             # SPDX records each lockfile's sha1 (reference FileChecksum)
-            file_checksum=args.format == "spdx-json")
-    return _scan(args, artifact, MemoryCache, artifact_type, disabled,
-                 misconf=misconf)
+            file_checksum=args.format == "spdx-json",
+            parallel=args.parallel)
+    try:
+        return _scan(args, artifact, MemoryCache, artifact_type, disabled,
+                     name=name, misconf=misconf)
+    finally:
+        if cleanup is not None:
+            cleanup()
+
+
+def _repo_checkout(args) -> tuple:
+    """`repo`'s target (reference cli.py:987-1012, git.go
+    tryRemoteRepo): a local path as it is, or a URL cloned into a
+    temporary checkout → (the tree to scan, the name to report or "",
+    the clone's cleanup or None)."""
+    from .fanal.gitrepo import GitError, clone_repo, looks_like_url
+    refs = (args.branch, args.tag, args.commit)
+    if os.path.exists(args.target):
+        if any(refs):
+            raise SystemExit(
+                "--branch/--tag/--commit apply to remote repository URLs, "
+                "not local paths (check out the ref locally instead)")
+        return args.target, "", None
+    if not looks_like_url(args.target):
+        raise SystemExit(f"no such path: {args.target}")
+    resolve_device(args.device)   # before the clone
+    try:
+        checkout, cleanup = clone_repo(args.target, branch=args.branch,
+                                       tag=args.tag, commit=args.commit)
+    except GitError as e:
+        raise SystemExit(str(e)) from None
+    return checkout, args.target, cleanup
+
+
+def cmd_vm(args) -> int:
+    """A VM disk image or EBS snapshot as one blob (reference cli.py:1105,
+    run.go:252 ScanVM): the lockfile and `sbom` analyzers off, an
+    in-memory cache."""
+    from .fanal.artifact import VMArtifact
+    misconf = _misconf_settings(args)
+
+    def artifact(cache, group, scanners, device):
+        secrets, secret_cfg = _secret_scanner(args, scanners, device)
+        return VMArtifact(args.target, cache, group=group,
+                          scanners=scanners, secret_scanner=secrets,
+                          secret_config_path=secret_cfg)
+    return _scan(args, artifact, MemoryCache, T.ArtifactType.VM,
+                 LOCKFILE_ANALYZERS + ("sbom",), misconf=misconf)
+
+
+def cmd_version(args) -> int:
+    """`version` (reference cli.py:1544), as `--version` prints it."""
+    print(f"trivy-tpu {__version__}")
+    return 0
 
 
 def cmd_convert(args) -> int:
@@ -822,6 +882,10 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--license-full", action="store_true",
                    help="also classify license FILES by full text "
                         "(LICENSE/COPYING/NOTICE)")
+    p.add_argument("--parallel", type=int, default=1,
+                   help="file readers of fs, rootfs and repo walks "
+                        "(reference walker --parallel); the report does "
+                        "not depend on it")
     p.add_argument("--skip-files", action="append", default=[],
                    help="glob of files to leave out (repeatable)")
     p.add_argument("--skip-dirs", action="append", default=[],
@@ -934,10 +998,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="trivy_tpu_torch", allow_abbrev=False,
         description="Vulnerability (OS and language packages), secret, "
-                    "license and misconfiguration scanning of image "
-                    "archives, root filesystems, source trees and SBOMs, "
+                    "license and misconfiguration scanning of images, "
+                    "root filesystems, source trees, VM disks and SBOMs, "
                     "with the advisory join and the secret prefilter on "
                     "CUDA.")
+    ap.add_argument("--version", action="version",
+                    version=f"trivy-tpu {__version__}")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser(
         "image", help="scan a container image by name, or an archive")
@@ -959,10 +1025,17 @@ def build_parser() -> argparse.ArgumentParser:
     for name, aliases, what in (
             ("filesystem", ["fs"], "a directory tree, with its lockfiles"),
             ("rootfs", [], "a root filesystem tree"),
-            ("repository", ["repo"], "a local repository checkout "
-                                     "(language packages only)")):
+            ("repository", ["repo"], "a local checkout or a remote git "
+                                     "repository (language packages "
+                                     "only)")):
         p = sub.add_parser(name, aliases=aliases, help=f"scan {what}")
         p.add_argument("target")
+        if name == "repository":
+            p.add_argument("--branch", default="",
+                           help="remote branch to clone")
+            p.add_argument("--tag", default="", help="remote tag to clone")
+            p.add_argument("--commit", default="",
+                           help="remote commit to check out (full clone)")
         _scan_flags(p)
         p.set_defaults(func=cmd_fs)
     p = sub.add_parser("sbom", help="scan an SBOM (CycloneDX or SPDX, bare "
@@ -970,6 +1043,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("target")
     _scan_flags(p)
     p.set_defaults(func=cmd_sbom)
+    p = sub.add_parser("vm", help="scan a VM disk image (raw, MBR, GPT, "
+                                  "sparse VMDK) or an EBS snapshot")
+    p.add_argument("target", help="disk image path or ebs:<snapshot-id>")
+    _scan_flags(p)
+    p.set_defaults(func=cmd_vm)
     p = sub.add_parser("convert", help="re-render a saved JSON report")
     p.add_argument("report")
     p.add_argument("--format", "-f", default="table",
@@ -981,6 +1059,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("server", help="run the scan server")
     _server_flags(p)
     p.set_defaults(func=cmd_server)
+    sub.add_parser("version", help="print version").set_defaults(
+        func=cmd_version)
     for sp in sub.choices.values():
         sp.allow_abbrev = False
     return ap

@@ -11,7 +11,7 @@ node-pkg, gemspec, rustbinary), the in-image `sbom` analyzer, the
 opt-in `license-file` one, and the config analyzers `misconf`
 (dockerfile, kubernetes, CloudFormation, Terraform plans, Azure ARM,
 user rego checks), `helm` and `terraform`. Not ported: executable
-(ROADMAP A5). `file_patterns` ("analyzer:regex", --file-patterns)
+(ROADMAP A5.4). `file_patterns` ("analyzer:regex", --file-patterns)
 routes more paths to an analyzer, and `misconf` (misconf.MisconfSettings)
 carries the scan's user checks, helm overrides and rego trace to the
 config analyzers."""

@@ -2,9 +2,10 @@
 with each blob's analysis kept in the cache.
 
 Mirrors pkg/fanal/artifact: image archives (docker-save tarballs and OCI
-image layouts, artifact/image/archive) and local filesystems
-(artifact/local/fs.go), and registry images streamed layer by layer
-(RegistryArtifact). Missing layers walk through the ingest pipeline
+image layouts, artifact/image/archive), local filesystems
+(artifact/local/fs.go), VM disk images (artifact/vm: VMArtifact, over
+vm.py), and registry images streamed layer by layer (RegistryArtifact).
+Missing layers walk through the ingest pipeline
 (pipeline.py) when the source can stream them, else one after another;
 the secret lane then scans every walked layer's candidate files in ONE
 SecretScanner.scan_files_many call, so an image is one prefilter batch
@@ -30,6 +31,7 @@ from .analyzers import AnalyzerGroup
 from .cache import cache_key
 from .ingest import partial_blob_id
 from .pipeline import archive_member_stream
+from .vm import open_device, walk_vm
 from .walker import (DEFAULT_SECRET_CONFIG, blob_info,
                      normalize_skip_globs, walk_fs, walk_layer_tar)
 
@@ -56,6 +58,22 @@ class _Artifact:
     @property
     def want_secrets(self) -> bool:
         return "secret" in self.scanners
+
+    def _put_one_blob(self, scan, name: str,
+                      artifact_type: str) -> "ArtifactReference":
+        """A tree or a disk walked into one synthetic blob: blob info →
+        secret scan → content-addressed cache key → cache put."""
+        bi = blob_info(scan)
+        if self.want_secrets and scan.secret_files:
+            bi.secrets = self.secret_scanner.scan_files(scan.secret_files)
+        content_id = "sha256:" + hashlib.sha256(
+            json.dumps(bi.to_json(), sort_keys=True).encode()).hexdigest()
+        blob_id = cache_key(content_id, self.group.versions(),
+                            {"scanners": sorted(self.scanners)})
+        self.cache.put_blob(blob_id, bi)
+        self.cache.put_artifact(blob_id, {"SchemaVersion": 2})
+        return ArtifactReference(name=name, type=artifact_type, id=blob_id,
+                                 blob_ids=[blob_id])
 
 
 class _ImageInspectMixin(_Artifact):
@@ -406,22 +424,25 @@ class FilesystemArtifact(_Artifact):
     """A directory tree as one synthetic blob
     (pkg/fanal/artifact/local/fs.go:114): walk → post-analyzers over the
     whole tree → blob info → secret scan → content-addressed cache key →
-    cache put. `file_checksum` stamps lockfile packages with their
-    file's sha1 (the SPDX formats). The skip globs and `secret_config_path` are relative to
-    the root (the CLI's `_rel_globs` makes them so)."""
+    cache put. `parallel` file readers walk it (--parallel), with the
+    same blob for every count. `file_checksum` stamps lockfile packages
+    with their file's sha1 (the SPDX formats). The skip globs and
+    `secret_config_path` are relative to the root (the CLI's
+    `_rel_globs` makes them so)."""
 
     def __init__(self, root: str, cache,
                  group: Optional[AnalyzerGroup] = None,
                  scanners: tuple = ("vuln",), secret_scanner=None,
                  secret_config_path: str = DEFAULT_SECRET_CONFIG,
                  skip_files: tuple = (), skip_dirs: tuple = (),
-                 file_checksum: bool = False):
+                 file_checksum: bool = False, parallel: int = 1):
         super().__init__(cache, group, scanners, secret_scanner)
         self.root = root
         self.secret_config_path = secret_config_path
         self.skip_files = tuple(skip_files)
         self.skip_dir_globs = tuple(skip_dirs)
         self.file_checksum = file_checksum
+        self.parallel = parallel
 
     def inspect(self) -> ArtifactReference:
         scan = walk_fs(self.root, self.group,
@@ -429,16 +450,38 @@ class FilesystemArtifact(_Artifact):
                        secret_config_path=self.secret_config_path,
                        skip_files=self.skip_files,
                        skip_dir_globs=self.skip_dir_globs,
-                       file_checksum=self.file_checksum)
-        bi = blob_info(scan)
-        if self.want_secrets and scan.secret_files:
-            bi.secrets = self.secret_scanner.scan_files(scan.secret_files)
-        content_id = "sha256:" + hashlib.sha256(
-            json.dumps(bi.to_json(), sort_keys=True).encode()).hexdigest()
-        blob_id = cache_key(content_id, self.group.versions(),
-                            {"scanners": sorted(self.scanners)})
-        self.cache.put_blob(blob_id, bi)
-        self.cache.put_artifact(blob_id, {"SchemaVersion": 2})
-        return ArtifactReference(
-            name=os.path.abspath(self.root).rstrip("/"),
-            type=T.ArtifactType.FILESYSTEM, id=blob_id, blob_ids=[blob_id])
+                       file_checksum=self.file_checksum,
+                       parallel=self.parallel)
+        return self._put_one_blob(
+            scan, os.path.abspath(self.root).rstrip("/"),
+            T.ArtifactType.FILESYSTEM)
+
+
+class VMArtifact(_Artifact):
+    """A raw disk image, a sparse VMDK or an EBS snapshot (`ebs:snap-…`)
+    as one synthetic blob (reference pkg/fanal/artifact/vm/vm.go): the
+    partitions and the read-only ext4 of vm.py walked through the same
+    analyzers as a tree (no span of its own, as in the JAX package),
+    then cached as FilesystemArtifact caches one. The report names the
+    target as given. An EBS snapshot is read through `aws_client`, or an
+    AWSClient from the AWS_* environment."""
+
+    def __init__(self, target: str, cache,
+                 group: Optional[AnalyzerGroup] = None,
+                 scanners: tuple = ("vuln",), secret_scanner=None,
+                 secret_config_path: str = DEFAULT_SECRET_CONFIG,
+                 aws_client=None):
+        super().__init__(cache, group, scanners, secret_scanner)
+        self.target = target
+        self.secret_config_path = secret_config_path
+        self.aws_client = aws_client
+
+    def inspect(self) -> ArtifactReference:
+        dev = open_device(self.target, aws_client=self.aws_client)
+        try:
+            scan = walk_vm(dev, self.group,
+                           collect_secrets=self.want_secrets,
+                           secret_config_path=self.secret_config_path)
+        finally:
+            dev.close()
+        return self._put_one_blob(scan, self.target, T.ArtifactType.VM)

@@ -4,9 +4,12 @@ with `gz_bytes` where wanted). Zeroed tar/gzip mtimes keep the bytes
 reproducible, so the same seed gives the same image ids. Also the bytes
 of binaries the analyzers identify: a Go binary with inline build info
 (`go_binary_bytes`) and a cargo-auditable Rust binary
-(`rust_audit_elf`). And `OCIRegistry`, an in-process OCI distribution
-registry on 127.0.0.1 that serves such images and the trivy-db artifact
-by name.
+(`rust_audit_elf`). Disk images for `vm`: a bare ext4 filesystem from a
+{path: bytes} tree (`ext4_image`), and the disks that wrap one in an MBR
+or GPT partition table or a sparse VMDK (`mbr_disk`, `gpt_disk`,
+`vmdk_sparse`), all written here in Python. And `OCIRegistry`, an
+in-process OCI distribution registry on 127.0.0.1 that serves such
+images and the trivy-db artifact by name.
 
 The docker-save layout is the JAX package's (fanal/fixtures.py) byte for
 byte, so an archive written here scans to the same report in both
@@ -127,6 +130,203 @@ def write_oci_layout(path: str, layer_blobs: list[bytes],
                        b'{"imageLayoutVersion": "1.0.0"}'),
                       ("index.json", json.dumps(index).encode())]
                + [(f"blobs/sha256/{d}", b) for d, b in blobs.items()])
+
+
+# ---- disk images: a small ext4 writer and the MBR, GPT and VMDK wrappers
+
+SECTOR = 512
+_INODE_SIZE = 256
+_FIRST_INO = 11            # inodes 1-10 are reserved; 2 is the root
+# one less than the longest initialized extent (32768 blocks): vm.py's
+# reader, as the JAX package's, takes the length's low 15 bits
+_EXTENT_MAX_BLOCKS = 32767
+_S_IFDIR, _S_IFREG = 0x4000, 0x8000
+_EXTENTS_FL = 0x80000
+_INCOMPAT_FILETYPE, _INCOMPAT_EXTENTS = 0x2, 0x40
+
+
+def ext4_image(tree: dict, size_mb: int, block_size: int = 4096) -> bytes:
+    """A bare ext4 filesystem of `size_mb` MiB holding {path: bytes}
+    (directories are implied by the paths), written for readers that
+    walk a disk without mounting it (fanal/vm.py): no journal, no
+    checksums and no allocation bitmaps; linear directories; each file
+    in contiguous blocks, mapped by at most four extents in its inode.
+    As many block groups as the size needs (8 × block_size blocks
+    each), with the inodes spread over their tables. The same tree gives
+    the same bytes."""
+    if block_size not in (1024, 2048, 4096):
+        raise ValueError(f"block size {block_size}: 1024, 2048 or 4096")
+    bs = block_size
+    files, dirs = {}, {"": {}}          # dirs: path → {name: child}
+    for path, content in tree.items():
+        parts = [p for p in path.split("/") if p not in ("", ".")]
+        if not parts or ".." in parts:
+            raise ValueError(f"{path!r}: not a relative file path")
+        for i in range(1, len(parts)):
+            dirs.setdefault("/".join(parts[:i]), {})
+            dirs["/".join(parts[:i - 1])][parts[i - 1]] = \
+                "/".join(parts[:i])
+        rel = "/".join(parts)
+        files[rel] = bytes(content)
+        dirs["/".join(parts[:-1])][parts[-1]] = rel
+    clash = sorted(set(files) & set(dirs))
+    if clash:
+        raise ValueError(f"{clash[0]!r} is both a file and a directory")
+    ino = {"": 2}
+    for rel in sorted(dirs)[1:] + sorted(files):
+        ino[rel] = _FIRST_INO + len(ino) - 1
+    max_ino = _FIRST_INO + len(ino) - 2
+
+    n_blocks = (size_mb << 20) // bs
+    first_data = 1 if bs == 1024 else 0
+    per_group = 8 * bs
+    n_groups = -(-(n_blocks - first_data) // per_group)
+    step = max(8, bs // _INODE_SIZE)
+    ipg = -(-max_ino // n_groups // step) * step
+    gdt = first_data + 1
+    itable = gdt + -(-n_groups * 32 // bs)
+    itable_blocks = ipg * _INODE_SIZE // bs
+    next_free = itable + n_groups * itable_blocks
+    img = bytearray(n_blocks * bs)
+
+    def alloc(data: bytes) -> tuple:
+        nonlocal next_free
+        start, count = next_free, -(-len(data) // bs)
+        if start + count > n_blocks:
+            raise ValueError(f"the tree does not fit {size_mb} MiB")
+        img[start * bs:start * bs + len(data)] = data
+        next_free += count
+        return start, count
+
+    def put_inode(n: int, mode: int, size: int, start: int, count: int,
+                  links: int) -> None:
+        extents = [(lb, min(count - lb, _EXTENT_MAX_BLOCKS))
+                   for lb in range(0, count, _EXTENT_MAX_BLOCKS)]
+        if len(extents) > 4:
+            raise ValueError(f"inode {n}: more than four extents")
+        group, index = divmod(n - 1, ipg)
+        off = (itable + group * itable_blocks) * bs + index * _INODE_SIZE
+        struct.pack_into("<HHIIIIIHHII", img, off, mode, 0,
+                         size & 0xFFFFFFFF, 0, 0, 0, 0, 0, links,
+                         count * bs // SECTOR, _EXTENTS_FL)
+        struct.pack_into("<HHHHI", img, off + 40, 0xF30A, len(extents),
+                         4, 0, 0)
+        for k, (lb, ln) in enumerate(extents):
+            struct.pack_into("<IHHI", img, off + 52 + 12 * k, lb, ln,
+                             (start + lb) >> 32, (start + lb) & 0xFFFFFFFF)
+        struct.pack_into("<I", img, off + 108, size >> 32)
+        struct.pack_into("<H", img, off + 128, 32)   # i_extra_isize
+
+    def dir_bytes(rel: str, parent: str) -> bytes:
+        entries = [(ino[rel], 2, b"."), (ino[parent], 2, b"..")] + [
+            (ino[child], 2 if child in dirs else 1, name.encode())
+            for name, child in sorted(dirs[rel].items())]
+        out, block = bytearray(), bytearray()
+        last = 0   # offset in `block` of its last entry
+        for n, ftype, name in entries:
+            rec = (8 + len(name) + 3) & ~3
+            if len(block) + rec > bs:
+                # the block's last entry takes its slack
+                struct.pack_into("<H", block, last + 4, bs - last)
+                out += block.ljust(bs, b"\0")
+                block = bytearray()
+            last = len(block)
+            block += struct.pack("<IHBB", n, rec, len(name), ftype) + \
+                name + b"\0" * (rec - 8 - len(name))
+        struct.pack_into("<H", block, last + 4, bs - last)
+        return bytes(out + block.ljust(bs, b"\0"))
+
+    for rel in sorted(dirs):
+        parent = rel.rpartition("/")[0] if rel else ""
+        data = dir_bytes(rel, parent)
+        start, count = alloc(data)
+        subdirs = sum(1 for c in dirs[rel].values() if c in dirs)
+        put_inode(ino[rel], _S_IFDIR | 0o755, len(data), start, count,
+                  2 + subdirs)
+    for rel in sorted(files):
+        start, count = alloc(files[rel])
+        put_inode(ino[rel], _S_IFREG | 0o644, len(files[rel]), start,
+                  count, 1)
+    for g in range(n_groups):
+        struct.pack_into("<III", img, gdt * bs + 32 * g, 0, 0,
+                         itable + g * itable_blocks)
+    sb = 1024
+    struct.pack_into(
+        "<IIIIIIIIIIIIIHHHHHH", img, sb, ipg * n_groups, n_blocks, 0,
+        n_blocks - next_free, ipg * n_groups - max_ino, first_data,
+        bs.bit_length() - 11, bs.bit_length() - 11, per_group, per_group,
+        ipg, 0, 0, 0, 0xFFFF, 0xEF53, 1, 1, 0)
+    struct.pack_into("<IIIIHHIHHII", img, sb + 64, 0, 0, 0, 1, 0, 0,
+                     _FIRST_INO, _INODE_SIZE, 0, 0,
+                     _INCOMPAT_FILETYPE | _INCOMPAT_EXTENTS)
+    return bytes(img)
+
+
+def mbr_disk(fs: bytes, start_lba: int = 2048) -> bytes:
+    """A disk with an MBR partition table whose one Linux partition,
+    from `start_lba`, holds `fs`."""
+    head = bytearray(start_lba * SECTOR)
+    head[446:462] = struct.pack("<8BII", 0, 0, 0, 0, 0x83, 0, 0, 0,
+                                start_lba, -(-len(fs) // SECTOR))
+    head[510:512] = b"\x55\xaa"
+    return bytes(head) + fs
+
+
+def gpt_disk(fs: bytes, first_lba: int = 2048) -> bytes:
+    """A disk with a GPT (protective MBR, header and entry CRCs) whose
+    one partition, from `first_lba`, holds `fs`."""
+    entry = bytearray(128)
+    entry[0:16] = b"\x01" * 16            # partition type GUID
+    entry[16:32] = b"\x02" * 16           # unique GUID
+    struct.pack_into("<QQ", entry, 32, first_lba,
+                     first_lba + -(-len(fs) // SECTOR) - 1)
+    entries = bytes(entry) + b"\0" * (127 * 128)
+    hdr = bytearray(92)
+    hdr[0:8] = b"EFI PART"
+    struct.pack_into("<IIIIQ", hdr, 8, 0x00010000, 92, 0, 0, 1)
+    struct.pack_into("<QII", hdr, 72, 2, 128, 128)
+    struct.pack_into("<I", hdr, 88, zlib.crc32(entries) & 0xFFFFFFFF)
+    struct.pack_into("<I", hdr, 16, zlib.crc32(bytes(hdr)) & 0xFFFFFFFF)
+    disk = bytearray(first_lba * SECTOR)
+    disk[446 + 4] = 0xEE                  # the protective MBR's partition
+    disk[510:512] = b"\x55\xaa"
+    disk[SECTOR:SECTOR + 92] = hdr
+    disk[2 * SECTOR:2 * SECTOR + len(entries)] = entries
+    return bytes(disk) + fs
+
+
+def vmdk_sparse(disk: bytes, grain_sectors: int = 128,
+                num_gtes: int = 512) -> bytes:
+    """`disk` as a VMware monolithic-sparse VMDK extent: header, grain
+    directory, grain tables, then the grains that are not all zeros
+    (a zero grain is left unallocated, as VMware leaves it)."""
+    grain = grain_sectors * SECTOR
+    capacity = -(-len(disk) // SECTOR)
+    n_grains = -(-capacity // grain_sectors)
+    n_gts = -(-n_grains // num_gtes)
+    gd_off = 1
+    gd_sectors = -(-4 * n_gts // SECTOR)
+    gt_off = gd_off + gd_sectors
+    gt_sectors = 4 * num_gtes // SECTOR
+    data_off = gt_off + n_gts * gt_sectors
+    gts = [[0] * num_gtes for _ in range(n_gts)]
+    grains, sector = [], data_off
+    for g in range(n_grains):
+        chunk = disk[g * grain:(g + 1) * grain]
+        if not chunk.strip(b"\0"):
+            continue
+        gts[g // num_gtes][g % num_gtes] = sector
+        grains.append(chunk.ljust(grain, b"\0"))
+        sector += grain_sectors
+    hdr = b"KDMV" + struct.pack("<IIQQQQIQQQ", 1, 3, capacity,
+                                grain_sectors, 0, 0, num_gtes, 0, gd_off,
+                                data_off)
+    gd = struct.pack(f"<{n_gts}I", *(gt_off + i * gt_sectors
+                                     for i in range(n_gts)))
+    return b"".join([hdr.ljust(SECTOR, b"\0"),
+                     gd.ljust(gd_sectors * SECTOR, b"\0"),
+                     *(struct.pack(f"<{num_gtes}I", *gt) for gt in gts),
+                     *grains])
 
 
 def _varint(n: int) -> bytes:

@@ -4,9 +4,9 @@ secret engine runs once, batched, per artifact instead of per file.
 
 Mirrors pkg/fanal/walker/tar.go (whiteout handling: a basename prefix
 ``.wh.`` marks a deletion, ``.wh..wh..opq`` marks the directory opaque),
-walker/fs.go, and the secret-candidate gates of
-pkg/fanal/analyzer/secret/secret.go, serially, in archive or sorted path
-order."""
+walker/fs.go (its files read by a pool of `--parallel` threads), and
+the secret-candidate gates of pkg/fanal/analyzer/secret/secret.go. Every
+walk merges its files in archive or sorted path order."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import hashlib
 import os
 import re
 import tarfile
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 from .. import types as T
@@ -222,14 +223,15 @@ def walk_fs(root: str, group: AnalyzerGroup,
             collect_secrets: bool = False,
             secret_config_path: str = DEFAULT_SECRET_CONFIG,
             skip_files: tuple = (), skip_dir_globs: tuple = (),
-            file_checksum: bool = False) -> BlobScan:
-    """_walk_fs_impl under its `fanal.walk_fs` span (the walk is serial:
-    `--parallel` is not ported, ROADMAP A18)."""
+            file_checksum: bool = False, parallel: int = 1) -> BlobScan:
+    """_walk_fs_impl under its `fanal.walk_fs` span, whose `parallel`
+    attribute is the reader count (`--parallel`, reference
+    walker/fs.go:73-80)."""
     from ..obs import span
-    with span("fanal.walk_fs", parallel=1) as sp:
+    with span("fanal.walk_fs", parallel=parallel) as sp:
         scan = _walk_fs_impl(root, group, collect_secrets,
                              secret_config_path, skip_files,
-                             skip_dir_globs, file_checksum)
+                             skip_dir_globs, file_checksum, parallel)
         sp.attrs.update(secret_files=len(scan.secret_files),
                         post_files=len(scan.post_files))
         return scan
@@ -237,18 +239,20 @@ def walk_fs(root: str, group: AnalyzerGroup,
 
 def _walk_fs_impl(root: str, group: AnalyzerGroup, collect_secrets: bool,
                   secret_config_path: str, skip_files: tuple,
-                  skip_dir_globs: tuple, file_checksum: bool) -> BlobScan:
-    """Walk a directory tree through the analyzers; per-file results
-    merge in sorted path order so the output is deterministic. The skip
-    globs match root-relative paths; the walk-relative
-    `secret_config_path` is never a secret candidate. With
-    `file_checksum` (the SPDX formats), each package of an application
-    file gets that file's sha1 as its digest."""
+                  skip_dir_globs: tuple, file_checksum: bool,
+                  parallel: int) -> BlobScan:
+    """Walk a directory tree through the analyzers. The candidate files
+    are read and analyzed by `parallel` threads when it is above 1, and
+    their results merge in sorted path order, so the scan is the same
+    for every count. The skip globs match root-relative paths; the
+    walk-relative `secret_config_path` is never a secret candidate.
+    With `file_checksum` (the SPDX formats), each package of an
+    application file gets that file's sha1 as its digest."""
     scan = BlobScan(result=AnalysisResult())
     root = os.path.abspath(root)
     skip_files = normalize_skip_globs(skip_files)
     skip_dir_globs = normalize_skip_globs(skip_dir_globs)
-    outputs = []
+    candidates = []
     for dirpath, dirnames, filenames in os.walk(root):
         dirnames[:] = [d for d in dirnames if d != ".git"]
         reldir = os.path.relpath(dirpath, root).replace(os.sep, "/")
@@ -270,23 +274,34 @@ def _walk_fs_impl(root: str, group: AnalyzerGroup, collect_secrets: bool,
             wants_post = group.post_required(rel, size)
             wants_secret = collect_secrets and secret_candidate(
                 rel, size, secret_config_path)
-            if not (wants or wants_post or wants_secret):
-                continue
-            try:
-                with open(full, "rb") as f:
-                    content = f.read()
-            except OSError:
-                continue  # permission errors skipped (walker/fs.go:24-33)
-            result = None
-            if wants:
-                result = AnalysisResult()
-                group.analyze_file(rel, content, result)
-                if file_checksum:
-                    _stamp_sha1(result, rel, content)
-            outputs.append((rel, result, content if wants_post else None,
-                            content if wants_secret
-                            and not looks_binary(content) else None))
-    for rel, result, post, secret in sorted(outputs, key=lambda o: o[0]):
+            if wants or wants_post or wants_secret:
+                candidates.append((rel, full, wants, wants_post,
+                                   wants_secret))
+
+    def process(task):
+        rel, full, wants, wants_post, wants_secret = task
+        try:
+            with open(full, "rb") as f:
+                content = f.read()
+        except OSError:
+            return None  # permission errors skipped (walker/fs.go:24-33)
+        result = None
+        if wants:
+            result = AnalysisResult()
+            group.analyze_file(rel, content, result)
+            if file_checksum:
+                _stamp_sha1(result, rel, content)
+        return (rel, result, content if wants_post else None,
+                content if wants_secret and not looks_binary(content)
+                else None)
+
+    if parallel > 1 and len(candidates) > 1:
+        with ThreadPoolExecutor(max_workers=parallel) as pool:
+            outputs = list(pool.map(process, candidates))
+    else:
+        outputs = [process(t) for t in candidates]
+    for rel, result, post, secret in sorted(
+            (o for o in outputs if o is not None), key=lambda o: o[0]):
         if result is not None:
             scan.result.merge(result)
         if post is not None:

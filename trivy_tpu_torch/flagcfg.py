@@ -28,6 +28,7 @@ CONFIG_PATHS = {
     "scanners": ["scan.scanners", "scan.security-checks"],
     "skip_files": "scan.skip-files",
     "skip_dirs": "scan.skip-dirs",
+    "parallel": "scan.parallel",
     "ignore_unfixed": "vulnerability.ignore-unfixed",
     "ignore_status": "vulnerability.ignore-status",
     "ignorefile": "ignorefile",
