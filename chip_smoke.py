@@ -296,13 +296,36 @@ Phases, one JSON line each; any failure exits non-zero:
            and with 1, the same blob (--parallel). Figures: the CLI's
            wall, start-up, table load and inspect; each in-process wall;
            the walks.
+  caches   the shared backends and Rekor, against loopback fakes that
+           run in this process (fanal.fixtures FakeRedis, FakeS3 and
+           FakeRekor; no other program), every scan through the CLI's
+           own main in this process, on the apps table: `image --input`
+           of the image_apps image with `--cache-backend redis://` cold
+           (its results the image_apps report's; one shift-or launch and
+           image_apps' joins) and warm (every layer a Redis hit: the hit
+           count up by the layer count, no walk, no shift-or, the same
+           results), the same pair on `s3://` (sigv4-signed); one server
+           in this process with the S3 cache and a Redis memo, two Scan
+           RPCs of that image (the first stores, with join launches; the
+           second replays, no join); `--sbom-sources rekor` on a small
+           image (the Debian base layer, 3 MiB of text and one
+           unpackaged ELF whose digest Rekor maps to a CycloneDX SBOM of
+           vulnerable npm and pypi packages: its first application under
+           the binary's path, with its vulnerabilities) and on the
+           image_apps image (Rekor maps its digest to the sbom phase's
+           CycloneDX export: a cyclonedx report, no shift-or), each
+           equal to its --device cpu run; then the cold run's join
+           batches and secret rows through the kernels against their
+           plain versions ("at_caches"). Figures: each run's wall,
+           hits, launches, the keys in each store.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
 the language phases' under "at_fs", "at_image_apps", "at_sbom",
 "at_ci", "at_image_remote", "at_misconf", "at_misconf_image",
 "at_server" (the server's merged dispatches), "at_memo" (the
-largest blob the memo phase's sweep replayed) and "at_vm" (the disk);
+largest blob the memo phase's sweep replayed), "at_vm" (the disk) and
+"at_caches" (the image_apps image through the shared caches);
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -313,11 +336,13 @@ there is no CUDA device or no port beside it.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tarfile
@@ -1979,6 +2004,7 @@ def run_image_apps_at_size(torch, tmp: str, table, db: str, deb: list,
 # --- the sbom phase: SBOMs out and in ----------------------------------
 
 SBOM_NOW = "2026-10-17T00:00:00Z"
+APPS_CDX = "apps.cdx.json"   # the sbom phase's export of the apps image
 SBOM_ENV = {"TRIVY_TPU_FAKE_NOW": SBOM_NOW,
             "TRIVY_TPU_FAKE_UUID": "3ff14136-e09f-4df9-80ea-%012d"}
 # (purl type, ecosystem of apps_table's names, components) of the
@@ -2079,7 +2105,7 @@ def run_sbom_at_size(torch, tmp: str, table, db: str, deb: list,
         ["image", "--input", apps_image, "--db", db, "--scanners",
          "vuln,secret", "--format", "cyclonedx"], {db: table}, env=SBOM_ENV,
         raw=True)
-    rt_path = os.path.join(tmp, "apps.cdx.json")
+    rt_path = os.path.join(tmp, APPS_CDX)
     with open(rt_path, "w") as f:
         f.write(doc)
     rt, rt_counts, rt_s = inprocess_cli(["sbom", rt_path, "--db", db],
@@ -5776,11 +5802,306 @@ def run_vm_at_size(torch, tmp: str, table, db: str, deb: list,
     return fig["counts"]["launches"], at
 
 
+# --- the caches phase: the shared Redis and S3 caches and memo, Rekor --
+
+CACHE_ENV = {"AWS_ACCESS_KEY_ID": "AKIACHIPSMOKE",
+             "AWS_SECRET_ACCESS_KEY": "chip-smoke"}
+REKOR_BINARY = "usr/local/bin/agent"
+
+
+@contextlib.contextmanager
+def _environ(env: dict):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def archive_layers(path: str) -> list:
+    """A docker-save archive's layer tars, in order, unzipped."""
+    import gzip
+    with tarfile.open(path) as tf:
+        manifest = json.load(tf.extractfile("manifest.json"))[0]
+        blobs = [tf.extractfile(p).read() for p in manifest["Layers"]]
+    return [gzip.decompress(b) if b[:2] == b"\x1f\x8b" else b
+            for b in blobs]
+
+
+def elf_bytes(code: bytes) -> bytes:
+    """An x86-64 executable of no package: an ELF header with no
+    program or section headers, then `code`."""
+    return struct.pack("<4s5B7xHHIQQQIHHHHHH", b"\x7fELF", 2, 1, 1, 0, 0,
+                       2, 0x3E, 1, 0x400040, 0, 0, 0, 64, 0, 0, 64, 0,
+                       0) + code
+
+
+def rekor_sbom(names: dict, n_npm: int = 40, n_pip: int = 20) -> dict:
+    """The CycloneDX document Rekor holds for the unpackaged binary: npm
+    and pypi components, apps-table names at 0.9.1, below their fixes."""
+    npm = [n for n in names["npm"] if not n.startswith("@")]
+    comps = [{"type": "library", "name": n, "version": "0.9.1",
+              "purl": f"pkg:npm/{n}@0.9.1"} for n in npm[:n_npm]]
+    comps += [{"type": "library", "name": n, "version": "0.9.1",
+               "purl": f"pkg:pypi/{n}@0.9.1"}
+              for n in names["pip"][:n_pip]]
+    return {"bomFormat": "CycloneDX", "specVersion": "1.5",
+            "components": comps}
+
+
+def _store_keys(keys, prefix: str) -> dict:
+    """{kind: count} of a store's keys under `prefix` (a Redis key's
+    `fanal::KIND::`, an S3 path's `.../fanal/KIND/`)."""
+    out: dict = {}
+    for k in keys:
+        k = k.decode() if isinstance(k, bytes) else k
+        if k.startswith(prefix):
+            kind = k[len(prefix):].replace("::", "/").split("/")[0]
+            out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def _cached_blobs(cache_dir: str) -> list:
+    """The blob documents of an fs layer cache."""
+    root = os.path.join(cache_dir, "blob")
+    out = []
+    for name in sorted(os.listdir(root)):
+        with open(os.path.join(root, name)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _joins(launches: dict) -> int:
+    return launches["csr_join"] + launches["csr_join_compact"]
+
+
+def caches_phase(tmp: str, table, db: str, names: dict, apps_image: str,
+                 apps_report: dict, cdx_path: str, device: str = "cuda",
+                 text_mib: int = 3) -> dict:
+    """The image_apps image (`apps_image`, scanned to `apps_report`)
+    through the shared caches and Rekor on `table` (saved at `db`),
+    against fakes in this process, every scan in this process on
+    `device`: the Redis and S3 caches cold and warm, a server with the
+    S3 cache and a Redis memo (two Scan RPCs), and `--sbom-sources
+    rekor` on a small image with an unpackaged ELF (`text_mib` MiB of
+    text beside it) and on `apps_image` itself, whose digest Rekor maps
+    to the CycloneDX document at `cdx_path`, each held to its --device
+    cpu run → {"counts": the Redis cold run's debug lines, "figures":
+    the phase's figures}."""
+    from trivy_tpu_torch import types as T
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.fanal import fixtures as F
+    from trivy_tpu_torch.fanal.analyzers import (LOCKFILE_ANALYZERS,
+                                                 AnalyzerGroup)
+    from trivy_tpu_torch.fanal.artifact import ImageArchiveArtifact
+    from trivy_tpu_torch.fanal.cache import MemoryCache
+    from trivy_tpu_torch.metrics import METRICS
+    from trivy_tpu_torch.secret import SecretScanner
+    from trivy_tpu_torch.server.client import RemoteCache
+    from trivy_tpu_torch.server.listen import serve_background
+    dev = [] if device == "cuda" else ["--device", device]
+    scan = ["image", "--input", apps_image, "--db", db, "--scanners",
+            "vuln,secret", *dev]
+    n_layers = len(apps_report["Metadata"]["DiffIDs"])
+    want = (vuln_results(apps_report), findings(apps_report)[1])
+    runs, keys = {}, {}
+    with _environ(CACHE_ENV), F.FakeRedis() as redis, F.FakeS3() as s3, \
+            F.FakeRekor() as rekor:
+        urls = {"redis": redis.url, "s3": s3.url("trivy-cache", "pfx")}
+        # 1-2. each shared cache cold, then warm
+        for backend, url in urls.items():
+            reports = {}
+            for run in ("cold", "warm"):
+                hits = METRICS.get("trivy_tpu_fleet_cache_hits_total",
+                                   backend=backend)
+                reports[run], counts, wall_s = inprocess_cli(
+                    scan + ["--cache-backend", url], {db: table})
+                runs[f"{backend}_{run}"] = {
+                    **_run_figures(counts, wall_s),
+                    "hits": METRICS.get("trivy_tpu_fleet_cache_hits_total",
+                                        backend=backend) - hits,
+                    "layers_walked": counts["ingest"]["layers_walked"],
+                    "prefilter_path": counts["prefilter_path"]}
+                if backend == "redis" and run == "cold":
+                    cold_counts = counts
+            cold, warm = (runs[f"{backend}_{r}"] for r in ("cold", "warm"))
+            if (vuln_results(reports["cold"]),
+                    findings(reports["cold"])[1]) != want:
+                raise AssertionError(f"caches: the {backend} cold run's "
+                                     f"results differ from image_apps'")
+            if reports["warm"]["Results"] != reports["cold"]["Results"] \
+                    or warm["hits"] != n_layers or warm["layers_walked"] \
+                    or cold["layers_walked"] != n_layers \
+                    or warm["launches"]["shiftor"] \
+                    or _joins(warm["launches"]) != _joins(cold["launches"]):
+                raise AssertionError(f"caches: the {backend} warm run "
+                                     f"{warm} after the cold run {cold}")
+        keys["redis"] = _store_keys(redis.data, "fanal::")
+        keys["s3"] = _store_keys(s3.objects, "/trivy-cache/pfx/fanal/")
+        if any(k != {"artifact": 1, "blob": n_layers}
+               for k in keys.values()) or s3.unsigned:
+            raise AssertionError(f"caches: keys {keys}, {s3.unsigned} "
+                                 f"unsigned S3 requests")
+
+        # 3. one server, the S3 cache and a Redis memo
+        httpd, state = serve_background(
+            "127.0.0.1", 0, table, os.path.join(tmp, "caches-server"),
+            SERVER_TOKEN, cache_backend=urls["s3"],
+            memo_backend=redis.url, device=device)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            art = ImageArchiveArtifact(
+                apps_image, RemoteCache(base, token=SERVER_TOKEN),
+                group=AnalyzerGroup(disabled=LOCKFILE_ANALYZERS),
+                scanners=("vuln", "secret"),
+                secret_scanner=SecretScanner(device=device))
+            ref = art.inspect()
+            opts = T.ScanOptions(scanners=("vuln", "secret"))
+            memo_runs = []
+            for _ in range(2):
+                before = launch_counts()
+                stats = {k: METRICS.get(f"trivy_tpu_memo_{k}_total",
+                                        backend="redis")
+                         for k in ("hits", "stores")}
+                t0 = time.perf_counter()
+                results, os_info, _version = _scan_rpc(base, ref, opts)
+                after = launch_counts()
+                memo_runs.append({
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": {k: after[k] - before[k] for k in after},
+                    **{k: METRICS.get(f"trivy_tpu_memo_{k}_total",
+                                      backend="redis") - v
+                       for k, v in stats.items()},
+                    "results": (_canon(results), _os_key(os_info))})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            state.close()
+        first, second = memo_runs
+        memo_keys = sum(k.startswith(b"memo::") for k in redis.data)
+        if second["results"] != first["results"] or not first["stores"] \
+                or second["stores"] or not second["hits"] \
+                or _joins(second["launches"]) or not memo_keys \
+                or (device == "cuda" and not _joins(first["launches"])):
+            raise AssertionError(f"caches memo: {memo_runs}")
+        memo = {"layers_walked": art.ingest_figures.get("layers_walked"),
+                "keys": memo_keys,
+                "scans": [{k: v for k, v in r.items() if k != "results"}
+                          for r in memo_runs],
+                "stores": first["stores"], "hits": second["hits"]}
+
+        # 4. Rekor, unpackaged: an ELF of no package on the Debian base
+        from trivy_tpu_torch.fanal.fixtures import (gz_bytes, sha256_hex,
+                                                    tar_bytes,
+                                                    write_docker_archive)
+        rng = np.random.default_rng(SEED + 15)
+        elf = elf_bytes(rng.bytes(1 << 16))
+        agent = {REKOR_BINARY: elf,
+                 **_text_files(rng, "srv/agent/docs", text_mib, {})}
+        layers = [archive_layers(apps_image)[0], tar_bytes(agent)]
+        small = os.path.join(tmp, "rekor-image.tar")
+        write_docker_archive(small, [gz_bytes(b, 6) for b in layers],
+                             _diff_ids(layers),
+                             repo_tags=("synthetic/agent:1",))
+        rekor.attestations["sha256:" + sha256_hex(elf)] = \
+            F.intoto_envelope(rekor_sbom(names))
+        # 5. Rekor, the image's digest: the sbom phase's export of it
+        image_digest = ImageArchiveArtifact(apps_image,
+                                            MemoryCache()).image_digest()
+        with open(cdx_path) as f:
+            rekor.attestations[image_digest] = F.intoto_envelope(
+                json.load(f), subject_digest=image_digest)
+        lookup = ["--sbom-sources", "rekor", "--rekor-url",
+                  f"http://127.0.0.1:{rekor.port}"]
+        reports = {}
+        for run, target in (("rekor_unpackaged", small),
+                            ("rekor_image", apps_image)):
+            argv = ["image", "--input", target, "--db", db, "--scanners",
+                    "vuln,secret", "--list-all-pkgs", *lookup]
+            cache = os.path.join(tmp, f"{run}-cache")
+            raw, counts, wall_s = inprocess_cli(
+                argv + dev + ["--cache-dir", cache], {db: table},
+                env=SBOM_ENV, raw=True)
+            cpu, _c, cpu_s = inprocess_cli(argv + ["--device", "cpu"],
+                                           {db: table}, env=SBOM_ENV,
+                                           raw=True)
+            if raw != cpu:
+                raise AssertionError(f"caches {run}: the {device} report "
+                                     f"differs from the --device cpu one")
+            reports[run] = json.loads(raw)
+            runs[run] = {**_run_figures(counts, wall_s), "wall_s_cpu": cpu_s,
+                         "prefilter_path": counts["prefilter_path"]}
+        # the SBOM's first application, under the binary's path in the
+        # agent layer's blob; the report names its result by its type
+        sbom_npm = {c["name"] for c in rekor_sbom(names)["components"]
+                    if c["purl"].startswith("pkg:npm/")}
+        added = [a for blob in _cached_blobs(
+            os.path.join(tmp, "rekor_unpackaged-cache"))
+            for a in blob.get("Applications", [])
+            if a["FilePath"] == REKOR_BINARY]
+        node = [r for r in reports["rekor_unpackaged"]["Results"]
+                if r.get("Type") == "node-pkg"]
+        n_agent = sum(len(r.get("Vulnerabilities", [])) for r in node)
+        shortcut = reports["rekor_image"]
+        if [a["Type"] for a in added] != ["node-pkg"] \
+                or {p["Name"] for p in added[0]["Packages"]} != sbom_npm \
+                or [{p["Name"] for p in r["Packages"]} for r in node] \
+                != [sbom_npm] or not n_agent \
+                or shortcut["ArtifactType"] != "cyclonedx" \
+                or not vuln_results(shortcut) \
+                or runs["rekor_image"]["launches"]["shiftor"]:
+            raise AssertionError(f"caches rekor: {added}, {node[:1]}, "
+                                 f"{shortcut['ArtifactType']}, {runs}")
+        un = runs["rekor_unpackaged"]["launches"]
+        if device == "cuda" and (un["shiftor"] != 1 or not _joins(un)):
+            raise AssertionError(f"caches rekor unpackaged launches {un}")
+        rekor_fig = {"searches": len(rekor.searches),
+                     "unpackaged_vulnerabilities": n_agent,
+                     "image_digest_hit": image_digest in rekor.searches,
+                     "image_artifact_type": shortcut["ArtifactType"],
+                     "image_vulnerabilities": sum(
+                         len(r.get("Vulnerabilities", []))
+                         for r in vuln_results(shortcut))}
+    return {"counts": cold_counts,
+            "figures": dict(layers=n_layers, runs=runs, keys=keys,
+                            memo=memo, rekor=rekor_fig,
+                            launches=cold_counts["launches"])}
+
+
+def run_caches_at_size(torch, tmp: str, table, db: str, names: dict,
+                       apps_image: str, apps_report: dict, batches: list,
+                       apps_rows) -> tuple:
+    """The caches phase on the card, then the Redis cold run's join
+    batches (the image_apps image's) and secret rows through the kernels
+    against their plain versions, with one shift-or launch and one join
+    launch per batch in that run → (launch counts of every card run of
+    the phase, summed; the kernels on the cold run's inputs)."""
+    fig = caches_phase(tmp, table, db, names, apps_image, apps_report,
+                       os.path.join(tmp, APPS_CDX))
+    figures, at, kernel_ms = batch_kernels(torch, table, batches, "caches")
+    _expect_launches(fig["counts"], figures, "caches")
+    padded, bank = apps_rows
+    at["shiftor"] = shiftor_case(torch, bank, padded, "caches")
+    kernel_ms += at["shiftor"]["ms"]
+    runs = fig["figures"]["runs"]
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                + sum(s["launches"][k] for s in fig["figures"]["memo"][
+                    "scans"]) for k in fig["counts"]["launches"]}
+    phase("caches", **fig["figures"], batches=figures, kernel_ms=kernel_ms,
+          launches_all_runs=launches)
+    return launches, at
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
     """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`,
-    `server`, `memo` and `vm` phases over one apps table, saved as .npz
-    (written as a trivy.db for `ci`) → ({path: launch counts}, {path:
-    kernels on its inputs})."""
+    `server`, `memo`, `vm` and `caches` phases over one apps table,
+    saved as .npz (written as a trivy.db for `ci`) → ({path: launch
+    counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.db.table import FlattenMemo, build_table
     from trivy_tpu_torch.ops.constants import INEXACT
     rng = np.random.default_rng(SEED + 6)
@@ -5823,14 +6144,18 @@ def run_language_phases(torch, tmp: str) -> tuple:
                                               raw, flatten, flatten_s)
     vm_launches, at_vm = run_vm_at_size(torch, tmp, table, db, deb, names,
                                         root)
+    caches_launches, at_caches = run_caches_at_size(
+        torch, tmp, table, db, names, apps_image, apps_report, apps_batches,
+        apps_rows)
     return ({"fs": fs_launches, "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
              "image_remote": remote_launches, **misconf_launches,
              "server": server_launches, "memo": memo_launches,
-             "vm": vm_launches},
+             "vm": vm_launches, "caches": caches_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
              "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf,
-             "at_server": at_server, "at_memo": at_memo, "at_vm": at_vm})
+             "at_server": at_server, "at_memo": at_memo, "at_vm": at_vm,
+             "at_caches": at_caches})
 
 
 def main() -> int:

@@ -15,7 +15,6 @@ included:
   `--config`, `TRIVY_*` env): the same report and the same exit code;
 - `--ignore-policy` (a rego ignore policy): the same report, and the
   findings it names gone;
-- what the port refuses: `--sbom-sources rekor`;
 - `--parallel N` (fs, rootfs, repo, image): the JAX CLI's report and
   the serial walk's, from the flag, `TRIVY_PARALLEL` and trivy.yaml's
   `scan.parallel`, with the walk's span carrying N; and `version` and
@@ -383,18 +382,6 @@ def test_ignore_policy_like_reference(fmt, ci_dir):
         assert all(cve != "CVE-2023-0286" for _, cve in kept)
         assert "aws-access-key-id" in full.decode()
         assert "aws-access-key-id" not in port.decode()
-
-
-# --- refused ---------------------------------------------------------
-
-@pytest.mark.parametrize("command,flags,match", [
-    ("image", ["--sbom-sources", "rekor"], r"ROADMAP A5\.4")])
-def test_unported_options_are_refused(command, flags, match, ci_dir):
-    target = ["--input", str(ci_dir / "none.tar")] if command == "image" \
-        else [_rootfs(ci_dir)]
-    with pytest.raises(SystemExit, match=match):
-        cli.main([command, *target, "--db", DB, "--device", "cpu",
-                  "--cache-dir", str(ci_dir / "c"), *flags])
 
 
 # --- --parallel, its config key, and version ---------------------------

@@ -339,7 +339,7 @@ def test_fs_cache_survives_reopen_and_quarantines(tmp_path):
     assert isinstance(port_cache.open_cache("memory"),
                       port_cache.MemoryCache)
     with pytest.raises(ValueError):
-        port_cache.open_cache("redis://x")
+        port_cache.open_cache("bolt://x")
 
 
 def test_cache_key_matches_reference():

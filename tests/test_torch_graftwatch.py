@@ -18,6 +18,11 @@ Not run, with the item that brings what they need:
     router and its replicas (ROADMAP A12), and the failpoints and the
     breaker that drive it (not ported by the north star).
 
+The two /debug/traces cases of TestDebugEndpoints wait, before each
+read of the page, until the server has no request in flight: the
+server.rpc span reaches the flight recorder after the response is on
+the wire, so a client may ask for the trace before it is there.
+
 Beside them: a remote scan's trace assembled from the client's and the
 server's fragments by `collect` is one connected tree, and incident
 files written by the port's recorder validate with `obs.check`.
@@ -26,6 +31,7 @@ files written by the port's recorder validate with `obs.check`.
 import glob
 import json
 import os
+import time
 import urllib.request
 
 import pytest
@@ -58,15 +64,35 @@ def _fixture_table():
     return build_table(advisories, details)
 
 
+# each watch_server's state by its URL, for _settle
+_STATES: dict = {}
+
+
 @pytest.fixture(scope="class")
 def watch_server(tmp_path_factory):
     from trivy_tpu_torch.server.listen import serve_background
     httpd, state = serve_background(
         "127.0.0.1", 0, _fixture_table(),
         cache_dir=str(tmp_path_factory.mktemp("wcache")), device="cpu")
-    yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    _STATES[url] = state
+    yield url
+    del _STATES[url]
     httpd.shutdown()
     state.close()
+
+
+def _settle(url: str) -> None:
+    """Wait until the server at `url` has no request in flight (its
+    spans are in the recorder), as test_torch_cost._quiesce does."""
+    state = _STATES[url]
+    deadline = time.monotonic() + 30.0
+    while state.inflight and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert state.inflight == 0
+
+
+_TRACES_READ = "        doc = json.loads(urllib.request.urlopen(\n"
 
 
 @pytest.mark.parametrize("cls,fn,given", twin_cases(
@@ -87,8 +113,18 @@ def test_graftwatch_case_like_reference(cls, fn, given, request):
            ""),
           ('cache_dir=str(tmp_path_factory.mktemp("tcache")),',
            'cache_dir=str(tmp_path_factory.mktemp("tcache")), '
-           'device="cpu",')],
-    env={"parse_exposition": exposition.parse_exposition}))
+           'device="cpu",'),
+          # both /debug/traces cases read the page once the server is
+          # quiet (C1)
+          ('            tid = r.headers.get("X-Trivy-Trace-Id")\n'
+           + _TRACES_READ,
+           '            tid = r.headers.get("X-Trivy-Trace-Id")\n'
+           '        _settle(watch_server)\n' + _TRACES_READ),
+          ('        urllib.request.urlopen(req).read()\n' + _TRACES_READ,
+           '        urllib.request.urlopen(req).read()\n'
+           '        _settle(watch_server)\n' + _TRACES_READ)],
+    env={"parse_exposition": exposition.parse_exposition,
+         "_settle": _settle}))
 def test_graftwatch_case_on_port(cls, fn, given, request):
     run_case(cls, fn, request, given)
 

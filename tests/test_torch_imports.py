@@ -51,7 +51,8 @@ need = ["trivy_tpu_torch." + m for m in (
     "metrics", "resilience", "resilience.admission", "resilience.retry", "server",
     "server.protowire", "server.convert", "server.listen",
     "server.client", "cloud", "cloud.sigv4", "cloud.aws", "fanal.vm",
-    "fanal.gitrepo")]
+    "fanal.gitrepo", "fanal.redis_cache", "fanal.s3_cache", "rekor",
+    "fanal.analyzers.executable")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """

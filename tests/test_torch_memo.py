@@ -522,13 +522,6 @@ def test_cli_server_memo_backend_fs(tmp_path):
     assert proc.returncode == 0, err
 
 
-@pytest.mark.parametrize("backend", ["redis://127.0.0.1:1", "s3://bucket/x"])
-def test_cli_refuses_redis_and_s3_memos(backend, tmp_path):
-    with pytest.raises(SystemExit, match=r"--memo-backend.*ROADMAP A5\.3"):
-        cli.main(["server", "--device", "cpu", "--db", FIXGLOB,
-                  "--cache-dir", str(tmp_path), "--memo-backend", backend])
-
-
 def test_cli_unknown_memo_backend_exits_like_reference(tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["server", "--device", "cpu", "--db", FIXGLOB,

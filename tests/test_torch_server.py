@@ -448,8 +448,7 @@ def test_observability_server_flags_are_accepted(flag, value, read,
 @pytest.mark.parametrize("argv", [
     [f"--{d.replace('_', '-')}", "1"] for d in cli.SERVER_REFUSED
     if d not in ("stream_prefetch",)] + [
-    ["--stream-prefetch"], ["--no-stream-prefetch"],
-    ["--memo-backend", "redis://127.0.0.1:1"]],
+    ["--stream-prefetch"], ["--no-stream-prefetch"]],
     ids=lambda a: a[0])
 def test_refused_server_flags_name_their_item(argv, tmp_path):
     with pytest.raises(SystemExit) as e:
@@ -458,14 +457,6 @@ def test_refused_server_flags_name_their_item(argv, tmp_path):
     msg = str(e.value)
     assert argv[0].split("=")[0].replace("--no-", "--") in msg
     assert "ROADMAP A" in msg
-
-
-@pytest.mark.parametrize("backend,item", [("redis://127.0.0.1:1", "A5.3"),
-                                          ("s3://bucket/x", "A5.3")])
-def test_refused_cache_backends(backend, item, tmp_path):
-    with pytest.raises(SystemExit, match=item):
-        cli.main(["server", "--device", "cpu", "--db", FIXGLOB,
-                  "--cache-backend", backend, "--cache-dir", str(tmp_path)])
 
 
 def test_refused_flag_from_env(monkeypatch, tmp_path):

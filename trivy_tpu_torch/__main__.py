@@ -66,8 +66,21 @@ analyzers the reference disables for it (run.go:167-252): image, rootfs
 and vm the lockfiles, fs the installed packages, repo the installed
 packages and the OS; fs, repo and vm also the in-image `sbom`
 analyzer. Runs on CUDA unless `--device cpu` is given; `--device` and
-`--debug-launches` come from the command line only. Not ported, and
-refused: `--sbom-sources rekor` (ROADMAP A5.4).
+`--debug-launches` come from the command line only.
+
+`image --cache-backend` keeps the layer cache in `fs` (default, under
+`--cache-dir`), `memory`, a shared Redis (`redis://[:pw@]host:port[/db]`)
+or a shared S3 bucket (`s3://bucket[/prefix]?region=..[&endpoint=..]`,
+sigv4-signed with the AWS_* credentials), with the JAX package's keys,
+so either package reads the other's entries; the other scan commands
+take the flag and keep their in-memory cache, as the reference's do.
+`image --sbom-sources rekor [--rekor-url URL]` first asks Rekor for an
+SBOM attestation of the image's digest and scans that SBOM in place of
+the image; without one it analyzes the image, and asks Rekor for an
+SBOM of each unpackaged ELF, Mach-O or PE binary (the opt-in
+`executable` analyzer and the unpackaged post-handler), adding the
+SBOM's first application under the binary's path. A Rekor failure is
+logged, and the scan goes on without it, as in the reference.
 
 `--trace FILE` writes a Chrome trace-event JSON of the scan's spans
 (walk, analyzers, secret prefilter and confirm, query building, the
@@ -86,10 +99,10 @@ and `/debug/costs` pages, and the `--trace`, `--incident-dir`,
 `--slow-trace-ms`, `--slo-latency-ms`, `--profile-auto-burn`,
 `--profile-cooldown-s` and `--ingest-tenant-*` flags, and the
 detection-result memo with its post-swap sweep (`--memo-backend off|fs|
-memory`, `--redetect-concurrency N`). The JAX server's mesh,
-table-streaming, breaker and failpoint flags, and the redis:// and s3://
-caches and memos, are refused with the ROADMAP item that will port them
-(SERVER_REFUSED).
+memory|redis://...|s3://...`, `--redetect-concurrency N`), its layer
+cache in any backend of `--cache-backend`. The JAX server's mesh,
+table-streaming, breaker and failpoint flags are refused with the
+ROADMAP item that will port them (SERVER_REFUSED).
 """
 
 from __future__ import annotations
@@ -198,13 +211,6 @@ def fake_now() -> dt.datetime | None:
         if raw else None
 
 
-def _refuse_unported(args) -> None:
-    if "rekor" in getattr(args, "sbom_sources", ""):
-        raise SystemExit("--sbom-sources rekor needs the Rekor client and "
-                         "the executable analyzer, which are not ported "
-                         "yet (ROADMAP A5.4)")
-
-
 def _misconf_settings(args):
     """The scan's user rego checks, helm value overrides and rego trace
     sink from its flags (reference cli.py:735-760)."""
@@ -256,17 +262,23 @@ def _scan_inner(args, make_artifact, cache_for, artifact_type: str,
     artifact; cache_for() → the cache, opened once the device is
     known. An empty artifact_type takes the artifact's own (sbom).
     misconf: the scan's MisconfSettings (none for sbom)."""
+    from .fanal.handlers import configure_post_handlers
     t_scan = time.perf_counter()
-    _refuse_unported(args)
     device = resolve_device(args.device)
     scanners = normalize_scanners(args.scanners)
     if misconf is None:
         misconf = MisconfSettings()
-    # license files are classified only under --license-full
+    # license files are classified only under --license-full; binaries
+    # are digested, and their SBOMs asked of Rekor, only under
+    # --sbom-sources rekor (reference run.go:464-523)
+    enabled = ("license-file",) if args.license_full else ()
+    rekor = _rekor_url(args)
+    if rekor:
+        enabled += ("executable",)
+    configure_post_handlers(rekor_url=rekor)
     try:
         group = AnalyzerGroup(
-            disabled=disabled,
-            enabled=("license-file",) if args.license_full else (),
+            disabled=disabled, enabled=enabled,
             file_patterns=tuple(args.file_patterns), misconf=misconf)
     except ValueError as e:  # a bad "type:regex"
         raise SystemExit(f"--file-patterns: {e}") from None
@@ -352,6 +364,63 @@ def _write_compliance(args, results, out) -> None:
         mode=args.report, fmt=args.format, output=out)
 
 
+def _rekor_url(args) -> str:
+    """The Rekor server to ask, under `--sbom-sources rekor` (image
+    only), else ""."""
+    if "rekor" in getattr(args, "sbom_sources", ""):
+        return args.rekor_url
+    return ""
+
+
+class _RemoteSBOMArtifact:
+    """An image artifact behind the remote-SBOM shortcut (reference
+    remote_sbom.go:92, cli.py:924-940): inspect() asks Rekor for an SBOM
+    attestation of the image's digest and, when there is one, scans that
+    SBOM in place of the image; otherwise, or when Rekor fails (logged),
+    it inspects the image. Every other attribute is the image
+    artifact's."""
+
+    def __init__(self, art, cache, rekor_url: str, name: str):
+        self.art, self.cache = art, cache
+        self.rekor_url, self.name = rekor_url, name
+
+    def __getattr__(self, attr):
+        return getattr(self.art, attr)
+
+    def inspect(self):
+        from .log import logger
+        from .rekor import RekorError, fetch_sbom_statement
+        from .sbom.io import decode_sbom_doc
+        try:
+            st = fetch_sbom_statement(self.rekor_url,
+                                      self.art.image_digest())
+            if st is not None:
+                doc = st.sbom_document()
+                if isinstance(doc, dict):
+                    return decode_sbom_doc(doc, self.cache, name=self.name)
+        except (RekorError, ValueError) as e:
+            logger.warning("rekor SBOM lookup failed, falling back to "
+                           "analysis: %s", e)
+        return self.art.inspect()
+
+
+def _check_cache_backend(backend: str) -> None:
+    """Exit on a --cache-backend spelling open_cache does not take, in
+    the JAX CLI's words, before the (slow) table load."""
+    from .fanal.cache import known_backend
+    if not known_backend(backend):
+        raise SystemExit(f"--cache-backend: unknown cache backend "
+                         f"{backend!r} (fs | memory | redis://... | "
+                         f"s3://...)")
+
+
+def _cache_for(args):
+    """→ the opener of the scan's layer cache from --cache-backend
+    (reference initCache, run.go:344; cli.py:789)."""
+    _check_cache_backend(args.cache_backend)
+    return lambda: open_cache(args.cache_backend, args.cache_dir)
+
+
 def _auto_ignore_file():
     """The working directory's ignore file, when --ignorefile is not
     given (reference cli.py:722)."""
@@ -432,11 +501,12 @@ def cmd_image(args) -> int:
     source of --image-src that has it."""
     from .oci import OCIError
     resolve_device(args.device)   # before any source is tried
-    _refuse_unported(args)
     misconf = _misconf_settings(args)
+    cache_for = _cache_for(args)
     source, target, tmp = ("archive", args.input, None) if args.input \
         else _acquire_image(args)
     platform = args.platform or "linux/amd64"
+    rekor = _rekor_url(args)
     try:
         ingest = _ingest_options(args)
 
@@ -448,21 +518,27 @@ def cmd_image(args) -> int:
             if source == "remote":
                 from .fanal.artifact import RegistryArtifact
                 client, manifest = target
-                return RegistryArtifact(
+                art = RegistryArtifact(
                     args.image_name, cache, platform=platform,
                     client=client, manifest=manifest, ingest=ingest, **kw)
-            if source == "containerd":
+            elif source == "containerd":
                 from .fanal.containerd import ContainerdArtifact
                 store, resolved = target
-                return ContainerdArtifact(
+                art = ContainerdArtifact(
                     args.image_name, cache, platform=platform, store=store,
                     target=resolved, **kw)
-            return ImageArchiveArtifact(target, cache, ingest=ingest, **kw)
-        # lockfile analyzers are off for image scans (run.go:167)
-        return _scan(args, artifact,
-                     lambda: open_cache("fs", args.cache_dir),
-                     T.ArtifactType.CONTAINER_IMAGE, LOCKFILE_ANALYZERS,
-                     name=args.image_name, misconf=misconf)
+            else:
+                art = ImageArchiveArtifact(target, cache, ingest=ingest,
+                                           **kw)
+            if rekor:
+                return _RemoteSBOMArtifact(art, cache, rekor, args.input)
+            return art
+        # lockfile analyzers are off for image scans (run.go:167); a
+        # remote SBOM's report keeps the SBOM's artifact type
+        return _scan(args, artifact, cache_for,
+                     "" if rekor else T.ArtifactType.CONTAINER_IMAGE,
+                     LOCKFILE_ANALYZERS, name=args.image_name,
+                     misconf=misconf)
     except OCIError as e:
         if source != "remote":
             raise
@@ -609,19 +685,10 @@ def _refuse_server_flags(args) -> None:
         raise SystemExit("server: " + "; ".join(
             f"--{d.replace('_', '-')}: {SERVER_REFUSED[d]}"
             for d in given))
-    backend = args.cache_backend
-    if backend.startswith(("redis://", "s3://")):
-        raise SystemExit(f"--cache-backend {backend}: the Redis and S3 "
-                         "caches are not ported yet (ROADMAP A5.3)")
-    if backend not in ("fs", "memory"):
-        raise SystemExit(f"--cache-backend: unknown cache backend "
-                         f"{backend!r} (fs | memory)")
-    # the memo backend's spelling, before the (slow) table load
+    # the backends' spellings, before the (slow) table load
     from .fleet.memo import known_backend
+    _check_cache_backend(args.cache_backend)
     memo = args.memo_backend
-    if memo.startswith(("redis://", "s3://")):
-        raise SystemExit(f"--memo-backend {memo}: the Redis and S3 memos "
-                         "are not ported yet (ROADMAP A5.3)")
     if not known_backend(memo):
         raise SystemExit(f"--memo-backend: unknown memo backend "
                          f"{memo!r} (off | fs | memory | redis://... | "
@@ -713,11 +780,13 @@ def _server_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--token", default="",
                    help="require this Trivy-Token header on every POST")
     p.add_argument("--cache-backend", default="fs",
-                   help="fs | memory (redis:// and s3:// are refused)")
+                   help="fs | memory | redis://host:port[/db] | "
+                        "s3://bucket[/prefix] — point every replica "
+                        "of a fleet at one shared redis/s3 URL")
     p.add_argument("--memo-backend", default="off",
                    help="the detection-result memo, keyed by (blob "
                         "digest, db version): off (default) | fs | "
-                        "memory (redis:// and s3:// are refused)")
+                        "memory | redis://... | s3://...")
     p.add_argument("--redetect-concurrency", type=int, default=2,
                    help="redetectd: blobs replayed in parallel by the "
                         "sweep after a DB swap (0 disables it; the sweep "
@@ -896,6 +965,10 @@ def _scan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cache-dir", default=DEFAULT_CACHE_DIR,
                    help="the layer cache of image scans, the cached "
                         "db/trivy.db and javadb/trivy-java.db")
+    p.add_argument("--cache-backend", default="fs",
+                   help="fs | memory | redis://host:port[/db] | "
+                        "s3://bucket[/prefix]?region=..[&endpoint=..]: "
+                        "the layer cache of image scans")
     p.add_argument("--db", default="",
                    help="advisory DB: a trivy.db (BoltDB) file, a "
                         "columnar .npz, or a fixture YAML glob; without "
@@ -1018,8 +1091,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="image source fallback order "
                         "(docker,containerd,podman,remote)")
     p.add_argument("--sbom-sources", default="",
-                   help="refused: external SBOM sources (rekor) are not "
-                        "ported yet")
+                   help="comma-separated external SBOM sources (rekor)")
+    p.add_argument("--rekor-url", default="https://rekor.sigstore.dev")
     _scan_flags(p)
     p.set_defaults(func=cmd_image)
     for name, aliases, what in (

@@ -10,8 +10,9 @@ and the installed-package ones (python-pkg, conda-pkg, gobinary, jar,
 node-pkg, gemspec, rustbinary), the in-image `sbom` analyzer, the
 opt-in `license-file` one, and the config analyzers `misconf`
 (dockerfile, kubernetes, CloudFormation, Terraform plans, Azure ARM,
-user rego checks), `helm` and `terraform`. Not ported: executable
-(ROADMAP A5.4). `file_patterns` ("analyzer:regex", --file-patterns)
+user rego checks), `helm` and `terraform`, and the opt-in `executable`
+one (the digests of unpackaged binaries, for the Rekor post-handler).
+`file_patterns` ("analyzer:regex", --file-patterns)
 routes more paths to an analyzer, and `misconf` (misconf.MisconfSettings)
 carries the scan's user checks, helm overrides and rego trace to the
 config analyzers."""
@@ -38,6 +39,9 @@ class AnalysisResult:
     # SystemInstalledFiles)
     system_installed_files: list = field(default_factory=list)
     build_info: Optional[T.BuildInfo] = None  # Red Hat content sets, nvr
+    # path → sha256 digest of each unpackaged executable; consumed by the
+    # unpackaged (Rekor) post-handler (reference AnalysisResult.Digests)
+    digests: dict = field(default_factory=dict)
 
     def merge(self, other: "AnalysisResult"):
         if other is None:
@@ -54,6 +58,7 @@ class AnalysisResult:
         self.misconfigurations.extend(other.misconfigurations)
         self.licenses.extend(other.licenses)
         self.system_installed_files.extend(other.system_installed_files)
+        self.digests.update(other.digests)
         if other.build_info is not None:
             if self.build_info is None:
                 self.build_info = other.build_info
@@ -107,9 +112,9 @@ def register_post(cls):
 
 
 def _ensure_loaded():
-    from . import (apk, binaries, dpkg, license_file,  # noqa: F401
-                   lockfiles, lockfiles_extra, misconf, os_release,
-                   python, redhat, rpm, sbom)
+    from . import (apk, binaries, dpkg, executable,  # noqa: F401
+                   license_file, lockfiles, lockfiles_extra, misconf,
+                   os_release, python, redhat, rpm, sbom)
 
 
 # analyzers that are opt-in everywhere (reference: license scanning is

@@ -3,10 +3,12 @@
 Mirrors pkg/fanal/cache: content+code-version addressed keys
 (key.go:18-60: sha256 over diffID + analyzer versions + scan options) let
 a rescan skip every already-analyzed layer (MissingBlobs diff, reference
-pkg/fanal/artifact/image/image.go:113). Backends: in memory, and a
-directory of JSON files (the reference's bbolt file). The port registers
-fewer analyzers than the JAX package, so its keys differ from the JAX
-package's: the two must not share a cache directory."""
+pkg/fanal/artifact/image/image.go:113). Backends: in memory, a
+directory of JSON files (the reference's bbolt file), Redis
+(redis_cache.py) and S3 (s3_cache.py). The port's analyzers carry the
+JAX package's names and versions, so both packages compute the same
+keys and write the same JSON: on a shared Redis or S3 backend each one
+reads the other's entries."""
 
 from __future__ import annotations
 
@@ -24,15 +26,39 @@ SCHEMA_VERSION = 2
 log = _get_logger("fanal.cache")
 
 
-def open_cache(backend: str, cache_dir: str = ""):
-    """Backend selection (reference initCache, run.go:344): "fs" is an
-    FSCache under `cache_dir`, "memory" a MemoryCache. The Redis and S3
-    backends are not ported."""
+def known_backend(backend: str) -> bool:
+    """Is `backend` a spelling open_cache accepts? (The CLI checks it
+    before the table load, so a typo fails at once.)"""
+    return backend in ("", "fs", "memory") \
+        or backend.startswith(("redis://", "s3://"))
+
+
+def open_cache(backend, cache_dir: str = ""):
+    """Backend selection (reference initCache, run.go:344), shared by the
+    CLI and the server:
+
+        fs (default), ""      FSCache under `cache_dir`
+        memory                MemoryCache
+        redis://host:port/db  the shared fleet backend (redis_cache)
+        s3://bucket/prefix    the shared fleet backend (s3_cache)
+
+    An already-open cache object passes through unchanged, so servers
+    of one process can share one cache."""
+    if not isinstance(backend, str):
+        return backend
+    if backend.startswith("redis://"):
+        from .redis_cache import RedisCache
+        return RedisCache(backend)
+    if backend.startswith("s3://"):
+        from .s3_cache import S3Cache
+        return S3Cache(backend)
     if backend == "memory":
         return MemoryCache()
-    if backend == "fs":
+    if backend in ("", "fs"):
         return FSCache(cache_dir)
-    raise ValueError(f"unknown cache backend {backend!r} (fs | memory)")
+    # keep known_backend above in step with these spellings
+    raise ValueError(f"unknown cache backend {backend!r} "
+                     "(fs | memory | redis://... | s3://...)")
 
 
 def cache_key(base_id: str, analyzer_versions: dict,

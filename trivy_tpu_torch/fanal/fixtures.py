@@ -9,7 +9,9 @@ of binaries the analyzers identify: a Go binary with inline build info
 or GPT partition table or a sparse VMDK (`mbr_disk`, `gpt_disk`,
 `vmdk_sparse`), all written here in Python. And `OCIRegistry`, an
 in-process OCI distribution registry on 127.0.0.1 that serves such
-images and the trivy-db artifact by name.
+images and the trivy-db artifact by name, with the other loopback fakes
+of the shared backends: `FakeRedis` (RESP2), `FakeS3` (the S3 REST API,
+sigv4-signed) and `FakeRekor` (the two Rekor endpoints the scans ask).
 
 The docker-save layout is the JAX package's (fanal/fixtures.py) byte for
 byte, so an archive written here scans to the same report in both
@@ -17,10 +19,13 @@ packages."""
 
 from __future__ import annotations
 
+import base64
+import fnmatch
 import gzip
 import hashlib
 import io
 import json
+import socket
 import struct
 import tarfile
 import threading
@@ -384,7 +389,73 @@ MT_OCI_INDEX = "application/vnd.oci.image.index.v1+json"
 MT_OCI_CONFIG = "application/vnd.oci.image.config.v1+json"
 
 
-class OCIRegistry:
+class _LoopbackServer:
+    """A ThreadingHTTPServer on 127.0.0.1 in a daemon thread, started
+    by start() (→ its base URL) or a with block."""
+
+    _handler: type = BaseHTTPRequestHandler
+    _srv = None
+
+    def start(self) -> str:
+        self._srv = ThreadingHTTPServer(("127.0.0.1", 0), self._handler)
+        self._srv.daemon_threads = True
+        self._srv.fake = self
+        self.port = self._srv.server_address[1]
+        threading.Thread(target=self._srv.serve_forever,
+                         name=type(self).__name__, daemon=True).start()
+        return f"http://127.0.0.1:{self.port}"
+
+    def stop(self) -> None:
+        if self._srv is not None:
+            self._srv.shutdown()
+            self._srv.server_close()
+            self._srv = None
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+class _Handler(BaseHTTPRequestHandler):
+    def log_message(self, *a):
+        pass
+
+    def _reply(self, code: int, body: bytes = b"",
+               ctype: str = "application/octet-stream", extra=()):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in extra:
+            self.send_header(k, v)
+        self.end_headers()
+        if self.command != "HEAD":
+            self.wfile.write(body)
+
+
+class _OCIHandler(_Handler):
+    def do_GET(self):
+        reg = self.server.fake
+        reg.requests.append(self.path)
+        if self.path.startswith("/token"):
+            return self._reply(200, json.dumps(
+                {"token": reg.token}).encode(), "application/json")
+        if reg.token and self.headers.get("Authorization") != \
+                f"Bearer {reg.token}":
+            return self._reply(401, b"", "application/json", extra=[(
+                "WWW-Authenticate",
+                f'Bearer realm="http://127.0.0.1:{reg.port}/token"'
+                f',service="fixture",scope="repository:pull"')])
+        found = reg._lookup(self.path)
+        if found is None:
+            return self._reply(404, b'{"errors":[{"code":"UNKNOWN"}]}',
+                               "application/json")
+        self._reply(200, found[1], found[0])
+
+
+class OCIRegistry(_LoopbackServer):
     """An in-process OCI distribution registry (API v2: GET of manifests
     and blobs) on 127.0.0.1, for tests and the chip smoke run. With a
     `token` every request needs `Authorization: Bearer <token>`; a 401
@@ -392,16 +463,15 @@ class OCIRegistry:
     records each path asked for; tamper with a blob by rewriting
     `blobs[digest]`."""
 
+    _handler = _OCIHandler
+
     def __init__(self, token: str = ""):
         self.token = token
         self.blobs: dict[str, bytes] = {}
         # (repo, reference) → (media type, manifest bytes)
         self.manifests: dict[tuple[str, str], tuple[str, bytes]] = {}
         self.requests: list[str] = []
-        self._srv = None
         self.port = 0
-
-    # ---- content -------------------------------------------------------
 
     def put_blob(self, data: bytes) -> str:
         digest = "sha256:" + sha256_hex(data)
@@ -453,8 +523,6 @@ class OCIRegistry:
             "schemaVersion": 2, "mediaType": MT_OCI_INDEX,
             "manifests": entries}, media_type=MT_OCI_INDEX)
 
-    # ---- serving -------------------------------------------------------
-
     def _lookup(self, path: str):
         """A request path → (content type, body), or None."""
         parts = path.split("?", 1)[0].split("/")
@@ -466,59 +534,275 @@ class OCIRegistry:
             return "application/octet-stream", self.blobs[parts[-1]]
         return None
 
-    def start(self) -> str:
-        """Serve on a free port → the base URL (http://127.0.0.1:PORT)."""
-        reg = self
+class FakeRedis:
+    """A tiny RESP2 server on 127.0.0.1 (SET, GET, EXISTS, DEL, RENAME,
+    SCAN, AUTH, SELECT): enough of Redis for fanal.redis_cache and the
+    Redis memo. It serves from construction; `data` holds the keys as
+    bytes; drop_connections() closes every connection it accepted, as
+    a Redis that went away would."""
 
-        class Handler(BaseHTTPRequestHandler):
-            def log_message(self, *a):
+    def __init__(self, password: str = ""):
+        self.data: dict[bytes, bytes] = {}
+        self.password = password
+        self._conns: list = []
+        self.sock = socket.socket()
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(16)
+        self.port = self.sock.getsockname()[1]
+        self.url = f"redis://127.0.0.1:{self.port}"
+        threading.Thread(target=self._serve, name="fake-redis",
+                         daemon=True).start()
+
+    def _serve(self):
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            self._conns.append(conn)
+            threading.Thread(target=self._handle, args=(conn,),
+                             daemon=True).start()
+
+    def _handle(self, conn):
+        buf = b""
+        authed = not self.password
+        while True:
+            try:
+                chunk = conn.recv(65536)
+            except OSError:
+                return
+            if not chunk:
+                return
+            buf += chunk
+            while True:
+                cmd, rest = self._parse(buf)
+                if cmd is None:
+                    break
+                buf = rest
+                reply, authed = self._dispatch(cmd, authed)
+                try:
+                    conn.sendall(reply)
+                except OSError:
+                    return
+
+    @staticmethod
+    def _parse(buf: bytes):
+        """One whole command off the front of `buf` → (its arguments,
+        the rest), or (None, buf) until more bytes arrive."""
+        if not buf.startswith(b"*"):
+            return None, buf
+        try:
+            head, rest = buf.split(b"\r\n", 1)
+            args = []
+            for _ in range(int(head[1:])):
+                if not rest.startswith(b"$"):
+                    return None, buf
+                lhead, rest2 = rest.split(b"\r\n", 1)
+                n = int(lhead[1:])
+                if len(rest2) < n + 2:
+                    return None, buf
+                args.append(rest2[:n])
+                rest = rest2[n + 2:]
+            return args, rest
+        except (ValueError, IndexError):
+            return None, buf
+
+    def _dispatch(self, args: list, authed: bool) -> tuple:
+        cmd = args[0].decode().upper()
+        if cmd == "AUTH":
+            if args[1].decode() == self.password:
+                return b"+OK\r\n", True
+            return b"-ERR invalid password\r\n", authed
+        if not authed:
+            return b"-NOAUTH Authentication required.\r\n", authed
+        if cmd == "SELECT":
+            return b"+OK\r\n", authed
+        if cmd == "SET":
+            self.data[args[1]] = args[2]
+            return b"+OK\r\n", authed
+        if cmd == "GET":
+            v = self.data.get(args[1])
+            if v is None:
+                return b"$-1\r\n", authed
+            return b"$%d\r\n%s\r\n" % (len(v), v), authed
+        if cmd == "EXISTS":
+            return b":%d\r\n" % (args[1] in self.data), authed
+        if cmd == "DEL":
+            return b":%d\r\n" % (self.data.pop(args[1], None)
+                                  is not None), authed
+        if cmd == "RENAME":
+            v = self.data.pop(args[1], None)
+            if v is None:
+                return b"-ERR no such key\r\n", authed
+            self.data[args[2]] = v
+            return b"+OK\r\n", authed
+        if cmd == "SCAN":
+            pat = b"*"
+            for i, a in enumerate(args):
+                if a.upper() == b"MATCH":
+                    pat = args[i + 1]
+            keys = [k for k in self.data
+                    if fnmatch.fnmatch(k.decode(), pat.decode())]
+            out = b"*2\r\n$1\r\n0\r\n*%d\r\n" % len(keys)
+            for k in keys:
+                out += b"$%d\r\n%s\r\n" % (len(k), k)
+            return out, authed
+        return b"-ERR unknown command\r\n", authed
+
+    def drop_connections(self) -> None:
+        for conn in self._conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+                conn.close()
+            except OSError:
                 pass
+        self._conns.clear()
 
-            def _send(self, code: int, body: bytes = b"",
-                      ctype: str = "application/json", extra=()):
-                self.send_response(code)
-                self.send_header("Content-Type", ctype)
-                self.send_header("Content-Length", str(len(body)))
-                for k, v in extra:
-                    self.send_header(k, v)
-                self.end_headers()
-                self.wfile.write(body)
-
-            def do_GET(self):
-                reg.requests.append(self.path)
-                if self.path.startswith("/token"):
-                    self._send(200, json.dumps(
-                        {"token": reg.token}).encode())
-                    return
-                if reg.token and self.headers.get("Authorization") != \
-                        f"Bearer {reg.token}":
-                    self._send(401, extra=[(
-                        "WWW-Authenticate",
-                        f'Bearer realm="http://127.0.0.1:{reg.port}/token"'
-                        f',service="fixture",scope="repository:pull"')])
-                    return
-                found = reg._lookup(self.path)
-                if found is None:
-                    self._send(404, b'{"errors":[{"code":"UNKNOWN"}]}')
-                    return
-                self._send(200, found[1], ctype=found[0])
-
-        self._srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self._srv.daemon_threads = True
-        self.port = self._srv.server_address[1]
-        threading.Thread(target=self._srv.serve_forever,
-                         name="oci-registry", daemon=True).start()
-        return f"http://127.0.0.1:{self.port}"
-
-    def stop(self) -> None:
-        if self._srv is not None:
-            self._srv.shutdown()
-            self._srv.server_close()
-            self._srv = None
+    def close(self) -> None:
+        self.sock.close()
+        self.drop_connections()
 
     def __enter__(self):
-        self.start()
         return self
 
     def __exit__(self, *exc):
-        self.stop()
+        self.close()
+
+
+class _S3Handler(_Handler):
+    def _refused(self) -> bool:
+        fake = self.server.fake
+        if fake.fail:
+            self._reply(fake.fail, b"InternalError")
+            return True
+        if not (self.headers.get("Authorization") or "").startswith(
+                "AWS4-HMAC-SHA256"):
+            fake.unsigned += 1
+            self._reply(403, b"AccessDenied")
+            return True
+        return False
+
+    def do_PUT(self):
+        if self._refused():
+            return
+        n = int(self.headers.get("Content-Length", "0"))
+        self.server.fake.objects[self.path] = self.rfile.read(n)
+        self._reply(200)
+
+    def do_GET(self):
+        if self._refused():
+            return
+        body = self.server.fake.objects.get(self.path)
+        if body is None:
+            self._reply(404, b"NoSuchKey")
+        else:
+            self._reply(200, body)
+
+    def do_HEAD(self):
+        if self._refused():
+            return
+        self._reply(200 if self.path in self.server.fake.objects else 404)
+
+    def do_DELETE(self):
+        if self._refused():
+            return
+        self.server.fake.objects.pop(self.path, None)
+        self._reply(204)
+
+
+class FakeS3(_LoopbackServer):
+    """An S3 endpoint on 127.0.0.1 (PUT, GET, HEAD, DELETE of objects
+    by path, `/bucket/key`) that refuses, 403, any request not signed
+    with AWS4-HMAC-SHA256 (counted in `unsigned`); with `fail` set to
+    a status code it answers every request with it. Give its base URL
+    as the `endpoint` of an s3:// cache URL."""
+
+    _handler = _S3Handler
+
+    def __init__(self):
+        self.objects: dict[str, bytes] = {}
+        self.fail = 0
+        self.unsigned = 0
+
+    def url(self, bucket: str, prefix: str = "",
+            region: str = "us-east-1") -> str:
+        """The s3:// cache URL of `bucket`/`prefix` on this endpoint."""
+        path = f"/{prefix}" if prefix else ""
+        return (f"s3://{bucket}{path}?region={region}"
+                f"&endpoint=http://127.0.0.1:{self.port}")
+
+
+class _RekorHandler(_Handler):
+    def do_POST(self):
+        fake = self.server.fake
+        req = json.loads(self.rfile.read(
+            int(self.headers.get("Content-Length", 0))) or b"{}")
+        if fake.fail:
+            return self._reply(fake.fail, b'{"message":"internal"}',
+                               "application/json")
+        if self.path == "/api/v1/index/retrieve":
+            digest = req.get("hash", "")
+            fake.searches.append(digest)
+            if fake.attestation(digest) is None:
+                body = []
+            else:
+                eid = FakeRekor.entry_id(digest)
+                fake.entries[eid] = digest
+                body = [eid]
+        elif self.path == "/api/v1/log/entries/retrieve":
+            body = [{eid: {"attestation": {"data": base64.b64encode(
+                json.dumps(fake.attestation(fake.entries[eid])).encode()
+            ).decode()}, "body": ""}}
+                for eid in req.get("entryUUIDs", []) if eid in fake.entries]
+        else:
+            return self._reply(404, b"{}", "application/json")
+        self._reply(200, json.dumps(body).encode(), "application/json")
+
+
+class FakeRekor(_LoopbackServer):
+    """The two Rekor endpoints the scans ask (index/retrieve and
+    log/entries/retrieve) on 127.0.0.1, over `attestations`, a map from
+    a digest ("sha256:...") to the attestation (a DSSE envelope or an
+    in-toto statement, as JSON) logged for it, and `default`, when
+    given, logged for every other digest. `searches` records each
+    digest asked for; with `fail` set to a status code every request
+    gets it."""
+
+    _handler = _RekorHandler
+
+    def __init__(self, attestations: dict | None = None,
+                 default: dict | None = None):
+        self.attestations = dict(attestations or {})
+        self.default = default
+        self.searches: list[str] = []
+        self.entries: dict[str, str] = {}   # entry id → digest
+        self.fail = 0
+
+    def attestation(self, digest: str):
+        return self.attestations.get(digest, self.default)
+
+    @staticmethod
+    def entry_id(digest: str) -> str:
+        """A digest's entry id: a fixed tree id and a UUID from the
+        digest."""
+        return "24296fb24b8ad77a" + hashlib.sha256(
+            digest.encode()).hexdigest()
+
+
+def intoto_envelope(predicate: dict,
+                    predicate_type: str = "https://cyclonedx.org/bom",
+                    subject_digest: str = "") -> dict:
+    """A DSSE envelope around an in-toto statement of `predicate` (an
+    SBOM document), as cosign attests one."""
+    statement = {
+        "_type": "https://in-toto.io/Statement/v0.1",
+        "predicateType": predicate_type,
+        "subject": [{"name": "artifact", "digest": {
+            "sha256": subject_digest.removeprefix("sha256:")}}]
+        if subject_digest else [],
+        "predicate": predicate}
+    return {"payloadType": "application/vnd.in-toto+json",
+            "payload": base64.b64encode(
+                json.dumps(statement).encode()).decode(),
+            "signatures": [{"keyid": "", "sig": "ZmFrZQ=="}]}

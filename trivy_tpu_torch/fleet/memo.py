@@ -27,12 +27,14 @@ for the OS unit, every package, the OS detection and the repository
 hint. Partial (ingest-annotated) blobs are never memoized.
 
 Backends: fs (one JSON file per entry, with the fanal cache's atomic
-writes and corrupt-entry quarantine), memory, and an already-open store
-object passed through (several servers in one process share one
-MemoryMemo). The JAX package's redis:// and s3:// memos need the Redis
-and S3 clients of ROADMAP A5.3 and are refused. A backend fault (a full
-disk, an unreadable entry) degrades to a miss: the scan detects live, on
-the card; it never fails and never serves another version's entry.
+writes and corrupt-entry quarantine), memory, redis:// (entries under
+`memo::`, a corrupt one quarantined to `memo::corrupt::`) and s3://
+(objects under `memo/`), the JAX package's keys and documents on each,
+and an already-open store object passed through (several servers in one
+process share one MemoryMemo). A backend fault (a full disk, an
+unreadable entry, a dead Redis) degrades to a miss: the scan detects
+live, on the card; it never fails and never serves another version's
+entry.
 """
 
 from __future__ import annotations
@@ -50,13 +52,10 @@ _log = _get_logger("fleet.memo")
 
 MEMO_SCHEMA = 1
 
-_A53 = ("the Redis and S3 memos are not ported yet (ROADMAP A5.3: the "
-        "Redis and S3 clients)")
-
 
 def known_backend(backend: str) -> bool:
-    """Is `backend` a spelling open_memo knows? ("" / "off" = disabled;
-    redis:// and s3:// are known, and refused by open_memo.)"""
+    """Is `backend` a spelling open_memo accepts? ("" / "off" =
+    disabled.)"""
     return backend in ("", "off", "fs", "memory") \
         or backend.startswith(("redis://", "s3://"))
 
@@ -68,8 +67,10 @@ def open_memo(backend, cache_dir: str = ""):
         return backend
     if backend in ("", "off"):
         return None
-    if backend.startswith(("redis://", "s3://")):
-        raise ValueError(f"memo backend {backend!r}: {_A53}")
+    if backend.startswith("redis://"):
+        return RedisMemo(backend)
+    if backend.startswith("s3://"):
+        return S3Memo(backend)
     if backend == "memory":
         return MemoryMemo()
     if backend == "fs":
@@ -354,6 +355,65 @@ class FSMemo(MemoStore):
                     with self._lock:
                         self._known.setdefault(doc["blob_id"], None)
         return super().known_blobs()
+
+
+class RedisMemo(MemoStore):
+    """The shared fleet backend over the fanal RespClient. Entries live
+    under their own `memo::` prefix, which the fanal cache's clear never
+    touches; a corrupt entry is quarantined with the fanal cache's
+    read-compare-rename, so a racing re-put keeps its fresh value."""
+
+    backend = "redis"
+
+    def __init__(self, url: str):
+        super().__init__()
+        from ..fanal.redis_cache import client_for
+        self.client = client_for(url)
+
+    def close(self) -> None:
+        self.client.close()
+
+    @staticmethod
+    def _rkey(key: str) -> str:
+        return f"memo::{key}"
+
+    def _read(self, key: str):
+        raw = self.client.command("GET", self._rkey(key))
+        if raw is None:
+            return None
+        try:
+            return json.loads(raw)
+        except (json.JSONDecodeError, UnicodeDecodeError, ValueError):
+            from ..fanal.redis_cache import RedisError
+            try:
+                self.client.rename_if_value(self._rkey(key), raw,
+                                            f"memo::corrupt::{key}")
+            except RedisError:
+                pass
+            _log.warning("quarantined corrupt memo entry %s (serving a "
+                         "miss)", key)
+            return None
+
+    def _write(self, key: str, doc: dict) -> None:
+        self.client.command("SET", self._rkey(key), json.dumps(doc))
+
+
+class S3Memo(MemoStore):
+    """The shared fleet backend over the fanal S3 client: entries under
+    a `memo/` key prefix beside the fanal cache's."""
+
+    backend = "s3"
+
+    def __init__(self, url: str):
+        super().__init__()
+        from ..fanal.s3_cache import S3Cache
+        self._s3 = S3Cache(url)
+
+    def _read(self, key: str):
+        return self._s3._get("memo", key)
+
+    def _write(self, key: str, doc: dict) -> None:
+        self._s3._put("memo", key, doc)
 
 
 # ---------------------------------------------------------------------------
