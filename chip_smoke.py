@@ -318,14 +318,37 @@ Phases, one JSON line each; any failure exits non-zero:
            batches and secret rows through the kernels against their
            plain versions ("at_caches"). Figures: each run's wall,
            hits, launches, the keys in each store.
+  stream   graftstream on the apps table, in this process, as a fresh
+           AdvisoryTable over its host columns, whose device cache shows
+           the whole table was never shipped: the image_apps and fs join
+           batches through
+           StreamingDetector with 4 forced slices, then with the plan a
+           64 MiB budget derives (5 slices), each batch's hits equal to
+           the resident detector's; the growth of
+           torch.cuda.max_memory_allocated over those walks below the
+           full table's device bytes, a cold upload wait only for a
+           walk's first slice when it was not resident, every other
+           upload prefetched. Then an in-process server with
+           --table-stream-slices 4 on the server phase's cache: one c=16
+           round of its 16 artifacts, each equal to the server phase's
+           report, /healthz `stream`, /debug/perf `shard_uploads.stream`,
+           the merged dispatches and the slices the prefetch peek
+           issued; and a server with no streaming flag, whose auto
+           budget (35% of the card) does not engage: no `stream` block.
+           Then every slice of the largest batch through the dense join
+           against its plain version, and the largest slice's dense and
+           compacted joins timed ("at_stream"). Figures: the walls, the
+           upload stall a walk after its first slice, the plans, the
+           real bytes of a slice on the card (prefix planes included).
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
 the language phases' under "at_fs", "at_image_apps", "at_sbom",
 "at_ci", "at_image_remote", "at_misconf", "at_misconf_image",
 "at_server" (the server's merged dispatches), "at_memo" (the
-largest blob the memo phase's sweep replayed), "at_vm" (the disk) and
-"at_caches" (the image_apps image through the shared caches);
+largest blob the memo phase's sweep replayed), "at_vm" (the disk),
+"at_caches" (the image_apps image through the shared caches) and
+"at_stream" (the largest advisory slice of the stream phase);
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -688,11 +711,14 @@ def join_bytes(args, prep, out_bytes: int) -> int:
             + out_bytes)
 
 
-def join_case(torch, table, det, prep, label: str) -> dict:
-    """Kernel against plain on one prepared batch; → the measurement."""
+def join_case(torch, table, det, prep, label: str, inputs=None) -> dict:
+    """Kernel against plain on one prepared batch (on `inputs`, the
+    join's arguments and prefix planes, when given); → the
+    measurement."""
     from trivy_tpu_torch.ops import join as J
     t_pad = prep.t_pad
-    args, prefix = join_inputs(torch, table, det, prep)
+    args, prefix = inputs or join_inputs(torch, table, det, prep)
+    rows = args[0].shape[0]
 
     def kernel():
         return J.csr_join_cuda(*args, t_pad, prefix=prefix)
@@ -707,14 +733,14 @@ def join_case(torch, table, det, prep, label: str) -> dict:
     loop_ms = looped_ms(kernel)
     plain_ms = cuda_ms(lambda: J.csr_pair_join_plain(*args, t_pad), 2)
     bound = join_bytes(args, prep, t_pad) / HBM_BYTES_PER_S * 1e3
-    phase("kernels", kernel="csr_join", at=label, rows=len(table),
+    phase("kernels", kernel="csr_join", at=label, rows=rows,
           queries=prep.n_queries, pairs=prep.n_pairs, t_pad=t_pad,
           hits=int((got != 0).sum()), equal=True, max_abs_err=err, ms=ms,
           looped_ms=loop_ms, plain_ms=plain_ms, bound_ms=bound)
     return {"max_abs_err": err, "ms": ms, "looped_ms": loop_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-            "shape": [len(table), prep.n_queries, t_pad]}
+            "shape": [rows, prep.n_queries, t_pad]}
 
 
 def check_main_path_shapes(torch, root: str) -> dict:
@@ -1356,12 +1382,15 @@ def walk_image(layers: list) -> tuple:
     return apply_layers(blobs), secret_files
 
 
-def compact_case(torch, table, det, prep, h_cap: int, label: str) -> dict:
-    """The compacted join on one prepared batch against the plain join
-    plus _compact_core; → the measurement."""
+def compact_case(torch, table, det, prep, h_cap: int, label: str,
+                 inputs=None) -> dict:
+    """The compacted join on one prepared batch (on `inputs` when
+    given, as join_case) against the plain join plus _compact_core; →
+    the measurement."""
     from trivy_tpu_torch.ops import join as J
     t_pad = prep.t_pad
-    args, prefix = join_inputs(torch, table, det, prep)
+    args, prefix = inputs or join_inputs(torch, table, det, prep)
+    rows = args[0].shape[0]
 
     def kernel():
         return J.csr_join_compact_cuda(*args, t_pad, h_cap, prefix=prefix)
@@ -1374,14 +1403,14 @@ def compact_case(torch, table, det, prep, h_cap: int, label: str) -> dict:
         J.csr_pair_join_plain(*args, t_pad), h_cap), 2)
     bound = join_bytes(args, prep, t_pad + 5 * h_cap + 4) \
         / HBM_BYTES_PER_S * 1e3
-    phase("kernels", kernel="csr_join_compact", at=label, rows=len(table),
+    phase("kernels", kernel="csr_join_compact", at=label, rows=rows,
           queries=prep.n_queries, pairs=prep.n_pairs, t_pad=t_pad,
           h_cap=h_cap, n_hits=int(got[2]), equal=True, max_abs_err=err,
           ms=ms, looped_ms=loop_ms, plain_ms=plain_ms, bound_ms=bound)
     return {"max_abs_err": err, "ms": ms, "looped_ms": loop_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
             "library_ms": None,
-            "shape": [len(table), prep.n_queries, t_pad, h_cap]}
+            "shape": [rows, prep.n_queries, t_pad, h_cap]}
 
 
 def run_image_at_size(torch, tmp: str) -> tuple:
@@ -1716,14 +1745,14 @@ ROUND_TRIP_TYPES = ("debian", "gemspec", "gobinary", "jar", "node-pkg",
                     "rustbinary")
 
 
-def scan_batches(table, detail) -> list:
+def scan_batches(table, detail, device: str = "cuda") -> list:
     """[(label, queries)] of a scan's join batches in LocalScanner's
     order: the OS batch, then each application by (file path, type),
     its dev packages dropped."""
     from trivy_tpu_torch.detect.engine import BatchDetector
     from trivy_tpu_torch.detect.langpkg import LangpkgScanner
     from trivy_tpu_torch.detect.ospkg import OspkgScanner
-    det = BatchDetector(table, device="cuda")
+    det = BatchDetector(table, device=device)
     out = []
     if detail.os.detected:
         qs, fin = OspkgScanner(det).prepare(detail.os, detail.repository,
@@ -4763,26 +4792,29 @@ def server_phase(tmp: str, table, db: str, names: dict,
                                  f"dispatches for {c16['batches']} batches")
         obs = server_obs_checks(base, after, tids16, lat16)
         # one live profile during a c=16 round: its 200 ms window has to
-        # hold a merged dispatch, so a capture that caught none (the
-        # server answers 500 and writes nothing; the first capture of a
-        # process also pays the profiler's start-up before its window)
-        # is asked again in the next round, at most five times
+        # hold a merged dispatch's join, so a capture that caught none
+        # (the server answers 500 and writes nothing when it caught no
+        # kernel at all; the first capture of a process also pays the
+        # profiler's start-up before its window; a window can also close
+        # between a dispatch's query copy and its join) is asked again
+        # in the next round, at most five times
         attempts = []
         for _ in range(5):
             _w, _g, doc = c16_round(profile=True)
-            attempts.append(doc.get("code", "ok"))
-            if "code" not in doc:
+            if "code" in doc:
+                attempts.append(doc["code"])
+                continue
+            fig = profile_figures(doc)
+            if device != "cuda" or any(n in fig["kernels"]
+                                       for n in KERNEL_NAMES["csr_join"]):
+                attempts.append("ok")
                 break
+            attempts.append(f"no join kernel: {sorted(fig['kernels'])}")
         else:
             raise AssertionError(f"server: no /debug/profile capture "
-                                 f"held a kernel: {attempts} {doc}")
+                                 f"held a join kernel: {attempts} {doc}")
         check_obs_file(doc["manifest"])
-        obs["profile"] = {**profile_figures(doc), "attempts": attempts}
-        if device == "cuda" and not any(
-                n in obs["profile"]["kernels"]
-                for n in KERNEL_NAMES["csr_join"]):
-            raise AssertionError(f"server profile: no join kernel "
-                                 f"{sorted(obs['profile']['kernels'])}")
+        obs["profile"] = {**fig, "attempts": attempts}
         final = _get_json(base + "/healthz")["detectd"]
 
         # the reference: the same table and cache, in-process, on the
@@ -4833,7 +4865,7 @@ def server_phase(tmp: str, table, db: str, names: dict,
     return {"ready_s": ready_s, "healthz": healthz, "setup_s": setup_s,
             "analyze_s": analyze_s, "client_shiftor": client_shiftor,
             "artifacts": len(refs), "vulnerabilities": vulns,
-            "roots": roots,
+            "roots": roots, "clients": (cache_dir, refs, serial),
             "c1": {"p50_s": _pct(lat1, 50), "p99_s": _pct(lat1, 99),
                    "scans_per_s": len(refs) / wall1, "wall_s": wall1},
             "c16": {"p50_s": _pct(lat16, 50), "p99_s": _pct(lat16, 99),
@@ -5036,7 +5068,7 @@ def run_server_at_size(torch, tmp: str, table, db: str, names: dict
     """The server phase on the card, then each recorded merged dispatch
     against the plain join and its kernel timed, and shift-or on one
     client artifact's rows → (launch counts, the kernels on its
-    inputs)."""
+    inputs, (its cache dir, the client artifacts, their c=1 reports))."""
     from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
                                                  AnalyzerGroup)
     from trivy_tpu_torch.fanal.walker import walk_fs
@@ -5076,9 +5108,10 @@ def run_server_at_size(torch, tmp: str, table, db: str, names: dict
                              f"{fig['healthz']['device']} "
                              f"{fig['healthz']['device_name']}")
     fig.pop("roots")
+    clients = fig.pop("clients")
     phase("server", **fig, merged_recorded=len(entries),
           client_secret_rows=rows, launches_by_kernel=launches)
-    return launches, at
+    return launches, at, clients
 
 
 # --- the memo phase: a registry sweep across a DB update -------------------
@@ -6097,9 +6130,296 @@ def run_caches_at_size(torch, tmp: str, table, db: str, names: dict,
     return launches, at
 
 
+# --- stream: the apps table streamed through resident slices -----------
+
+STREAM_SLICES = 4
+STREAM_BUDGET_MB = 64
+
+
+def _hit_rows(hits) -> list:
+    """Hits as comparable rows (the query objects are the batches')."""
+    return [(id(h.query), h.vuln_id, h.fixed_version, h.status, h.severity)
+            for h in hits]
+
+
+def stream_walks(fresh, queries: list, want: list, device: str,
+                 budget_mb: float = STREAM_BUDGET_MB) -> dict:
+    """The stream phase's walks: `queries` (batches) through a
+    StreamingDetector on the table `fresh` with STREAM_SLICES forced
+    slices, then with the plan a `budget_mb` budget derives; each
+    batch's hits equal to `want` (the resident detector's); a walk
+    waits cold only for its first slice, and only when that slice was
+    not resident before it, and every other upload is prefetched → per
+    plan its figures."""
+    from trivy_tpu_torch.obs.perf import LEDGER
+    from trivy_tpu_torch.parallel.stream import (StreamingDetector,
+                                                 StreamOptions,
+                                                 touched_slices)
+    per_slice = int(budget_mb * (1 << 20)) // 2
+    out = {}
+    for label, opts, n_want in (
+            ("slices", StreamOptions(slices=STREAM_SLICES), STREAM_SLICES),
+            ("budget", StreamOptions(device_budget_mb=budget_mb),
+             -(-fresh.device_nbytes() // per_slice))):
+        sd = StreamingDetector(fresh, opts, device=device)
+        try:
+            if sd.n_slices != n_want:
+                raise AssertionError(f"stream {label}: {sd.n_slices} "
+                                     f"slices, expected {n_want}")
+            up0 = LEDGER.shard_upload_stats().get("stream", {})
+            got, wall, walks, cold_want = [], 0.0, 0, 0
+            for qs in queries:
+                p = sd._prepare(qs) if qs else None
+                if p is not None and p.n_pairs:
+                    # the walk's first slice is cold unless resident
+                    first = touched_slices(sd.bounds, p.q_start,
+                                           p.q_count)[0]
+                    walks += 1
+                    cold_want += first not in sd._cache.resident()
+                t0 = time.perf_counter()
+                got += sd.detect_many([qs])
+                wall += time.perf_counter() - t0
+            up = {k: v - up0.get(k, 0) for k, v in
+                  LEDGER.shard_upload_stats()["stream"].items()}
+            for i, (g, w) in enumerate(zip(got, want)):
+                if _hit_rows(g) != _hit_rows(w):
+                    raise AssertionError(f"stream {label}: batch {i}'s "
+                                         "hits differ from the resident "
+                                         "detector's")
+            if up["cold_waits"] != cold_want or \
+                    up["prefetched"] != up["uploads"] - cold_want:
+                raise AssertionError(f"stream {label}: uploads {up} for "
+                                     f"{walks} walks, {cold_want} of "
+                                     "them starting on a slice not "
+                                     "resident")
+            slice_bytes = [sum(t.numel() * t.element_size() for t in
+                               sd._cache.get(k))
+                           for k in sd._cache.resident()]
+            if set(slice_bytes) != {sd.slice_device_nbytes}:
+                raise AssertionError(f"stream {label}: slices of "
+                                     f"{slice_bytes} bytes on the card")
+            warm_waits = up["waits"] - up["cold_waits"]
+            out[label] = {
+                "budget_mb": opts.device_budget_mb,
+                "slices": sd.n_slices, "rows_pad": sd.rows_pad,
+                "bounds": sd.bounds.tolist(),
+                "slice_nbytes": sd.slice_nbytes,
+                "slice_device_nbytes": sd.slice_device_nbytes,
+                "resident_device_bytes": sum(slice_bytes),
+                "walks": walks, "cold_walks": cold_want, "wall_s": wall,
+                "uploads": up,
+                "stall_ms_after_first_slice_per_walk":
+                    (up["stall_ms"] - up["cold_stall_ms"]) / walks,
+                "stall_ms_per_warm_wait":
+                    (up["stall_ms"] - up["cold_stall_ms"])
+                    / max(warm_waits, 1),
+                "hits": sum(map(len, got))}
+        finally:
+            sd.close()
+    return out
+
+
+def stream_servers(fresh, table, clients: tuple, device: str) -> dict:
+    """An in-process server with --table-stream-slices STREAM_SLICES on
+    `fresh` and the server phase's cache: one c=16 round of its client
+    artifacts, each equal to its report there; then one with no
+    streaming flag on `table`, whose auto budget does not engage →
+    the figures."""
+    import threading
+
+    from trivy_tpu_torch import types as T
+    from trivy_tpu_torch.detect.engine import BatchDetector
+    from trivy_tpu_torch.parallel.stream import (StreamingDetector,
+                                                 StreamOptions)
+    from trivy_tpu_torch.server.client import RemoteScanner
+    from trivy_tpu_torch.server.listen import serve_background
+    cache_dir, refs, serial = clients
+    t0 = time.perf_counter()
+    httpd, state = serve_background(
+        "127.0.0.1", 0, fresh, cache_dir, SERVER_TOKEN, device=device,
+        stream_opts=StreamOptions(slices=STREAM_SLICES))
+    start_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        if not isinstance(state.scanner.detector, StreamingDetector):
+            raise AssertionError("stream server: the detector "
+                                 f"{state.scanner.detector} is resident")
+        up0 = _debug(base, "perf")["totals"]["shard_uploads"].get(
+            "stream", {})
+        sites0 = _site_dispatches(base)
+        d0 = _get_json(base + "/healthz")["detectd"]
+        scanner = RemoteScanner(base, token=SERVER_TOKEN, timeout=300)
+        opts = T.ScanOptions(scanners=("vuln", "secret"))
+        got, lat = [None] * len(refs), [0.0] * len(refs)
+        barrier = threading.Barrier(len(refs))
+
+        def worker(i):
+            barrier.wait()
+            t = time.perf_counter()
+            results, os_info = scanner.scan(refs[i].name, refs[i].id,
+                                            refs[i].blob_ids, opts)
+            lat[i] = time.perf_counter() - t
+            got[i] = (_canon(results), _os_key(os_info))
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(refs))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        for i, rep in enumerate(got):
+            if rep != serial[i]:
+                raise AssertionError(f"stream server: artifact {i}'s report "
+                                     "differs from the server phase's")
+        health = _get_json(base + "/healthz")
+        perf = _debug(base, "perf")
+        up = {k: v - up0.get(k, 0) for k, v in
+              perf["totals"]["shard_uploads"]["stream"].items()}
+        detectd = {k: v - d0[k] for k, v in health["detectd"].items()}
+        sites = {k: v - sites0.get(k, 0)
+                 for k, v in _site_dispatches(base).items()}
+        stream = health.get("stream") or {}
+        if stream.get("slices") != STREAM_SLICES or \
+                len(stream.get("resident", ())) > 2 or not up["waits"] \
+                or not detectd["dispatches"] or not sites.get("stream"):
+            raise AssertionError(f"stream server: /healthz {stream}, "
+                                 f"uploads {up}, detectd {detectd}, "
+                                 f"sites {sites}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        state.close()
+    httpd, state = serve_background(
+        "127.0.0.1", 0, table, os.path.join(os.path.dirname(cache_dir),
+                                            "stream-auto-cache"),
+        SERVER_TOKEN, device=device, stream_opts=StreamOptions())
+    try:
+        auto = _get_json(f"http://127.0.0.1:{httpd.server_address[1]}"
+                         "/healthz")
+        if "stream" in auto or type(state.scanner.detector) is not \
+                BatchDetector:
+            raise AssertionError("stream: the auto budget engaged on the "
+                                 "apps table")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        state.close()
+    return {"start_s": start_s, "artifacts": len(refs), "c16_wall_s": wall,
+            "c16_p50_s": _pct(lat, 50), "c16_p99_s": _pct(lat, 99),
+            "healthz_stream": stream, "shard_uploads": up,
+            "detectd": detectd, "dispatches_by_site": sites,
+            "auto_budget_engaged": False}
+
+
+def stream_kernels(torch, fresh, queries: list) -> dict:
+    """Every slice the largest batch touches (4 forced slices) through
+    the dense join against its plain version, and the largest slice's
+    dense and compacted joins timed against theirs → {kernel:
+    measurement}."""
+    from types import SimpleNamespace
+
+    from trivy_tpu_torch.ops import bucket_size
+    from trivy_tpu_torch.ops import join as J
+    from trivy_tpu_torch.parallel.stream import (StreamingDetector,
+                                                 StreamOptions,
+                                                 clip_descriptors)
+    sd = StreamingDetector(fresh, StreamOptions(slices=STREAM_SLICES),
+                           device="cuda")
+    try:
+        preps = [p for p in (sd._prepare(qs) for qs in queries if qs)
+                 if p is not None and p.n_pairs]
+        prep = max(preps, key=lambda p: p.n_pairs)
+        ver = sd._inner._ver_device(prep.u_pad)
+        cases = []
+        for plan in clip_descriptors(sd.bounds, prep.q_start, prep.q_count,
+                                     prep.q_ver):
+            n = plan.q_start.size
+            cols = np.zeros((3, bucket_size(n, 64, 2.0, align=64)), np.int32)
+            cols[:, :n] = plan.q_start, plan.q_count, plan.q_ver
+            sprep = SimpleNamespace(
+                n_queries=n, n_pairs=plan.total, t_pad=sd._slice_tpad(plan),
+                q_start=cols[0], q_count=cols[1], q_ver=cols[2])
+            lo, hi, flags, lo_pre, hi_pre = sd._cache.get(plan.idx)
+            inputs = ((lo, hi, flags, ver,
+                       *(torch.from_numpy(c).cuda() for c in cols),
+                       plan.total), (lo_pre, hi_pre))
+            got = J.csr_join_cuda(*inputs[0], sprep.t_pad, prefix=inputs[1])
+            if not torch.equal(got, J.csr_pair_join_plain(*inputs[0],
+                                                          sprep.t_pad)):
+                raise AssertionError(f"stream: slice {plan.idx}'s join "
+                                     "differs from its plain version")
+            cases.append((plan.total, plan.idx, sprep, inputs))
+        _total, idx, sprep, inputs = max(cases, key=lambda c: c[0])
+        dense = join_case(torch, None, None, sprep, f"stream_slice{idx}",
+                          inputs=inputs)
+        h_cap = sd._inner._hit_capacity(sprep.t_pad)
+        compact = compact_case(torch, None, None, sprep, h_cap or 128,
+                               f"stream_slice{idx}", inputs=inputs)
+    finally:
+        sd.close()
+    return {"csr_join": {"slice": idx, "slices_checked": len(cases),
+                         **dense},
+            "csr_join_compact": {"slice": idx, "forced": not h_cap,
+                                 **compact},
+            "shiftor": {"launches": 0, "not_on_path": "the streamed server "
+                        "joins only: its clients ran shift-or in the "
+                        "server phase"}}
+
+
+def run_stream_at_size(torch, table, batches: list, clients: tuple
+                       ) -> tuple:
+    """The stream phase on the card → (launch counts, the kernels on its
+    inputs). `batches` are [(label, queries)] (image_apps' and fs'),
+    `clients` the server phase's (cache dir, artifacts, reports)."""
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.db.table import AdvisoryTable
+    from trivy_tpu_torch.detect.engine import BatchDetector
+    cuda = torch.device("cuda")
+    # a fresh table over the apps table's host columns: its device cache
+    # starts empty, so it shows whether anything shipped the whole table
+    # (loading the .npz once more would cost some 15 s of the script's
+    # time limit and prove nothing more)
+    fresh = AdvisoryTable(table.hash, table.lo_tok, table.hi_tok,
+                          table.flags, table.group, table.groups,
+                          table.window, table.details, table.aux)
+    queries = [qs for _, qs in batches if qs]
+    resident = BatchDetector(table, device="cuda")
+    t0 = time.perf_counter()
+    want = resident.detect_many(queries)
+    resident_s = time.perf_counter() - t0
+    resident.close()
+    full_bytes = sum(t.numel() * t.element_size()
+                     for t in table.device_arrays(cuda))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts0 = launch_counts()
+    walks = stream_walks(fresh, queries, want, "cuda")
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    server = stream_servers(fresh, table, clients, "cuda")
+    counts = {k: v - counts0[k] for k, v in launch_counts().items()}
+    if fresh._device:
+        raise AssertionError("stream: the fresh table was shipped whole")
+    if growth >= full_bytes:
+        raise AssertionError(f"stream: memory grew {growth} bytes over the "
+                             f"walks, the whole table is {full_bytes}")
+    if counts["shiftor"] or not counts["csr_join"] + \
+            counts["csr_join_compact"]:
+        raise AssertionError(f"stream: launches {counts}")
+    at = stream_kernels(torch, fresh, queries)
+    phase("stream", rows=len(fresh), table_device_bytes=full_bytes,
+          device_nbytes=fresh.device_nbytes(), batches=len(queries), resident_wall_s=resident_s, walks=walks,
+          memory_growth_bytes=growth, server=server, launches=counts,
+          table_shipped=False)
+    return counts, at
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
     """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`,
-    `server`, `memo`, `vm` and `caches` phases over one apps table,
+    `server`, `memo`, `vm`, `caches` and `stream` phases over one apps
+    table,
     saved as .npz (written as a trivy.db for `ci`) → ({path: launch
     counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.db.table import FlattenMemo, build_table
@@ -6138,8 +6458,8 @@ def run_language_phases(torch, tmp: str) -> tuple:
         apps_rows)
     misconf_launches, at_misconf = run_misconf_at_size(
         torch, tmp, table, db, deb, names, root)
-    server_launches, at_server = run_server_at_size(torch, tmp, table, db,
-                                                    names)
+    server_launches, at_server, clients = run_server_at_size(
+        torch, tmp, table, db, names)
     memo_launches, at_memo = run_memo_at_size(torch, tmp, table, deb, names,
                                               raw, flatten, flatten_s)
     vm_launches, at_vm = run_vm_at_size(torch, tmp, table, db, deb, names,
@@ -6147,15 +6467,18 @@ def run_language_phases(torch, tmp: str) -> tuple:
     caches_launches, at_caches = run_caches_at_size(
         torch, tmp, table, db, names, apps_image, apps_report, apps_batches,
         apps_rows)
+    stream_launches, at_stream = run_stream_at_size(
+        torch, table, apps_batches + scan_batches(table, detail), clients)
     return ({"fs": fs_launches, "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
              "image_remote": remote_launches, **misconf_launches,
              "server": server_launches, "memo": memo_launches,
-             "vm": vm_launches, "caches": caches_launches},
+             "vm": vm_launches, "caches": caches_launches,
+             "stream": stream_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
              "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf,
              "at_server": at_server, "at_memo": at_memo, "at_vm": at_vm,
-             "at_caches": at_caches})
+             "at_caches": at_caches, "at_stream": at_stream})
 
 
 def main() -> int:

@@ -465,3 +465,55 @@ def test_vm_artifact_on_cuda_equals_cpu(cuda, tmp_path):
     assert so.shiftor_cuda.launches > before[0]
     assert J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches \
         > before[1]
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_streamed_detector_on_cuda_equals_resident(cuda, compact,
+                                                   monkeypatch):
+    """The streamed detector on the card, 4 slices, dense and compacted
+    routes (with overflowing hit buffers): hit for hit the resident
+    detector's on the same batches, through the join kernels; the fresh
+    table's device cache stays empty while the resident slices live on
+    the card, and every wait after the first slice hits a prefetched
+    upload."""
+    import random
+
+    from trivy_tpu_torch.db.table import RawAdvisory, build_table
+    from trivy_tpu_torch.detect import engine as DE
+    from trivy_tpu_torch.detect.engine import BatchDetector, PkgQuery
+    from trivy_tpu_torch.obs.perf import LEDGER
+    from trivy_tpu_torch.parallel.stream import (StreamingDetector,
+                                                 StreamOptions)
+    monkeypatch.setattr(DE, "_HIT_FLOOR", 8 if compact else 1 << 30)
+    monkeypatch.setattr(DE, "_HIT_ALIGN", 8)
+    raw = [RawAdvisory(source="alpine 3.17", ecosystem="alpine",
+                       pkg_name=f"pkg{i % 90}", vuln_id=f"CVE-2024-{i:05d}",
+                       fixed_version=f"{i % 5 + 1}.{i % 7}.{i % 3}-r0")
+           for i in range(900)]
+    rng = random.Random(17)
+    batches = [[PkgQuery("alpine 3.17", "alpine", f"pkg{rng.randrange(100)}",
+                         f"{rng.randrange(6)}.{rng.randrange(4)}.0-r0")
+                for _ in range(60)] for _ in range(6)]
+    resident = BatchDetector(build_table(raw), device="cuda")
+    want = [[(h.query.name, h.query.version, h.vuln_id) for h in hs]
+            for hs in resident.detect_many(batches)]
+    resident.close()
+    table = build_table(raw)
+    LEDGER.reset_for_tests()
+    sd = StreamingDetector(table, StreamOptions(slices=4), device="cuda")
+    before = J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches
+    try:
+        got = [[(h.query.name, h.query.version, h.vuln_id) for h in hs]
+               for hs in sd.detect_many(batches)]
+        assert got == want and any(want)
+        assert J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches \
+            > before
+        assert table._device is None
+        resident_slices = [sd._cache.get(k) for k in sd._cache.resident()]
+        assert resident_slices and all(
+            t.is_cuda for s in resident_slices for t in s)
+        stats = LEDGER.shard_upload_stats()["stream"]
+        assert stats["cold_waits"] == 1
+        assert stats["prefetched"] == stats["uploads"] - 1
+    finally:
+        sd.close()

@@ -446,9 +446,7 @@ def test_observability_server_flags_are_accepted(flag, value, read,
 
 
 @pytest.mark.parametrize("argv", [
-    [f"--{d.replace('_', '-')}", "1"] for d in cli.SERVER_REFUSED
-    if d not in ("stream_prefetch",)] + [
-    ["--stream-prefetch"], ["--no-stream-prefetch"]],
+    [f"--{d.replace('_', '-')}", "1"] for d in cli.SERVER_REFUSED],
     ids=lambda a: a[0])
 def test_refused_server_flags_name_their_item(argv, tmp_path):
     with pytest.raises(SystemExit) as e:

@@ -100,9 +100,13 @@ and `/debug/costs` pages, and the `--trace`, `--incident-dir`,
 `--profile-cooldown-s` and `--ingest-tenant-*` flags, and the
 detection-result memo with its post-swap sweep (`--memo-backend off|fs|
 memory|redis://...|s3://...`, `--redetect-concurrency N`), its layer
-cache in any backend of `--cache-backend`. The JAX server's mesh,
-table-streaming, breaker and failpoint flags are refused with the
-ROADMAP item that will port them (SERVER_REFUSED).
+cache in any backend of `--cache-backend`, and the streamed advisory
+table (`--table-stream-slices N`, `--table-device-budget-mb MB`,
+`--[no-]stream-prefetch`): a table over the budget never lives whole on
+the card but streams through a double-buffered pair of resident slices
+(parallel/stream.py). The JAX server's mesh, breaker and failpoint
+flags are refused with the ROADMAP item that will port them
+(SERVER_REFUSED).
 """
 
 from __future__ import annotations
@@ -658,7 +662,6 @@ def cmd_convert(args) -> int:
 
 
 _MESH = "multi-device detection is not ported yet (ROADMAP A11)"
-_STREAM = "streamed advisory tables are not ported yet (ROADMAP A10)"
 _GUARD = ("the port has no breaker, watchdog or failpoints: a failed "
           "launch or fetch fails the requests it carried (ROADMAP A, "
           "not ported by the north star)")
@@ -668,9 +671,6 @@ SERVER_REFUSED = {
     "mesh_min_devices": _MESH, "mesh_rebuild_cooldown_ms": _MESH,
     "mesh_probe_timeout_ms": _MESH, "mesh_hosts": _MESH,
     "mesh_host_loss_window_ms": _MESH,
-    "table_stream_slices": _STREAM, "table_device_budget_mb": _STREAM,
-    "stream_prefetch": "the slice prefetch of streamed tables is not "
-                       "ported yet (ROADMAP A10)",
     "failpoint": _GUARD, "breaker_fail_threshold": _GUARD,
     "breaker_reset_ms": _GUARD, "detect_dispatch_timeout_ms": _GUARD,
 }
@@ -701,6 +701,7 @@ def cmd_server(args) -> int:
     drains it."""
     from .detect.redetect import RedetectOptions
     from .detect.sched import SchedOptions
+    from .parallel.stream import StreamOptions
     from .resilience import AdmissionOptions
     from .server.listen import LaunchRecord, serve
     _refuse_server_flags(args)
@@ -724,6 +725,7 @@ def cmd_server(args) -> int:
             coalesce_wait_ms=args.detect_coalesce_wait_ms,
             max_pairs_in_flight=args.detect_max_inflight_pairs,
             warmup=args.detect_warmup, dedup=args.detect_dedup,
+            prefetch=args.stream_prefetch,
             tenant_max_share=args.detect_tenant_max_share),
         admission=AdmissionOptions(
             max_active=args.admit_max_active,
@@ -736,7 +738,10 @@ def cmd_server(args) -> int:
         launch_record=record, trace_path=args.trace,
         memo_backend=args.memo_backend,
         redetect_opts=RedetectOptions(
-            concurrency=max(args.redetect_concurrency, 0)))
+            concurrency=max(args.redetect_concurrency, 0)),
+        stream_opts=StreamOptions(
+            device_budget_mb=args.table_device_budget_mb,
+            slices=args.table_stream_slices))
     if record is not None:
         # after the drain: the launches by kernel (the dense and the
         # compacted route), what the merged dispatches carried, and a
@@ -809,6 +814,19 @@ def _server_flags(p: argparse.ArgumentParser) -> None:
                    help="largest share of a merged round's pair budget "
                         "one tenant may fill while others wait (1.0 = "
                         "off)")
+    p.add_argument("--table-device-budget-mb", type=float, default=0.0,
+                   help="card memory for resident advisory slices; a "
+                        "table over it streams through a double-buffered "
+                        "slice pair (0 = 35%% of the card's memory)")
+    p.add_argument("--table-stream-slices", type=int, default=0,
+                   help="stream the advisory table through N hash-range "
+                        "slices whatever the budget (0 = size from "
+                        "--table-device-budget-mb)")
+    p.add_argument("--stream-prefetch", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="while a dispatch runs, warm the advisory slices "
+                        "the queued requests will touch (streamed tables "
+                        "only; --no-stream-prefetch disables)")
     p.add_argument("--admit-max-active", type=int, default=0,
                    help="concurrent Scan RPCs; 0 = unbounded")
     p.add_argument("--admit-max-queue", type=int, default=16,
@@ -863,11 +881,7 @@ def _server_flags(p: argparse.ArgumentParser) -> None:
                         "to <cache-dir>/merged-launches.npz")
     for dest in SERVER_REFUSED:
         flag = "--" + dest.replace("_", "-")
-        if dest == "stream_prefetch":
-            p.add_argument(flag, default=None,
-                           action=argparse.BooleanOptionalAction,
-                           help="refused: " + SERVER_REFUSED[dest])
-        elif dest == "failpoint":
+        if dest == "failpoint":
             p.add_argument(flag, action="append", default=None,
                            help="refused: " + SERVER_REFUSED[dest])
         else:

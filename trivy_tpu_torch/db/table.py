@@ -127,6 +127,15 @@ class AdvisoryTable:
             cols["hash_u64"] = self._hash_u64
         return {name: int(arr.nbytes) for name, arr in cols.items()}
 
+    def device_nbytes(self) -> int:
+        """The token vectors and flags, the bytes the JAX package's
+        table ships per device: what the streaming planner
+        (parallel/stream.py) budgets against, so both packages plan the
+        same slices. `device_arrays` also ships the two prefix planes,
+        which this leaves out."""
+        return int(self.lo_tok.nbytes + self.hi_tok.nbytes
+                   + self.flags.nbytes)
+
     def content_digest(self) -> str:
         """Deterministic digest of everything that feeds a result: the
         join arrays, the groups' report metadata, the FillInfo details

@@ -443,7 +443,7 @@ class BatchDetector:
     def _launch(self, q_start: np.ndarray, q_count: np.ndarray,
                 q_ver: np.ndarray, n_queries: int, total: int, t_pad: int,
                 u_pad: int, h_cap: int | None = None, warm: bool = False,
-                site: str = "detect", staged=None):
+                site: str = "detect", staged=None, adv=None):
         """Upload the [Q] descriptors and launch the join (asynchronous
         on a GPU). → a _PendingCompact when the hit buffer engages, else
         the dense int8[t_pad] bits tensor.
@@ -452,10 +452,16 @@ class BatchDetector:
         on the side stream; without one they are copied here, inline
         (the cold path, ledgered as such). A staging error is raised
         here. `site` attributes the launch in the ledger ("detect" per
-        request, "detectd" for merged dispatches, "redetect" for any
-        launch under resilience.blameless()); `warm` marks warmup
+        request, "detectd" for merged dispatches, "stream" for a
+        streamed slice, "redetect" for any launch under
+        resilience.blameless()); `warm` marks warmup
         launches, which are not traffic. The launch region's host wall
-        is charged as device ms (obs/cost.py)."""
+        is charged as device ms (obs/cost.py).
+
+        `adv` (lo_tok, hi_tok, flags, lo_pre, hi_pre) replaces the
+        table's resident operands: a streamed table's slice
+        (parallel/stream.py), whose walk observes its dispatch's
+        traffic once, so a slice launch adds no traffic series."""
         J.check_csr_descriptors(q_count, n_queries)
         if h_cap is None:
             h_cap = self._hit_capacity(t_pad)
@@ -467,7 +473,7 @@ class BatchDetector:
             raise staged.error
         t_watch = time.perf_counter()
         adv_lo, adv_hi, adv_flags, lo_pre, hi_pre = \
-            self.table.device_arrays(self.device)
+            self.table.device_arrays(self.device) if adv is None else adv
         ver_dev = self._ver_device(u_pad)
         new_shape = self._note_shape(t_pad, h_cap)
         if staged is not None:
@@ -502,7 +508,8 @@ class BatchDetector:
             LEDGER.note_compile(site, t_pad, h_cap, compile_ms, warm=warm)
         else:
             out = _kernel()
-        self._account_traffic(total, t_pad, warm)
+        if adv is None:
+            self._account_traffic(total, t_pad, warm)
         LEDGER.note_dispatch(site, total, t_pad, h_cap, warm=warm)
         _cost.charge_device_ms(
             site, (time.perf_counter() - t_watch) * 1e3,

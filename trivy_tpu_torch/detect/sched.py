@@ -38,9 +38,15 @@ bytes are apportioned to the requests by their real pair shares
 (obs/cost.py), and the wait from submit to dispatch is each request's
 queue ms.
 
+After each round, with `prefetch` on, the dispatcher peeks the
+requests still queued in the fair sweep's order and hands their bucket
+ranges to a streaming detector's `prefetch_ranges`
+(parallel/stream.py), which warms the advisory slices the next dispatch
+will touch. That peek is advisory: a failure costs a cold upload and is
+logged, never raised.
+
 Follows the JAX package's detect/sched.py, its metrics and cost
-charges included. Its slice prefetch (`_prefetch_pending`) waits for
-the streamed tables of ROADMAP A10.
+charges included.
 """
 
 from __future__ import annotations
@@ -53,22 +59,29 @@ from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass
 
+import numpy as np
+
+from ..log import get as _get_logger
 from ..metrics import METRICS
 from ..obs import current_trace_id, span
 from ..obs import cost as _cost
 from . import feed as _feed
 from .engine import BatchDetector, Hit, PkgQuery, slice_bits
 
+_log = _get_logger("sched")
+
 
 @dataclass
 class SchedOptions:
     """detectd knobs (server flags --detect-coalesce-wait-ms,
     --detect-max-inflight-pairs, --detect-warmup, --detect-dedup,
-    --detect-tenant-max-share)."""
+    --stream-prefetch, --detect-tenant-max-share)."""
     coalesce_wait_ms: float = 2.0     # max wait gathering co-dispatchers
     max_pairs_in_flight: int = 1 << 22  # padded-pair in-flight bound
     warmup: bool = False              # launch the bucket ladder at start
     dedup: bool = True                # collapse duplicate query triples
+    prefetch: bool = True             # warm the next dispatch's advisory
+    #                                   slices (streamed tables)
     tenant_max_share: float = 1.0     # max share of a round's pair
     #                                   budget one tenant may fill while
     #                                   others wait (1.0 = off)
@@ -151,9 +164,11 @@ class DispatchScheduler:
         self._fair_pairs = 0                  # total pending pairs
         # what the merged dispatches did (server --debug-launches and
         # /healthz): dispatches, batches and requests they carried, the
-        # real pairs and the pairs the launches ran after dedup
+        # real pairs and the pairs the launches ran after dedup, and the
+        # advisory slices the prefetch peek issued
         self.stats = {"dispatches": 0, "batches": 0, "requests": 0,
-                      "pairs": 0, "launched_pairs": 0, "deduped": 0}
+                      "pairs": 0, "launched_pairs": 0, "deduped": 0,
+                      "prefetched_slices": 0}
         # `record(dev, preps, bits)` sees every fetched merged dispatch
         # (the server's --debug-launches keeps a few for checking)
         self.record = None
@@ -377,6 +392,8 @@ class DispatchScheduler:
                 # round; the requests it carried fail with its error
                 for req in pending:
                     req.fail(e)
+            if opts.prefetch:
+                self._prefetch_pending()
 
     @staticmethod
     def _observe_dispatch_share(pending: list[_Request]) -> None:
@@ -391,6 +408,36 @@ class DispatchScheduler:
         for label, pairs in by_tenant.items():
             METRICS.observe("trivy_tpu_tenant_qos_dispatch_share",
                             pairs / total, tenant=label)
+
+    def _prefetch_pending(self) -> None:
+        """Peek the requests still queued behind the round just
+        dispatched, in the fair sweep's drain order, and ask a
+        streaming detector to warm the advisory slices their bucket
+        ranges will touch. Advisory only: no result depends on it, so a
+        failure costs at most a cold upload on the next dispatch and is
+        logged here, never raised."""
+        pf = getattr(self.detector, "prefetch_ranges", None)
+        if pf is None:
+            return
+        with self._lock:
+            reqs = self._peek_fair_locked(8)
+        starts: list[np.ndarray] = []
+        counts: list[np.ndarray] = []
+        for r in reqs:
+            for _slot, p in r.slots:
+                if p.n_queries:
+                    starts.append(p.q_start[:p.n_queries])
+                    counts.append(p.q_count[:p.n_queries])
+        if not starts:
+            return
+        try:
+            issued = pf(np.concatenate(starts), np.concatenate(counts))
+        except Exception:  # noqa: BLE001 — latency-only path
+            _log.warning("pending-slice prefetch failed; the next "
+                         "dispatch uploads cold", exc_info=True)
+            return
+        with self._cv:
+            self.stats["prefetched_slices"] += len(issued)
 
     def _dispatch_round(self, pending: list[_Request]) -> None:
         """Chunk the gathered slots under the pair budget and launch one

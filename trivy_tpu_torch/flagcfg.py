@@ -52,8 +52,9 @@ CONFIG_PATHS = {
     "ingest_max_members": "ingest.max-members",
     "ingest_layer_deadline_ms": "ingest.layer-deadline-ms",
     "ingest_max_inflight_bytes": "ingest.max-inflight-bytes",
-    # the server's (detect.*, resilience.*, cache.*, memo.*), and the
-    # keys of the flags it refuses (mesh.*), at the JAX package's paths
+    # the server's (detect.*, resilience.*, cache.*, memo.*, and the
+    # streamed table's mesh.table-* and mesh.stream-prefetch), and the
+    # keys of the mesh flags it refuses, at the JAX package's paths
     "detect_coalesce_wait_ms": "detect.coalesce-wait-ms",
     "detect_max_inflight_pairs": "detect.max-inflight-pairs",
     "detect_warmup": "detect.warmup",

@@ -8,7 +8,10 @@ target's OS and per-application query batches are built on the host,
 and ONE detect_many call joins them all (one join launch per batch).
 Given SchedOptions (the server passes them), detection goes through
 detectd instead, so concurrent scans' batches merge into shared
-launches. Then come the results that need no join: the ingest degradations, the
+launches. Given StreamOptions whose plan engages (parallel/stream.py),
+the detector streams the advisory table through a double-buffered
+pair of resident slices; otherwise the resident BatchDetector serves,
+as without them. Then come the results that need no join: the ingest degradations, the
 misconfigurations, the secrets and, under the license scanner, the
 license results.
 
@@ -32,6 +35,7 @@ import torch
 
 from . import types as T
 from .db.table import AdvisoryTable
+from .device import resolve_device
 from .detect.engine import BatchDetector
 from .detect.fill import fill_info
 from .detect.langpkg import LangpkgScanner
@@ -40,6 +44,7 @@ from .fanal.applier import apply_layers
 from .licensing import scan_license_name
 from .obs import cost as _cost
 from .obs import ensure_trace, span
+from .parallel.stream import StreamingDetector, StreamOptions, plan_slices
 from .resilience import blameless_active
 
 if TYPE_CHECKING:
@@ -49,12 +54,23 @@ if TYPE_CHECKING:
 class LocalScanner:
     def __init__(self, cache, table: AdvisoryTable,
                  device: str | torch.device | None = None,
-                 sched: "SchedOptions | None" = None, memo=None):
+                 sched: "SchedOptions | None" = None, memo=None,
+                 stream: StreamOptions | None = None):
         self.cache = cache
         self.table = table
         # graftmemo: an open fleet.memo.MemoStore (None = no memo)
         self.memo = memo
-        self.detector = BatchDetector(table, device=device)
+        # graftstream: a table over the budget streams through resident
+        # slices; one within it keeps the resident detector
+        bounds = None
+        if stream is not None:
+            device = resolve_device(device)
+            bounds = plan_slices(table, stream, device=device)
+        if bounds is not None:
+            self.detector = StreamingDetector(table, stream, bounds=bounds,
+                                              device=device)
+        else:
+            self.detector = BatchDetector(table, device=device)
         # detectd: the server's scans merge their batches' launches
         self.sched = None
         if sched is not None:

@@ -20,8 +20,14 @@ gated by the token that gates the POST routes; `serve(trace_path=)`
 records a Chrome trace for the server's lifetime. With a memo backend
 (`memo_backend`, fleet/memo.py) scans replay their units' memoized hits,
 and a swap to a table of another content digest schedules redetectd's
-sweep (detect/redetect.py); /healthz shows both under `memo`. Not
-ported: the mesh and the breaker and its recovery.
+sweep (detect/redetect.py); /healthz shows both under `memo`. With
+StreamOptions (`stream_opts`; the CLI's --table-stream-slices,
+--table-device-budget-mb) every scanner the server builds, after a DB
+swap too, streams a table over the budget through resident slices
+(parallel/stream.py), whose next slices detectd's peek warms
+(SchedOptions.prefetch, --[no-]stream-prefetch), and /healthz shows
+the slice plan under `stream`. Not ported: the mesh and the breaker and
+its recovery.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 
 from .. import __version__
 from .. import types as T
+from ..detect.engine import BatchDetector
 from ..detect.redetect import RedetectDaemon
 from ..detect.sched import SchedOptions
 from ..fanal.cache import blob_from_json, open_cache
@@ -122,7 +129,7 @@ class ServerState:
                  cache_backend: str = "fs", detect_opts=None,
                  admission=None, device=None, sbom_opts=None,
                  launch_record: LaunchRecord | None = None,
-                 memo_backend="", redetect_opts=None):
+                 memo_backend="", redetect_opts=None, stream_opts=None):
         self.cache = open_cache(cache_backend, cache_dir)
         # graftmemo: the detection-result memo ("" = none), keyed by
         # (blob, table content digest)
@@ -135,6 +142,9 @@ class ServerState:
         self.detect_opts = detect_opts if detect_opts is not None \
             else SchedOptions()
         self.sbom_opts = sbom_opts
+        # graftstream: every scanner built here may stream its table
+        # (plan_slices decides per table; None keeps every one resident)
+        self.stream_opts = stream_opts
         self.admission = AdmissionQueue(admission)
         self.launch_record = launch_record
         self._table = table
@@ -166,13 +176,17 @@ class ServerState:
 
     def _new_scanner(self, table) -> LocalScanner:
         scanner = LocalScanner(self.cache, table, self.device,
-                               sched=self.detect_opts, memo=self.memo)
+                               sched=self.detect_opts, memo=self.memo,
+                               stream=self.stream_opts)
         # the identity /healthz names (never read from torch.cuda
         # there), and the profiler's activities
         self.device_name = note_device(scanner.detector.device)
         PROF.configure(device=scanner.detector.device.type)
-        if self.launch_record is not None and scanner.sched is not None:
-            det = scanner.detector
+        det = scanner.detector
+        # a record holds one launch; a streamed dispatch launches once
+        # per slice it touches, so it is not recorded
+        if self.launch_record is not None and scanner.sched is not None \
+                and isinstance(det, BatchDetector):
             scanner.sched.record = \
                 lambda dev, preps, bits: self.launch_record(det, dev,
                                                             preps, bits)
@@ -313,8 +327,9 @@ class ServerState:
         view (obs/device.py: it never touches torch.cuda) and the card's
         name read at start, the admission queue and the ingest breakers,
         the SLO burn rates, the tenants' cost split, what detectd's
-        merged dispatches did and, with a memo, its backend, known
-        blobs and redetectd's sweep."""
+        merged dispatches did, with a streamed table its slice plan and
+        resident set and, with a memo, its backend, known blobs and
+        redetectd's sweep."""
         from ..fanal.pipeline import INGEST
         scanner = self.scanner
         admission = self.admission.snapshot()
@@ -337,6 +352,9 @@ class ServerState:
             "detectd": dict(scanner.sched.stats)
             if scanner.sched is not None else None,
         }
+        stream_status = getattr(scanner.detector, "status", None)
+        if callable(stream_status):
+            payload["stream"] = stream_status()
         if self.memo is not None:
             memo = self.memo.status()
             if self.redetect is not None:
@@ -685,7 +703,7 @@ def serve(host: str, port: int, table, cache_dir: str, token: str = "",
           detect_opts=None, admission=None, drain_grace_s: float = 10.0,
           device=None, launch_record: LaunchRecord | None = None,
           trace_path: str = "", memo_backend="",
-          redetect_opts=None) -> ServerState:
+          redetect_opts=None, stream_opts=None) -> ServerState:
     """Serve until SIGTERM/SIGINT drains the server (`drain_grace_s`
     bounds the wait for requests in flight) → the closed state.
     `trace_path` records every span for the server's lifetime and
@@ -697,7 +715,8 @@ def serve(host: str, port: int, table, cache_dir: str, token: str = "",
                         detect_opts=detect_opts, admission=admission,
                         device=device, launch_record=launch_record,
                         memo_backend=memo_backend,
-                        redetect_opts=redetect_opts)
+                        redetect_opts=redetect_opts,
+                        stream_opts=stream_opts)
     httpd = _bind(host, port, state)
     install_drain_handlers(httpd, state, drain_grace_s)
     # the accept loop runs on its own thread; this (main) thread runs
@@ -747,14 +766,16 @@ def serve(host: str, port: int, table, cache_dir: str, token: str = "",
 def serve_background(host: str, port: int, table, cache_dir: str,
                      token: str = "", cache_backend: str = "fs",
                      detect_opts=None, admission=None, device=None,
-                     sbom_opts=None, memo_backend="", redetect_opts=None):
+                     sbom_opts=None, memo_backend="", redetect_opts=None,
+                     stream_opts=None):
     """Serve from a daemon thread → (httpd, state) once listening. The
     caller shuts down: `httpd.shutdown()`, then `state.close()`."""
     state = ServerState(table, cache_dir, token, cache_backend,
                         detect_opts=detect_opts, admission=admission,
                         device=device, sbom_opts=sbom_opts,
                         memo_backend=memo_backend,
-                        redetect_opts=redetect_opts)
+                        redetect_opts=redetect_opts,
+                        stream_opts=stream_opts)
     httpd = _bind(host, port, state)
     threading.Thread(target=httpd.serve_forever, name="scan-server",
                      daemon=True).start()
