@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure exits non-zero:
+Phases, one JSON line each (its `at_s` the script's wall clock when it
+was printed); any failure exits non-zero:
 
   env      the card's name and power limit (nvidia-smi), the torch and
            CUDA versions, and the kernels' build time (nvcc, sm_90a,
@@ -82,7 +83,8 @@ Phases, one JSON line each; any failure exits non-zero:
   fs       a seeded monorepo checkout (package-lock v3, a yarn
            workspace, go.mod + go.sum, Cargo.lock, poetry, Gemfile.lock,
            composer.lock, pom.xml; 40 MiB of text with planted tokens)
-           through `fs` and `repo` on the card, and `fs --device cpu
+           through `fs` (a process) and `repo` (in this process, on the
+           table already loaded) on the card, and `fs --device cpu
            --scanners vuln` in this process as the reference: equal
            vulnerability
            results, every planted secret, one shift-or launch and one
@@ -340,6 +342,25 @@ Phases, one JSON line each; any failure exits non-zero:
            compacted joins timed ("at_stream"). Figures: the walls, the
            upload stall a walk after its first slice, the plans, the
            real bytes of a slice on the card (prefix planes included).
+  mesh     multi-device detection on the stream phase's fresh table,
+           batches and resident hits, in this process. The card machine
+           has one H100, so each grid is a mesh of repeated cuda:0 slots
+           (its cells serialise on the card): MeshDetector.detect_many on
+           2×2, 4×1 and 1×4, resident, and on 2×2 streamed through 4
+           forced slices, each batch's hits equal to the resident
+           detector's, one ledger row at site "mesh" a dispatch and one
+           join launch per cell that holds pairs; the fs phase's secret
+           rows through sharded_shiftor_scan at 2 and 4 cells, equal to
+           one launch over them all and to its plain version; an
+           in-process server with --mesh-devices -1 (one card: a 1×1
+           mesh) on the server phase's 16 artifacts at c=16, each report
+           equal to the serial local one, every join at site "mesh".
+           Then every cell of the largest batch on a 2×2 mesh through
+           the dense and the compacted join against their plain
+           versions, the largest cell's joins timed, and shift-or on one
+           cell's share of the rows at 4 cells ("at_mesh"). Figures: each
+           grid's wall beside the resident detector's, dispatches,
+           launches, the streamed grid's uploads, the server's round.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
@@ -347,8 +368,10 @@ the language phases' under "at_fs", "at_image_apps", "at_sbom",
 "at_ci", "at_image_remote", "at_misconf", "at_misconf_image",
 "at_server" (the server's merged dispatches), "at_memo" (the
 largest blob the memo phase's sweep replayed), "at_vm" (the disk),
-"at_caches" (the image_apps image through the shared caches) and
-"at_stream" (the largest advisory slice of the stream phase);
+"at_caches" (the image_apps image through the shared caches),
+"at_stream" (the largest advisory slice of the stream phase) and
+"at_mesh" (a 2×2 mesh cell of the largest batch; shift-or: one of 4
+cells' rows);
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -466,8 +489,15 @@ _WORDS = ("the config value return import token secret password key "
           "slack header build stage layer cache update install").split()
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, **kw) -> None:
-    print(json.dumps({"phase": name, **kw}), flush=True)
+    """One phase's JSON line; `at_s` is the script's wall clock when it
+    was printed, so the lines give each phase's share of the run."""
+    print(json.dumps({"phase": name, **kw,
+                      "at_s": round(time.perf_counter() - _T0, 3)}),
+          flush=True)
 
 
 def _token(rng, alphabet: str, n: int) -> str:
@@ -1889,9 +1919,9 @@ def _expect_launches(counts: dict, figures: list, what: str) -> None:
 
 
 def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
-    """The checkout through `fs` and `repo` on the card, and `fs --device
-    cpu --scanners vuln` in this process as the reference → (launch
-    counts of the fs
+    """The checkout through `fs` (a process) and `repo` (in this process)
+    on the card, and `fs --device cpu --scanners vuln` in this process
+    as the reference → (launch counts of the fs
     scan, the kernels on its inputs, the checkout's root, the fs report,
     its detail, its secret rows and bank)."""
     from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
@@ -1923,7 +1953,11 @@ def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
     check_obs_file(trace_path)
     with open(trace_path) as f:
         trace_doc = json.load(f)
-    repo, repo_counts, repo_s = run_port_cli(["repo", root, *common])
+    # the checkout once more as a `repo`, in this process on the table
+    # the phase loaded: the `fs` process above holds the start-up and
+    # table load
+    repo, repo_counts, repo_s = inprocess_cli(["repo", root, *common],
+                                              {db: table})
     cpu, _cpu_counts, cpu_s = inprocess_cli(
         ["fs", root, "--db", db, "--scanners", "vuln", "--device", "cpu"],
         {db: table})
@@ -2720,8 +2754,12 @@ def run_image_remote_at_size(torch, tmp: str, table, db: str,
         scan = ["image", name, "--image-src", "remote", "--db", db,
                 "--scanners", "vuln,secret"]
         reports = {}
+        # cold in a process of its own (start-up and table load); the
+        # serial walk in this process on the table already loaded
         for run, extra in (("cold", cache), ("serial", ["--ingest-serial"])):
-            reports[run], counts, wall_s = run_port_cli(scan + extra)
+            reports[run], counts, wall_s = run_port_cli(scan + extra) \
+                if run == "cold" else inprocess_cli(scan + extra,
+                                                    {db: table})
             runs[run] = {**_run_figures(counts, wall_s),
                          "walk_s": counts["inspect_s"],
                          "ingest": counts["ingest"],
@@ -2752,11 +2790,12 @@ def run_image_remote_at_size(torch, tmp: str, table, db: str,
         reg.put_image("hostile", "1", [gz_bytes(t, 6) for t in tars],
                       _diff_ids(tars))
         hostile_cache = ["--cache-dir", os.path.join(tmp, "hostile-cache")]
-        hostile = []
+        hostile, fixture_tables = [], {}
         for _ in range(2):
-            report, counts, wall_s = run_port_cli(
+            report, counts, wall_s = inprocess_cli(
                 ["image", f"{base}/hostile:1", "--image-src", "remote",
-                 "--db", FIXTURE_DB, *HOSTILE_FLAGS, *hostile_cache])
+                 "--db", FIXTURE_DB, *HOSTILE_FLAGS, *hostile_cache],
+                fixture_tables)
             ingest_res = [r for r in report["Results"]
                           if r.get("Class") == "ingest"]
             kinds = {e["Layer"]: e["Kind"]
@@ -2797,7 +2836,7 @@ def run_image_remote_at_size(torch, tmp: str, table, db: str,
         pulled_report, db_counts, db_s = run_port_cli(
             alpine + ["--db-repository", f"{base}/trivy-db:2",
                       "--cache-dir", db_cache])
-        direct, _c, direct_s = run_port_cli(alpine + ["--db", bolt])
+        direct, _c, direct_s = inprocess_cli(alpine + ["--db", bolt], {})
         if findings(pulled_report)[0] != REMOTE_DB_VULNS or \
                 vuln_results(pulled_report) != vuln_results(direct) or \
                 not os.path.exists(os.path.join(db_cache, "db",
@@ -6370,8 +6409,10 @@ def stream_kernels(torch, fresh, queries: list) -> dict:
 def run_stream_at_size(torch, table, batches: list, clients: tuple
                        ) -> tuple:
     """The stream phase on the card → (launch counts, the kernels on its
-    inputs). `batches` are [(label, queries)] (image_apps' and fs'),
-    `clients` the server phase's (cache dir, artifacts, reports)."""
+    inputs, (the fresh table, its join batches, the resident hits and
+    wall) for the mesh phase). `batches` are [(label, queries)]
+    (image_apps' and fs'), `clients` the server phase's (cache dir,
+    artifacts, reports)."""
     from trivy_tpu_torch.__main__ import launch_counts
     from trivy_tpu_torch.db.table import AdvisoryTable
     from trivy_tpu_torch.detect.engine import BatchDetector
@@ -6410,16 +6451,279 @@ def run_stream_at_size(torch, table, batches: list, clients: tuple
         raise AssertionError(f"stream: launches {counts}")
     at = stream_kernels(torch, fresh, queries)
     phase("stream", rows=len(fresh), table_device_bytes=full_bytes,
-          device_nbytes=fresh.device_nbytes(), batches=len(queries), resident_wall_s=resident_s, walks=walks,
+          device_nbytes=fresh.device_nbytes(), batches=len(queries),
+          resident_wall_s=resident_s, walks=walks,
           memory_growth_bytes=growth, server=server, launches=counts,
           table_shipped=False)
+    return counts, at, (fresh, queries, want, resident_s)
+
+
+MESH_GRIDS = ((2, 2), (4, 1), (1, 4))
+
+
+def _mesh(dp: int, db: int, device: str):
+    """A dp×db mesh of repeated `device` slots: how one card lays out a
+    grid (each cell's launch runs on that card)."""
+    from trivy_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(dp * db, db, devices=[device] * (dp * db))
+
+
+def mesh_walks(fresh, queries: list, want: list, device: str) -> dict:
+    """The mesh phase's detectors: `queries` (batches) through
+    MeshDetector.detect_many on each grid of MESH_GRIDS, resident, and on
+    2×2 streamed through STREAM_SLICES forced slices; each batch's hits
+    equal to `want` (the resident single-device detector's); every
+    dispatch one ledger row at site "mesh", and on the card one launch
+    per cell that holds pairs → per detector its figures."""
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.obs.perf import LEDGER
+    from trivy_tpu_torch.parallel.mesh import MeshDetector
+    from trivy_tpu_torch.parallel.stream import StreamOptions
+    out = {}
+    runs = [(g, None) for g in MESH_GRIDS] + \
+        [((2, 2), StreamOptions(slices=STREAM_SLICES))]
+    for (dp, db), stream in runs:
+        label = f"{dp}x{db}" + ("_streamed" if stream else "")
+        t0 = time.perf_counter()
+        md = MeshDetector(fresh, _mesh(dp, db, device), stream=stream)
+        build_s = time.perf_counter() - t0
+        try:
+            sites0 = LEDGER.site_dispatches().get("mesh", 0)
+            up0 = LEDGER.shard_upload_stats().get("mesh", {})
+            c0 = launch_counts()
+            t0 = time.perf_counter()
+            got = md.detect_many(queries)
+            wall = time.perf_counter() - t0
+            counts = {k: v - c0[k] for k, v in launch_counts().items()}
+            dispatches = LEDGER.site_dispatches().get("mesh", 0) - sites0
+            for i, (g, w) in enumerate(zip(got, want)):
+                if _hit_rows(g) != _hit_rows(w):
+                    raise AssertionError(f"mesh {label}: batch {i}'s hits "
+                                         "differ from the resident "
+                                         "detector's")
+            joins = counts["csr_join"] + counts["csr_join_compact"]
+            walked = sum(1 for qs in queries if qs)
+            if stream is None and dispatches != walked:
+                raise AssertionError(f"mesh {label}: {dispatches} ledger "
+                                     f"rows for {walked} batches")
+            if device == "cuda" and (counts["shiftor"] or joins < dispatches
+                                     or (dp * db > 1 and joins <= walked)):
+                raise AssertionError(f"mesh {label}: launches {counts} for "
+                                     f"{dispatches} mesh dispatches")
+            up = {k: v - up0.get(k, 0) for k, v in
+                  LEDGER.shard_upload_stats().get("mesh", {}).items()}
+            if stream is not None and not up.get("uploads"):
+                raise AssertionError(f"mesh {label}: no slice uploads")
+            out[label] = {"grid": [dp, db], "build_s": build_s,
+                          "wall_s": wall, "dispatches": dispatches,
+                          "launches": counts, "shard_uploads": up,
+                          "hits": sum(map(len, got)), "equal": True}
+        finally:
+            md.close()
+    if fresh._device:
+        raise AssertionError("mesh: the fresh table was shipped whole")
+    return out
+
+
+def mesh_shiftor_scans(rows: np.ndarray, bank, device: str) -> dict:
+    """The secret lane on the mesh: these chunk rows through
+    sharded_shiftor_scan at 2 and 4 cells of repeated `device` slots
+    (one shift-or launch per cell) → {cells: int32 bitmasks}."""
+    from trivy_tpu_torch.ops import shiftor as so
+    from trivy_tpu_torch.parallel.mesh import sharded_shiftor_scan
+    kww, kwm, kwb = so.pack_bank(bank)
+    return {cells: sharded_shiftor_scan(_mesh(cells, 1, device), kww, kwm,
+                                        rows, bank.words, kw_bits=kwb)
+            for cells in (2, 4)}
+
+
+def mesh_shiftor_check(scans: dict, rows: np.ndarray, bank,
+                       device: str) -> dict:
+    """Each of mesh_shiftor_scans' results against the single shift-or
+    of the rows (the kernel on the card) and its plain version → the
+    figures."""
+    import torch
+
+    from trivy_tpu_torch.ops import shiftor as so
+    packed = so.pack_bank(bank)
+    arrays = [torch.from_numpy(a).to(device) for a in packed]
+    index = tuple(torch.from_numpy(a).to(device)
+                  for a in so.bank_index(*packed))
+    x = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+    single = so.shiftor(*arrays, x, n_words=bank.words,
+                        index=index).cpu().numpy()
+    plain = so.shiftor_plain(*arrays, x, n_words=bank.words).cpu().numpy()
+    if not np.array_equal(single, plain):
+        raise AssertionError("mesh shiftor: the single launch differs "
+                             "from the plain version")
+    out = {"rows": int(rows.shape[0]), "equal": True}
+    for cells, got in scans.items():
+        if not np.array_equal(got, single):
+            raise AssertionError(f"mesh shiftor: {cells} cells differ from "
+                                 "the single launch")
+        out[f"cells{cells}_rows_per_cell"] = -(-rows.shape[0] // cells)
+    return out
+
+
+def mesh_servers(fresh, clients: tuple, device: str) -> dict:
+    """An in-process server with --mesh-devices -1 on `fresh` and the
+    server phase's cache (one card: a 1×1 mesh, the reference's rule):
+    one c=16 round of its client artifacts, each equal to its report
+    there, every join launch at ledger site "mesh" → the figures."""
+    import threading
+
+    from trivy_tpu_torch import types as T
+    from trivy_tpu_torch.parallel.mesh import MeshDetector
+    from trivy_tpu_torch.server.client import RemoteScanner
+    from trivy_tpu_torch.server.listen import MeshOptions, serve_background
+    cache_dir, refs, serial = clients
+    t0 = time.perf_counter()
+    httpd, state = serve_background(
+        "127.0.0.1", 0, fresh, cache_dir, SERVER_TOKEN, device=device,
+        mesh_opts=MeshOptions(devices=-1))
+    start_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        det = state.scanner.detector
+        if not isinstance(det, MeshDetector):
+            raise AssertionError(f"mesh server: the detector is {det}")
+        sites0 = _site_dispatches(base)
+        d0 = _get_json(base + "/healthz")["detectd"]
+        scanner = RemoteScanner(base, token=SERVER_TOKEN, timeout=300)
+        opts = T.ScanOptions(scanners=("vuln", "secret"))
+        got, lat = [None] * len(refs), [0.0] * len(refs)
+        barrier = threading.Barrier(len(refs))
+
+        def worker(i):
+            barrier.wait()
+            t = time.perf_counter()
+            results, os_info = scanner.scan(refs[i].name, refs[i].id,
+                                            refs[i].blob_ids, opts)
+            lat[i] = time.perf_counter() - t
+            got[i] = (_canon(results), _os_key(os_info))
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(refs))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        for i, rep in enumerate(got):
+            if rep != serial[i]:
+                raise AssertionError(f"mesh server: artifact {i}'s report "
+                                     "differs from the server phase's")
+        health = _get_json(base + "/healthz")
+        detectd = {k: v - d0[k] for k, v in health["detectd"].items()}
+        sites = {k: v - sites0.get(k, 0)
+                 for k, v in _site_dispatches(base).items()
+                 if v - sites0.get(k, 0)}
+        if not sites.get("mesh") or set(sites) - {"mesh"} \
+                or "mesh" in health["resilience"]:
+            raise AssertionError(f"mesh server: dispatches by site {sites}, "
+                                 f"/healthz {health['resilience']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        state.close()
+    return {"start_s": start_s, "grid": list(det.mesh.devices.shape),
+            "artifacts": len(refs), "c16_wall_s": wall,
+            "c16_p50_s": _pct(lat, 50), "c16_p99_s": _pct(lat, 99),
+            "detectd": detectd, "dispatches_by_site": sites,
+            "reports_equal": True}
+
+
+def mesh_kernels(torch, fresh, queries: list) -> dict:
+    """The largest batch partitioned over a 2×2 mesh of the card: every
+    cell's dense and compacted join launch against its plain version on
+    that cell's own operands (its shard, prefix planes and descriptors),
+    and the largest cell's both joins timed → {kernel: measurement}."""
+    from types import SimpleNamespace
+
+    from trivy_tpu_torch.ops import join as J
+    from trivy_tpu_torch.parallel.mesh import (MeshDetector,
+                                               partition_queries)
+    md = MeshDetector(fresh, _mesh(2, 2, "cuda"))
+    cuda = md.device   # cuda:0, the key of its cells' operands
+    try:
+        preps = [p for p in (md._prepare(qs) for qs in queries if qs)
+                 if p is not None and p.n_pairs]
+        prep = max(preps, key=lambda p: p.n_pairs)
+        part = partition_queries(md.st, prep.q_start, prep.q_count,
+                                 prep.q_ver, md.dp)
+        ver = md._ver_by_device(prep.u_pad)[cuda]
+        h_cap = md._inner._hit_capacity(part.t_loc) or 128
+        cases = []
+        for d in range(md.dp):
+            for s in range(md.db):
+                total = int(part.total[d, s])
+                if not total:
+                    continue
+                lo, hi, flags, lo_pre, hi_pre = md._st_dev[(cuda, s)]
+                cols = [part.q_start[d, s], part.q_count[d, s],
+                        part.q_ver[d, s]]
+                inputs = ((lo, hi, flags, ver,
+                           *(torch.from_numpy(c).cuda() for c in cols),
+                           total), (lo_pre, hi_pre))
+                bits = J.csr_pair_join_plain(*inputs[0], part.t_loc)
+                if not torch.equal(J.csr_join_cuda(*inputs[0], part.t_loc,
+                                                   prefix=inputs[1]), bits):
+                    raise AssertionError(f"mesh: cell ({d}, {s})'s join "
+                                         "differs from its plain version")
+                compact_error(torch, J.csr_join_compact_cuda(
+                    *inputs[0], part.t_loc, h_cap, prefix=inputs[1]), bits,
+                    h_cap, f"mesh cell ({d}, {s})")
+                n = int((part.q_count[d, s] > 0).sum())
+                cases.append((total, (d, s), SimpleNamespace(
+                    n_queries=n, n_pairs=total, t_pad=part.t_loc,
+                    q_start=cols[0], q_count=cols[1], q_ver=cols[2]),
+                    inputs))
+        _total, cell, cprep, inputs = max(cases, key=lambda c: c[0])
+        label = f"mesh_cell{cell[0]}{cell[1]}"
+        dense = join_case(torch, None, None, cprep, label, inputs=inputs)
+        compact = compact_case(torch, None, None, cprep, h_cap, label,
+                               inputs=inputs)
+    finally:
+        md.close()
+    figures = {"grid": [2, 2], "cells_checked": len(cases), "cell": cell,
+               "t_loc": part.t_loc, "batch_pairs": prep.n_pairs}
+    return {"csr_join": {**figures, **dense},
+            "csr_join_compact": {**figures, "h_cap": h_cap, **compact}}
+
+
+def run_mesh_at_size(torch, stream_state: tuple, clients: tuple,
+                     secrets: tuple) -> tuple:
+    """The mesh phase on the card → (launch counts, the kernels on its
+    inputs). `stream_state` is the stream phase's (fresh table, join
+    batches, resident hits, resident wall), `clients` the server
+    phase's, `secrets` the fs phase's (secret rows, bank)."""
+    from trivy_tpu_torch.__main__ import launch_counts
+    fresh, queries, want, resident_s = stream_state
+    rows, bank = secrets
+    counts0 = launch_counts()
+    walks = mesh_walks(fresh, queries, want, "cuda")
+    server = mesh_servers(fresh, clients, "cuda")
+    scans = mesh_shiftor_scans(rows, bank, "cuda")
+    counts = {k: v - counts0[k] for k, v in launch_counts().items()}
+    if counts["shiftor"] != 2 + 4 or not counts["csr_join"] + \
+            counts["csr_join_compact"]:
+        raise AssertionError(f"mesh: launches {counts}")
+    shiftor = mesh_shiftor_check(scans, rows, bank, "cuda")
+    at = mesh_kernels(torch, fresh, queries)
+    # one cell's share of the rows at 4 cells, the shape each of its
+    # launches runs
+    at["shiftor"] = {"cells": 4, **shiftor_case(
+        torch, bank, rows[:shiftor["cells4_rows_per_cell"]], "mesh_cell")}
+    phase("mesh", rows=len(fresh), batches=len(queries),
+          resident_wall_s=resident_s, walks=walks, shiftor=shiftor,
+          server=server, launches=counts)
     return counts, at
 
 
 def run_language_phases(torch, tmp: str) -> tuple:
     """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`,
-    `server`, `memo`, `vm`, `caches` and `stream` phases over one apps
-    table,
+    `server`, `memo`, `vm`, `caches`, `stream` and `mesh` phases over
+    one apps table,
     saved as .npz (written as a trivy.db for `ci`) → ({path: launch
     counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.db.table import FlattenMemo, build_table
@@ -6467,18 +6771,21 @@ def run_language_phases(torch, tmp: str) -> tuple:
     caches_launches, at_caches = run_caches_at_size(
         torch, tmp, table, db, names, apps_image, apps_report, apps_batches,
         apps_rows)
-    stream_launches, at_stream = run_stream_at_size(
+    stream_launches, at_stream, stream_state = run_stream_at_size(
         torch, table, apps_batches + scan_batches(table, detail), clients)
+    mesh_launches, at_mesh = run_mesh_at_size(torch, stream_state, clients,
+                                              secrets)
     return ({"fs": fs_launches, "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
              "image_remote": remote_launches, **misconf_launches,
              "server": server_launches, "memo": memo_launches,
              "vm": vm_launches, "caches": caches_launches,
-             "stream": stream_launches},
+             "stream": stream_launches, "mesh": mesh_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
              "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf,
              "at_server": at_server, "at_memo": at_memo, "at_vm": at_vm,
-             "at_caches": at_caches, "at_stream": at_stream})
+             "at_caches": at_caches, "at_stream": at_stream,
+             "at_mesh": at_mesh})
 
 
 def main() -> int:

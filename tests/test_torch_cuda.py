@@ -517,3 +517,88 @@ def test_streamed_detector_on_cuda_equals_resident(cuda, compact,
         assert stats["prefetched"] == stats["uploads"] - 1
     finally:
         sd.close()
+
+
+@pytest.mark.parametrize("stream", [False, True],
+                         ids=["resident", "streamed"])
+@pytest.mark.parametrize("compact", [False, True])
+def test_mesh_detector_on_cuda_equals_cpu(cuda, stream, compact,
+                                          monkeypatch):
+    """A 2×2 mesh of repeated cuda:0 slots, resident and streamed through
+    3 slices, dense and compacted (2-slot hit buffers that the fuller
+    cells overflow): hit for hit the same mesh on the CPU and the
+    single-device detector, one kernel launch per cell holding pairs,
+    and the table never placed whole."""
+    import random
+
+    from trivy_tpu_torch.db.table import RawAdvisory, build_table
+    from trivy_tpu_torch.detect.engine import BatchDetector, PkgQuery
+    from trivy_tpu_torch.obs.perf import LEDGER
+    from trivy_tpu_torch.parallel.mesh import MeshDetector, make_mesh
+    from trivy_tpu_torch.parallel.stream import StreamOptions
+    raw = [RawAdvisory(source="alpine 3.17", ecosystem="alpine",
+                       pkg_name=f"pkg{i % 90}", vuln_id=f"CVE-2024-{i:05d}",
+                       fixed_version=f"{i % 5 + 1}.{i % 7}.{i % 3}-r0")
+           for i in range(900)]
+    rng = random.Random(23)
+    batches = [[PkgQuery("alpine 3.17", "alpine", f"pkg{rng.randrange(100)}",
+                         f"{rng.randrange(6)}.{rng.randrange(4)}.0-r0")
+                for _ in range(60)] for _ in range(6)]
+    single = BatchDetector(build_table(raw), device="cpu")
+    want = [[(h.query.name, h.query.version, h.vuln_id) for h in hs]
+            for hs in single.detect_many(batches)]
+    single.close()
+    got = {}
+    for device in ("cpu", "cuda"):
+        table = build_table(raw)
+        LEDGER.reset_for_tests()
+        md = MeshDetector(table, make_mesh(4, 2, devices=[device] * 4),
+                          stream=StreamOptions(slices=3) if stream else None)
+        monkeypatch.setattr(md._inner, "_hit_capacity",
+                            lambda t_pad, budget=None: 2 if compact else 0)
+        before = J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches
+        try:
+            got[device] = [[(h.query.name, h.query.version, h.vuln_id)
+                            for h in hs] for hs in md.detect_many(batches)]
+            launched = J.csr_join_cuda.launches \
+                + J.csr_join_compact_cuda.launches - before
+            dispatches = LEDGER.site_dispatches()["mesh"]
+        finally:
+            md.close()
+        assert table._device is None
+        if device == "cuda":
+            assert launched > dispatches >= len(batches)
+            if stream:
+                assert LEDGER.shard_upload_stats()["mesh"]["uploads"] > 0
+        else:
+            assert launched == 0
+    assert got["cuda"] == got["cpu"] == want and any(want)
+
+
+def test_sharded_shiftor_on_cuda_equals_single_launch(cuda):
+    """sharded_shiftor_scan over 2, 3 and 4 cells of cuda:0: one launch
+    per cell, and the rows' bitmasks equal to one launch over all of
+    them and to the plain version."""
+    from trivy_tpu_torch.parallel.mesh import make_mesh, sharded_shiftor_scan
+    bank = ac.build_literal_bank(_keywords())
+    rng = np.random.default_rng(31)
+    chunks = rng.integers(97, 123, size=(37, 1024), dtype=np.uint8)
+    for i, kw in enumerate(bank.kw_bytes):
+        row, at = i % 37, (i * 29) % (1024 - len(kw))
+        chunks[row, at:at + len(kw)] = np.frombuffer(kw, np.uint8)
+    packed = so.pack_bank(bank)
+    arrays = [torch.from_numpy(a).to(cuda) for a in packed]
+    index = tuple(torch.from_numpy(a).to(cuda)
+                  for a in so.bank_index(*packed))
+    x = torch.from_numpy(chunks).to(cuda)
+    single = so.shiftor(*arrays, x, n_words=bank.words, index=index)
+    assert torch.equal(single, so.shiftor_plain(*arrays, x,
+                                                n_words=bank.words))
+    for cells in (2, 3, 4):
+        before = so.shiftor_cuda.launches
+        got = sharded_shiftor_scan(make_mesh(cells, 1,
+                                             devices=["cuda"] * cells),
+                                   *packed[:2], chunks, bank.words,
+                                   kw_bits=packed[2])
+        assert so.shiftor_cuda.launches - before == cells
+        np.testing.assert_array_equal(got, single.cpu().numpy())

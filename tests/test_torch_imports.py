@@ -52,7 +52,8 @@ need = ["trivy_tpu_torch." + m for m in (
     "server.protowire", "server.convert", "server.listen",
     "server.client", "cloud", "cloud.sigv4", "cloud.aws", "fanal.vm",
     "fanal.gitrepo", "fanal.redis_cache", "fanal.s3_cache", "rekor",
-    "fanal.analyzers.executable", "parallel", "parallel.stream")]
+    "fanal.analyzers.executable", "parallel", "parallel.stream",
+    "parallel.mesh", "parallel.multihost")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """

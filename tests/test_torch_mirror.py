@@ -20,6 +20,11 @@ goes on as the port's; any other (an object, a list, a dict, a class)
 goes on as a Twin of both, so that a later call, attribute, index,
 mutation or `isinstance` reaches both sides.
 
+Inside `numpy_by_value()` (a test file's fixture) numpy arrays of
+numbers compare by dtype, shape and every element, and numpy scalars by
+value (and pass on as plain data); arrays of objects by dtype and
+shape. Outside it they compare by class, as other objects do.
+
 `twin_cases` does the same with the JAX file's parametrised tests
 expanded; `port_cases` runs the JAX file's cases against the port
 alone (its `trivy_tpu` imports turned into `trivy_tpu_torch` ones), for
@@ -29,6 +34,7 @@ which must apply) and global overrides (`env`)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import importlib
@@ -40,6 +46,7 @@ import os
 import sys
 import types
 
+import numpy as np
 import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -47,11 +54,34 @@ ROOT = "twin_trivy"
 PORT, REF = "trivy_tpu_torch", "trivy_tpu"
 
 
+_BY_VALUE = [False]
+
+
+@contextlib.contextmanager
+def numpy_by_value():
+    """Compare numpy values by value while the block runs."""
+    _BY_VALUE[0] = True
+    try:
+        yield
+    finally:
+        _BY_VALUE[0] = False
+
+
+def _numpy_canon(v):
+    if isinstance(v, np.generic):
+        return {f"<{type(v).__name__}>": v.item()}
+    if v.dtype == object:
+        return {"<ndarray>": ["object", list(v.shape)]}
+    return {"<ndarray>": [v.dtype.str, list(v.shape), v.tolist()]}
+
+
 def canon(v, _stack=()):
     """v as JSON-able data that names every object's class, the same for
     both packages' equal values."""
     if v is None or isinstance(v, (bool, int, float, str)):
         return v
+    if _BY_VALUE[0] and isinstance(v, (np.ndarray, np.generic)):
+        return _numpy_canon(v)
     if isinstance(v, (bytes, bytearray)):
         return {"<bytes>": bytes(v).decode("latin-1")}
     if isinstance(v, enum.Enum):
@@ -105,6 +135,8 @@ def _at_default(obj, f) -> bool:
 
 def _frozen(v) -> bool:
     if v is None or isinstance(v, (bool, int, float, str, bytes)):
+        return True
+    if _BY_VALUE[0] and isinstance(v, np.generic):
         return True
     return isinstance(v, tuple) and all(_frozen(x) for x in v)
 

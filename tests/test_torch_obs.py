@@ -216,7 +216,7 @@ def test_unfed_series_name_their_item_and_read_zero(obs_server, tmp_path):
             "trivy_tpu_detect_breaker_state",
             "trivy_tpu_device_watchdog_trips_total",
             "trivy_tpu_fallback_joins_total")},
-        **{f"trivy_tpu_mesh_{s}": "A11" for s in (
+        **{f"trivy_tpu_mesh_{s}": "not ported: no meshguard" for s in (
             "devices", "breaker_state", "rebuilds_total",
             "device_lost_total", "host_lost_total")},
         **{f"trivy_tpu_fleet_{s}": "A12" for s in (

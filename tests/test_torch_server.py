@@ -458,8 +458,8 @@ def test_refused_server_flags_name_their_item(argv, tmp_path):
 
 
 def test_refused_flag_from_env(monkeypatch, tmp_path):
-    monkeypatch.setenv("TRIVY_MESH_DEVICES", "4")
-    with pytest.raises(SystemExit, match="ROADMAP A11"):
+    monkeypatch.setenv("TRIVY_MESH_MIN_DEVICES", "4")
+    with pytest.raises(SystemExit, match="no meshguard"):
         cli.main(["server", "--device", "cpu", "--db", FIXGLOB,
                   "--cache-dir", str(tmp_path)])
 

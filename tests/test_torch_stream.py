@@ -17,8 +17,8 @@ flags from argv, TRIVY_* and trivy.yaml.
 Not carried: the host-fallback cases of test_stream.py (the port has
 no host join: a failed upload, launch or fetch raises), the
 stream.prefetch failpoint drill (no failpoints; an upload hook that
-raises during a prefetch takes its place), and TestMeshStream (the
-mesh is ROADMAP A11)."""
+raises during a prefetch takes its place), and TestMeshStream (run in
+tests/test_torch_parallel.py with the rest of the mesh)."""
 
 import json
 import random
@@ -755,9 +755,12 @@ class TestFlags:
                 sched.prefetch) == (6, 32.0, False)
 
     def test_mesh_flags_still_refuse(self, tmp_path):
-        with pytest.raises(SystemExit, match="ROADMAP A11"):
+        # the mesh itself is served (tests/test_torch_parallel.py);
+        # meshguard's flags are refused
+        with pytest.raises(SystemExit, match="no meshguard"):
             cli.main(["server", "--device", "cpu", "--db", "x",
-                      "--cache-dir", str(tmp_path), "--mesh-devices", "2"])
+                      "--cache-dir", str(tmp_path),
+                      "--mesh-min-devices", "2"])
 
 
 # ---------------------------------------------------------------------------

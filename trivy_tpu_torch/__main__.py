@@ -104,9 +104,11 @@ cache in any backend of `--cache-backend`, and the streamed advisory
 table (`--table-stream-slices N`, `--table-device-budget-mb MB`,
 `--[no-]stream-prefetch`): a table over the budget never lives whole on
 the card but streams through a double-buffered pair of resident slices
-(parallel/stream.py). The JAX server's mesh, breaker and failpoint
-flags are refused with the ROADMAP item that will port them
-(SERVER_REFUSED).
+(parallel/stream.py), and multi-device detection (`--mesh-devices N`,
+`--mesh-db-shards S`): the join sharded over a dp×db mesh of the
+server's device type, one kernel launch per cell (parallel/mesh.py).
+The JAX server's meshguard, breaker and failpoint flags are refused
+with their reason (SERVER_REFUSED).
 """
 
 from __future__ import annotations
@@ -661,16 +663,18 @@ def cmd_convert(args) -> int:
     return 0
 
 
-_MESH = "multi-device detection is not ported yet (ROADMAP A11)"
+_MESHGUARD = ("the port has no meshguard: a mesh keeps every device it "
+              "was built with, and a failed cell launch fails the "
+              "requests it carried (ROADMAP A, not ported by the north "
+              "star)")
 _GUARD = ("the port has no breaker, watchdog or failpoints: a failed "
           "launch or fetch fails the requests it carried (ROADMAP A, "
           "not ported by the north star)")
 # the JAX server's flags that the port refuses, and why
 SERVER_REFUSED = {
-    "mesh_devices": _MESH, "mesh_db_shards": _MESH,
-    "mesh_min_devices": _MESH, "mesh_rebuild_cooldown_ms": _MESH,
-    "mesh_probe_timeout_ms": _MESH, "mesh_hosts": _MESH,
-    "mesh_host_loss_window_ms": _MESH,
+    "mesh_min_devices": _MESHGUARD, "mesh_rebuild_cooldown_ms": _MESHGUARD,
+    "mesh_probe_timeout_ms": _MESHGUARD, "mesh_hosts": _MESHGUARD,
+    "mesh_host_loss_window_ms": _MESHGUARD,
     "failpoint": _GUARD, "breaker_fail_threshold": _GUARD,
     "breaker_reset_ms": _GUARD, "detect_dispatch_timeout_ms": _GUARD,
 }
@@ -698,12 +702,18 @@ def _refuse_server_flags(args) -> None:
 def cmd_server(args) -> int:
     """The scan server (reference cli.py:1153): the table on the card,
     detectd merging concurrent scans' launches, until SIGTERM or SIGINT
-    drains it."""
+    drains it. A multi-process job (TRIVY_TPU_DIST_*) is joined first,
+    as in the reference."""
     from .detect.redetect import RedetectOptions
     from .detect.sched import SchedOptions
+    from .parallel.multihost import maybe_init_distributed, process_info
     from .parallel.stream import StreamOptions
     from .resilience import AdmissionOptions
-    from .server.listen import LaunchRecord, serve
+    from .server.listen import LaunchRecord, MeshOptions, serve
+    if maybe_init_distributed(device=args.device):
+        from .log import logger
+        rank, world = process_info()
+        logger.info("joined multi-host job: process %d/%d", rank, world)
     _refuse_server_flags(args)
     device = resolve_device(args.device)
     _configure_watch(args)
@@ -741,7 +751,9 @@ def cmd_server(args) -> int:
             concurrency=max(args.redetect_concurrency, 0)),
         stream_opts=StreamOptions(
             device_budget_mb=args.table_device_budget_mb,
-            slices=args.table_stream_slices))
+            slices=args.table_stream_slices),
+        mesh_opts=MeshOptions(devices=args.mesh_devices,
+                              db_shards=args.mesh_db_shards))
     if record is not None:
         # after the drain: the launches by kernel (the dense and the
         # compacted route), what the merged dispatches carried, and a
@@ -822,6 +834,15 @@ def _server_flags(p: argparse.ArgumentParser) -> None:
                    help="stream the advisory table through N hash-range "
                         "slices whatever the budget (0 = size from "
                         "--table-device-budget-mb)")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="shard the join over a dp×db mesh of the first N "
+                        "devices of --device's type (-1 = all of them; 0 "
+                        "= one device, the default); one kernel launch "
+                        "per mesh cell")
+    p.add_argument("--mesh-db-shards", type=int, default=1,
+                   help="preferred advisory-table shard width on the "
+                        "mesh's db axis, fitted to the largest valid "
+                        "factorization of the device count")
     p.add_argument("--stream-prefetch", default=True,
                    action=argparse.BooleanOptionalAction,
                    help="while a dispatch runs, warm the advisory slices "

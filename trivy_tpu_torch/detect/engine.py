@@ -178,6 +178,23 @@ class _Prepared:
     q_obj: np.ndarray = None     # object[len(usable)] the PkgQuery objs
 
 
+def launch_join(adv, ver_dev, qs, qc, qv, total: int, t_pad: int,
+                h_cap: int, site: str = "detect"):
+    """The kernel half of a launch: the join of the [Q] descriptors
+    (qs, qc, qv) against `adv` (lo_tok, hi_tok, flags, lo_pre, hi_pre),
+    compacted into an h_cap hit buffer when h_cap > 0, on the operands'
+    device (the kernel on a GPU, the plain version on the CPU). → a
+    _PendingCompact, else the dense int8[t_pad] bits tensor."""
+    adv_lo, adv_hi, adv_flags, lo_pre, hi_pre = adv
+    args = (adv_lo, adv_hi, adv_flags, ver_dev, qs, qc, qv, total)
+    if h_cap:
+        hit_idx, hit_bits, n_hits, dense = J.csr_pair_join_compact(
+            *args, t_pad, h_cap, prefix=(lo_pre, hi_pre))
+        return _PendingCompact(hit_idx, hit_bits, n_hits, dense, h_cap,
+                               t_pad, site)
+    return J.csr_pair_join(*args, t_pad, prefix=(lo_pre, hi_pre))
+
+
 class BatchDetector:
     def __init__(self, table: AdvisoryTable,
                  device: str | torch.device | None = None):
@@ -455,13 +472,16 @@ class BatchDetector:
         request, "detectd" for merged dispatches, "stream" for a
         streamed slice, "redetect" for any launch under
         resilience.blameless()); `warm` marks warmup
-        launches, which are not traffic. The launch region's host wall
-        is charged as device ms (obs/cost.py).
+        launches, which are not traffic.
 
         `adv` (lo_tok, hi_tok, flags, lo_pre, hi_pre) replaces the
         table's resident operands: a streamed table's slice
         (parallel/stream.py), whose walk observes its dispatch's
-        traffic once, so a slice launch adds no traffic series."""
+        traffic once, so a slice launch adds no traffic series.
+
+        The kernel call is `launch_join`, the accounting `_accounted`:
+        the mesh (parallel/mesh.py) shares both halves, with one
+        accounted region around all of its cells' launches."""
         J.check_csr_descriptors(q_count, n_queries)
         if h_cap is None:
             h_cap = self._hit_capacity(t_pad)
@@ -472,10 +492,10 @@ class BatchDetector:
         if staged is not None and staged.error is not None:
             raise staged.error
         t_watch = time.perf_counter()
-        adv_lo, adv_hi, adv_flags, lo_pre, hi_pre = \
-            self.table.device_arrays(self.device) if adv is None else adv
+        resident = adv is None
+        if resident:
+            adv = self.table.device_arrays(self.device)
         ver_dev = self._ver_device(u_pad)
-        new_shape = self._note_shape(t_pad, h_cap)
         if staged is not None:
             qs, qc, qv = staged.take()
         else:
@@ -486,34 +506,40 @@ class BatchDetector:
             LEDGER.note_shard_wait("query_upload",
                                    (time.perf_counter() - t_up) * 1e3,
                                    cold=True)
-        args = (adv_lo, adv_hi, adv_flags, ver_dev, qs, qc, qv, total)
+        return self._accounted(
+            lambda: launch_join(adv, ver_dev, qs, qc, qv, total, t_pad,
+                                h_cap, site),
+            site, total, t_pad, h_cap, t_watch, warm=warm,
+            traffic=resident)
 
-        def _kernel():
-            if h_cap:
-                hit_idx, hit_bits, n_hits, dense = J.csr_pair_join_compact(
-                    *args, t_pad, h_cap, prefix=(lo_pre, hi_pre))
-                return _PendingCompact(hit_idx, hit_bits, n_hits, dense,
-                                       h_cap, t_pad, site)
-            return J.csr_pair_join(*args, t_pad, prefix=(lo_pre, hi_pre))
-
+    def _accounted(self, run, site: str, real: int, t_pad: int,
+                   h_cap: int, t_watch: float, warm: bool = False,
+                   traffic: bool = True):
+        """The accounting half of a launch around `run()`, which makes
+        the launch (or, for the mesh, all its cells' launches) and
+        whose value passes through: the first launch of a (t_pad,
+        h_cap) shape is the ledger's "compile" (its host wall, the
+        kernel library's load or build on the first of all, spanned as
+        detect.compile), one dispatch row, one traffic observation when
+        `traffic` (not for a streamed slice, whose walk observes its
+        dispatch once), and the host wall since `t_watch` charged as
+        device ms (obs/cost.py)."""
+        new_shape = self._note_shape(t_pad, h_cap)
         if new_shape:
-            # the first launch of a shape: its host wall (the kernel
-            # library's load or build on the first of all) is the
-            # ledger's "compile", spanned so it shows in the trace
             with span("detect.compile", t_pad=t_pad, h_cap=h_cap,
                       warm=warm):
                 t0 = time.perf_counter()
-                out = _kernel()
+                out = run()
                 compile_ms = (time.perf_counter() - t0) * 1e3
             LEDGER.note_compile(site, t_pad, h_cap, compile_ms, warm=warm)
         else:
-            out = _kernel()
-        if adv is None:
-            self._account_traffic(total, t_pad, warm)
-        LEDGER.note_dispatch(site, total, t_pad, h_cap, warm=warm)
+            out = run()
+        if traffic:
+            self._account_traffic(real, t_pad, warm)
+        LEDGER.note_dispatch(site, real, t_pad, h_cap, warm=warm)
         _cost.charge_device_ms(
             site, (time.perf_counter() - t_watch) * 1e3,
-            real_rows=0 if (warm or new_shape) else total)
+            real_rows=0 if (warm or new_shape) else real)
         return out
 
     def _fetch_bits(self, dev):

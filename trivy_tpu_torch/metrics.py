@@ -618,18 +618,21 @@ METRICS.declare(
 # port does not have (yet): each stays at 0 until its ROADMAP item
 # lands. The breaker, watchdog, host join and meshguard are not ported
 # by design (there is no fallback from the card), so theirs stay 0 for
-# good. trivy_tpu_device_serving_ratio is fed (SLOEngine) and reads 1.0
-# for the same reason: every join is served by the card.
+# good: the mesh series are meshguard's (the reference feeds them from
+# resilience/meshguard.py alone), not the mesh's. trivy_tpu_device_
+# serving_ratio is fed (SLOEngine) and reads 1.0 for the same reason:
+# every join is served by the card.
 _NO_FALLBACK = "not ported: no breaker, watchdog or host join"
+_NO_MESHGUARD = "not ported: no meshguard"
 UNFED = {
     "trivy_tpu_detect_breaker_state": _NO_FALLBACK,
     "trivy_tpu_device_watchdog_trips_total": _NO_FALLBACK,
     "trivy_tpu_fallback_joins_total": _NO_FALLBACK,
-    "trivy_tpu_mesh_devices": "A11",
-    "trivy_tpu_mesh_breaker_state": "A11",
-    "trivy_tpu_mesh_rebuilds_total": "A11",
-    "trivy_tpu_mesh_device_lost_total": "A11",
-    "trivy_tpu_mesh_host_lost_total": "A11",
+    "trivy_tpu_mesh_devices": _NO_MESHGUARD,
+    "trivy_tpu_mesh_breaker_state": _NO_MESHGUARD,
+    "trivy_tpu_mesh_rebuilds_total": _NO_MESHGUARD,
+    "trivy_tpu_mesh_device_lost_total": _NO_MESHGUARD,
+    "trivy_tpu_mesh_host_lost_total": _NO_MESHGUARD,
     "trivy_tpu_fleet_replica_state": "A12",
     "trivy_tpu_fleet_failovers_total": "A12",
     "trivy_tpu_fleet_db_version_skew_total": "A12",

@@ -30,16 +30,22 @@ BIGRAMS = 1 << 16  # b0 | b1 << 8
 def pack_bank(bank) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """LiteralBank → ([W, 128] int32 words, [W, 128] int32 masks,
     [1, 128] int32 bit values)."""
-    n = bank.n_keywords
+    return pack_planes(bank.kw_words, bank.kw_masks)
+
+
+def pack_planes(kw_words: np.ndarray, kw_masks: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """pack_bank of a bank given by its raw [W, Nk] uint32 word and mask
+    planes."""
+    n_state, n = kw_words.shape
     if n > K_LANES:
         raise ValueError(f"keyword bank > {K_LANES} needs multi-tile "
                          f"lanes: {n}")
-    n_state = bank.state_words
     kww = np.full((n_state, K_LANES), -1, dtype=np.int32)
     kwm = np.full((n_state, K_LANES), -1, dtype=np.int32)
     bit = np.zeros(K_LANES, dtype=np.int32)
-    kww[:, :n] = bank.kw_words.view(np.int32)
-    kwm[:, :n] = bank.kw_masks.view(np.int32)
+    kww[:, :n] = np.ascontiguousarray(kw_words, np.uint32).view(np.int32)
+    kwm[:, :n] = np.ascontiguousarray(kw_masks, np.uint32).view(np.int32)
     bit[:n] = (np.uint32(1) << (np.arange(n, dtype=np.uint32) % 32)) \
         .view(np.int32)
     return kww, kwm, bit.reshape(1, -1)

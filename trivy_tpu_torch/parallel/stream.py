@@ -44,7 +44,9 @@ The device code is the unchanged join kernels (ops.join →
 csrc/csr_join.cu) fed slice-shaped operands; on the CPU the same walk
 runs their plain versions over host tensors. There is no host join: a
 failed upload, launch or fetch raises and fails the requests the
-dispatch carried. Not ported: the mesh's streamed walk (ROADMAP A11).
+dispatch carried. The mesh (parallel/mesh.py) walks the same slices,
+each db-sharded over its cells, through the same SliceCache (site
+"mesh") and plan_slices (with its per-device share of the table).
 """
 
 from __future__ import annotations
@@ -112,15 +114,18 @@ def hbm_budget_bytes(fraction: float, device=None) -> int:
     return int(min(got) * fraction)
 
 
-def plan_slices(table, opts: StreamOptions | None,
-                device=None) -> np.ndarray | None:
+def plan_slices(table, opts: StreamOptions | None, device=None,
+                device_bytes: int | None = None) -> np.ndarray | None:
     """→ int64[S+1] contiguous row bounds (equal hash-range slices of
     the sorted table), or None when streaming should not engage (the
     table fits the budget, or no budget source is configured).
-    `device` is the card whose memory the auto budget reads."""
+    `device` is the card whose memory the auto budget reads;
+    `device_bytes` replaces the footprint the budget is held to (the
+    mesh passes its per-device share: the whole footprint ÷ db)."""
     if opts is None or len(table) == 0:
         return None
-    dev_bytes = table.device_nbytes()
+    dev_bytes = table.device_nbytes() if device_bytes is None \
+        else device_bytes
     if opts.slices > 0:
         n = opts.slices
     else:
@@ -287,11 +292,13 @@ class SliceCache:
     Eviction is LRU over READY entries once the set exceeds RESIDENT;
     an entry another thread is still uploading is never evicted. All
     shared state changes under `_lock`; uploads and blocking waits run
-    outside it."""
+    outside it. `site` keys the ledger rows: "stream" for the
+    single-card walk, "mesh" for the mesh's."""
 
-    def __init__(self, upload, settle=None):
+    def __init__(self, upload, settle=None, site: str = "stream"):
         self._upload = upload
         self._settle = settle
+        self.site = site
         self._lock = threading.Lock()
         self._entries: OrderedDict[int, _Entry] = OrderedDict()
 
@@ -330,7 +337,7 @@ class SliceCache:
             raise
         finally:
             e.ready.set()
-        LEDGER.note_shard_upload("stream", e.nbytes,
+        LEDGER.note_shard_upload(self.site, e.nbytes,
                                  prefetched=prefetched)
 
     def prefetch(self, k: int) -> None:
@@ -362,7 +369,7 @@ class SliceCache:
                     f"slice {k} upload failed: {e.error}") from e.error
         arrays = e.arrays if self._settle is None \
             else self._settle(e.arrays)
-        LEDGER.note_shard_wait("stream",
+        LEDGER.note_shard_wait(self.site,
                                (time.perf_counter() - t0) * 1e3,
                                cold=owner)
         return arrays

@@ -11,9 +11,12 @@ detectd instead, so concurrent scans' batches merge into shared
 launches. Given StreamOptions whose plan engages (parallel/stream.py),
 the detector streams the advisory table through a double-buffered
 pair of resident slices; otherwise the resident BatchDetector serves,
-as without them. Then come the results that need no join: the ingest degradations, the
-misconfigurations, the secrets and, under the license scanner, the
-license results.
+as without them. Given a mesh (parallel/mesh.py, the server's
+--mesh-devices), a MeshDetector serves instead, its join sharded over
+the mesh's cells, streamed or resident by the same rule applied to its
+per-device share of the table. Then come the results that need no
+join: the ingest degradations, the misconfigurations, the secrets and,
+under the license scanner, the license results.
 
 With a memo (fleet/memo.py), each attributable unit (the OS batch, one
 application's batch) whose (blob, db version) entry matches replays its
@@ -55,7 +58,7 @@ class LocalScanner:
     def __init__(self, cache, table: AdvisoryTable,
                  device: str | torch.device | None = None,
                  sched: "SchedOptions | None" = None, memo=None,
-                 stream: StreamOptions | None = None):
+                 stream: StreamOptions | None = None, mesh=None):
         self.cache = cache
         self.table = table
         # graftmemo: an open fleet.memo.MemoStore (None = no memo)
@@ -63,10 +66,13 @@ class LocalScanner:
         # graftstream: a table over the budget streams through resident
         # slices; one within it keeps the resident detector
         bounds = None
-        if stream is not None:
+        if mesh is None and stream is not None:
             device = resolve_device(device)
             bounds = plan_slices(table, stream, device=device)
-        if bounds is not None:
+        if mesh is not None:
+            from .parallel.mesh import MeshDetector
+            self.detector = MeshDetector(table, mesh, stream=stream)
+        elif bounds is not None:
             self.detector = StreamingDetector(table, stream, bounds=bounds,
                                               device=device)
         else:

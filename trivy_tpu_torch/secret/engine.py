@@ -21,6 +21,12 @@ The prefilter takes one of three paths, counted per scanner in
          the routing policy of the JAX package, not a fallback: a
          kernel that fails to build or launch raises.
 
+With `mesh=` (parallel/mesh.py) the device pieces shard their chunk
+rows over every cell of the mesh (mesh.sharded_shiftor_scan's
+launches: one per cell, the bank and its index replicated to each
+device once), as the JAX package's meshed secret lane does; the path
+label is the cells' (cuda or torch).
+
 Instrumented as the JAX package's engine is: `secret.prefilter` and
 `secret.confirm` spans, the trivy_tpu_secret_* series (the prefilter
 path label takes the values above), the dispatch ledger's "secret" rows
@@ -64,8 +70,12 @@ class SecretScanner:
                  allow_rules: Optional[list] = None,
                  exclude_regexes: Optional[list] = None,
                  small_batch_bytes: Optional[int] = None,
-                 device: str | torch.device | None = None):
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None, mesh=None):
+        # a mesh carries its devices: the scanner's is its first
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.devices.flat[0] if mesh is not None and device is None
+            else device)
         self.rules = rules if rules is not None else BUILTIN_RULES
         self.global_allow = (allow_rules if allow_rules is not None
                              else GLOBAL_ALLOW_RULES)
@@ -94,6 +104,7 @@ class SecretScanner:
         self._bank = ac.build_literal_bank(self._keywords) \
             if self._keywords else None
         self._bank_dev = None   # the bank on self.device, uploaded once
+        self._bank_mesh = None  # the bank on each mesh device, likewise
         # launch shapes (rows, chunk_len) met so far: the ledger's
         # first-of-shape "compile"
         self._shape_lock = threading.Lock()
@@ -176,7 +187,13 @@ class SecretScanner:
             remap[i] = j
         uniq = chunks[np.asarray(uniq_rows)] \
             if len(uniq_rows) < chunks.shape[0] else chunks
-        arrays, index = self._bank_arrays()
+        if self.mesh is not None:
+            from ..parallel import mesh as M
+            if self._bank_mesh is None:
+                self._bank_mesh = M.replicate_bank(
+                    self.mesh, *so.pack_bank(bank))
+        else:
+            arrays, index = self._bank_arrays()
         site = "secret"
         pieces = []
         for off in range(0, uniq.shape[0], DEVICE_ROWS):
@@ -189,9 +206,13 @@ class SecretScanner:
             t0 = time.perf_counter()
             padded = np.zeros((b, row_len), np.uint8)
             padded[:real_rows] = piece
-            dev_piece = torch.from_numpy(padded).to(self.device)
-            pieces.append(so.shiftor(*arrays, dev_piece, n_words=bank.words,
-                                     index=index))
+            if self.mesh is not None:
+                pieces.append((b, M.launch_shiftor_cells(
+                    self.mesh, self._bank_mesh, padded, bank.words)))
+            else:
+                dev_piece = torch.from_numpy(padded).to(self.device)
+                pieces.append(so.shiftor(*arrays, dev_piece,
+                                         n_words=bank.words, index=index))
             launch_ms = (time.perf_counter() - t0) * 1e3
             if new_shape:
                 LEDGER.note_compile(site, b, 0, launch_ms)
@@ -199,7 +220,11 @@ class SecretScanner:
             _cost.charge_device_ms(site, launch_ms)
         note_dispatch(self.device)
         t_get = time.perf_counter()
-        fetched = torch.cat(pieces).cpu().numpy()
+        if self.mesh is not None:
+            fetched = np.concatenate([M.fetch_shiftor_cells(cells, b)
+                                      for b, cells in pieces])
+        else:
+            fetched = torch.cat(pieces).cpu().numpy()
         _cost.charge_device_ms(site, (time.perf_counter() - t_get) * 1e3)
         _cost.ledgered_transfer("dense", float(fetched.nbytes))
         masks = fetched[:uniq.shape[0]][remap]

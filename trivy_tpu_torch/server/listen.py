@@ -26,8 +26,13 @@ StreamOptions (`stream_opts`; the CLI's --table-stream-slices,
 swap too, streams a table over the budget through resident slices
 (parallel/stream.py), whose next slices detectd's peek warms
 (SchedOptions.prefetch, --[no-]stream-prefetch), and /healthz shows
-the slice plan under `stream`. Not ported: the mesh and the breaker and
-its recovery.
+the slice plan under `stream`. With MeshOptions (`mesh_opts`; the CLI's
+--mesh-devices, --mesh-db-shards) every scanner the server builds, after
+a DB swap too (the new table re-sharded over the same mesh), joins over
+a dp×db mesh of the server's device type (parallel/mesh.py), one kernel
+launch per cell at ledger site "mesh" ("redetect" in redetectd's
+sweep). Not ported: meshguard, the breaker and its recovery; a mesh
+over more than one process (ROADMAP A19).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import sys
 import threading
 import time
 from concurrent.futures import Future
+from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -69,6 +75,17 @@ _log = _get_logger("server")
 # tenants' trace ids) or cost (a live profile): gated by the token
 DEBUG_PAGES = ("/debug/traces", "/debug/incidents", "/debug/perf",
                "/debug/profile", "/debug/costs")
+
+
+@dataclass
+class MeshOptions:
+    """Mesh knobs (server flags --mesh-devices, --mesh-db-shards).
+    devices=0 keeps the single-device detector; N > 0 takes the first N
+    devices of the server's type, N < 0 all of them (on the CPU, N
+    slots of it); db_shards is the preferred db width, fitted to the
+    largest valid factorization of the device count."""
+    devices: int = 0
+    db_shards: int = 1
 
 
 class LaunchRecord:
@@ -129,7 +146,8 @@ class ServerState:
                  cache_backend: str = "fs", detect_opts=None,
                  admission=None, device=None, sbom_opts=None,
                  launch_record: LaunchRecord | None = None,
-                 memo_backend="", redetect_opts=None, stream_opts=None):
+                 memo_backend="", redetect_opts=None, stream_opts=None,
+                 mesh_opts: MeshOptions | None = None):
         self.cache = open_cache(cache_backend, cache_dir)
         # graftmemo: the detection-result memo ("" = none), keyed by
         # (blob, table content digest)
@@ -145,6 +163,17 @@ class ServerState:
         # graftstream: every scanner built here may stream its table
         # (plan_slices decides per table; None keeps every one resident)
         self.stream_opts = stream_opts
+        # the mesh every scanner built here joins over (None: one device);
+        # a table swap keeps it and re-shards the new table
+        self.mesh = None
+        if mesh_opts is not None and mesh_opts.devices:
+            from ..parallel.mesh import device_slots, mesh_from_devices
+            from ..parallel.multihost import CROSS_PROCESS, process_info
+            if process_info()[1] > 1:
+                raise SystemExit(f"--mesh-devices: {CROSS_PROCESS}")
+            self.mesh = mesh_from_devices(
+                device_slots(mesh_opts.devices, device),
+                mesh_opts.db_shards)
         self.admission = AdmissionQueue(admission)
         self.launch_record = launch_record
         self._table = table
@@ -177,7 +206,7 @@ class ServerState:
     def _new_scanner(self, table) -> LocalScanner:
         scanner = LocalScanner(self.cache, table, self.device,
                                sched=self.detect_opts, memo=self.memo,
-                               stream=self.stream_opts)
+                               stream=self.stream_opts, mesh=self.mesh)
         # the identity /healthz names (never read from torch.cuda
         # there), and the profiler's activities
         self.device_name = note_device(scanner.detector.device)
@@ -703,7 +732,8 @@ def serve(host: str, port: int, table, cache_dir: str, token: str = "",
           detect_opts=None, admission=None, drain_grace_s: float = 10.0,
           device=None, launch_record: LaunchRecord | None = None,
           trace_path: str = "", memo_backend="",
-          redetect_opts=None, stream_opts=None) -> ServerState:
+          redetect_opts=None, stream_opts=None,
+          mesh_opts: MeshOptions | None = None) -> ServerState:
     """Serve until SIGTERM/SIGINT drains the server (`drain_grace_s`
     bounds the wait for requests in flight) → the closed state.
     `trace_path` records every span for the server's lifetime and
@@ -716,7 +746,7 @@ def serve(host: str, port: int, table, cache_dir: str, token: str = "",
                         device=device, launch_record=launch_record,
                         memo_backend=memo_backend,
                         redetect_opts=redetect_opts,
-                        stream_opts=stream_opts)
+                        stream_opts=stream_opts, mesh_opts=mesh_opts)
     httpd = _bind(host, port, state)
     install_drain_handlers(httpd, state, drain_grace_s)
     # the accept loop runs on its own thread; this (main) thread runs
@@ -767,7 +797,7 @@ def serve_background(host: str, port: int, table, cache_dir: str,
                      token: str = "", cache_backend: str = "fs",
                      detect_opts=None, admission=None, device=None,
                      sbom_opts=None, memo_backend="", redetect_opts=None,
-                     stream_opts=None):
+                     stream_opts=None, mesh_opts: MeshOptions | None = None):
     """Serve from a daemon thread → (httpd, state) once listening. The
     caller shuts down: `httpd.shutdown()`, then `state.close()`."""
     state = ServerState(table, cache_dir, token, cache_backend,
@@ -775,7 +805,7 @@ def serve_background(host: str, port: int, table, cache_dir: str,
                         device=device, sbom_opts=sbom_opts,
                         memo_backend=memo_backend,
                         redetect_opts=redetect_opts,
-                        stream_opts=stream_opts)
+                        stream_opts=stream_opts, mesh_opts=mesh_opts)
     httpd = _bind(host, port, state)
     threading.Thread(target=httpd.serve_forever, name="scan-server",
                      daemon=True).start()
