@@ -361,6 +361,31 @@ was printed); any failure exits non-zero:
            cell's share of the rows at 4 cells ("at_mesh"). Figures: each
            grid's wall beside the resident detector's, dispatches,
            launches, the streamed grid's uploads, the server's round.
+  fleet    the router in front of two port servers: two in-process
+           replicas on the card over the apps table (one object: they
+           share its device arrays) and the server phase's FS cache,
+           behind `python -m trivy_tpu_torch router --replica URL1
+           --replica URL2 --trace FILE` (one CLI process; no table, and
+           no NVIDIA device file open, after a /debug/profile capture
+           too, where this process holds them). Four new checkouts
+           analyzed on the card through RemoteCache(router) (one
+           shift-or launch each), their routed reports equal to direct
+           ones with their planted secrets; the server phase's
+           16 artifacts at c=16 through the router (every report the
+           server phase's c=1 one, both replicas served) and straight at
+           one replica; a second round with replica 2 shut down while
+           its first half is in flight (no failed request, failovers,
+           replica 2 lost in the router's /healthz), replica 2 restarted
+           on its port and readmitted; RemoteScanner("DEAD,ROUTER"); the
+           router's /metrics under strict exposition with the fleet
+           series, one request's trace assembled by obs.collect
+           (client.scan → router.rpc → router.forward → server.rpc), a
+           host-only /debug/profile, and SIGTERM's drain writing the
+           fleet trace. Then the largest merged dispatch the replicas
+           recorded against the plain join on both routes, timed, and
+           the fresh rows through shift-or ("at_fleet"). Figures: the
+           rounds' walls, p50 and p99 routed and direct, the failovers,
+           the readmission time, router.forward ms from the spans.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
@@ -371,7 +396,8 @@ largest blob the memo phase's sweep replayed), "at_vm" (the disk),
 "at_caches" (the image_apps image through the shared caches),
 "at_stream" (the largest advisory slice of the stream phase) and
 "at_mesh" (a 2×2 mesh cell of the largest batch; shift-or: one of 4
-cells' rows);
+cells' rows) and "at_fleet" (the largest merged dispatch the fleet's
+replicas recorded; shift-or: the fresh artifacts' rows);
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -6720,10 +6746,443 @@ def run_mesh_at_size(torch, stream_state: tuple, clients: tuple,
     return counts, at
 
 
+# --- the fleet phase: the router in front of two port servers -------------
+
+FLEET_FRESH = 4       # new client checkouts analyzed through the router
+FLEET_VNODES = 64     # the router's default --ring-vnodes
+
+
+def _free_port() -> int:
+    with __import__("socket").socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nvidia_files(pid) -> list:
+    """The NVIDIA device files a process holds open (/proc/PID/fd): a
+    process with a CUDA context holds /dev/nvidiactl and /dev/nvidia<N>,
+    one that never initialized CUDA none."""
+    fd_dir = f"/proc/{pid}/fd"
+    out = []
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue   # closed since the listing
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(set(out))
+
+
+def spawn_router(tmp: str) -> dict:
+    """`python -m trivy_tpu_torch router` in front of two replica ports
+    chosen up front, where nothing listens yet (the fleet phase starts
+    its replicas there) → the process, its ports and files. Spawned
+    before the phases ahead of `fleet`, so its start-up overlaps
+    theirs."""
+    ports = [_free_port() for _ in range(3)]
+    router = {"ports": ports, "t_spawn": time.perf_counter(),
+              "trace": os.path.join(tmp, "fleet.trace.json"),
+              "log": os.path.join(tmp, "router.log")}
+    with open(router["log"], "w") as log:
+        router["proc"] = subprocess.Popen(
+            [sys.executable, "-m", "trivy_tpu_torch", "router", "--listen",
+             f"127.0.0.1:{ports[2]}",
+             "--replica", f"http://127.0.0.1:{ports[0]}",
+             "--replica", f"http://127.0.0.1:{ports[1]}",
+             "--token", SERVER_TOKEN, "--trace", router["trace"],
+             "--replica-fail-threshold", "1", "--replica-reset-ms", "300",
+             "--replica-probe-interval-ms", "50",
+             "--incident-dir", os.path.join(tmp, "router-incidents"),
+             "--profile-cooldown-s", "0"], cwd=REPO, stderr=log)
+    return router
+
+
+def stop_router(router: dict) -> None:
+    proc = router["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _fleet_round(base: str, refs: list, serial: list, opts, order: list,
+                 between=None, half: int | None = None) -> dict:
+    """One round of every artifact at once through RemoteScanner(base):
+    the first `half` of `order` start, then `between()` runs, then the
+    rest start → wall, latencies, failures (each report against its
+    serial one)."""
+    import threading
+
+    from trivy_tpu_torch.server.client import RemoteScanner
+    scanner = RemoteScanner(base, token=SERVER_TOKEN, timeout=300)
+    got, lat, failed = {}, {}, []
+
+    def worker(i):
+        t = time.perf_counter()
+        try:
+            results, os_info = scanner.scan(refs[i].name, refs[i].id,
+                                            refs[i].blob_ids, opts)
+        except Exception as e:  # noqa: BLE001 — counted as a failure
+            failed.append((i, repr(e)))
+            return
+        lat[i] = time.perf_counter() - t
+        got[i] = (_canon(results), _os_key(os_info))
+    half = len(order) if half is None else half
+    threads = [threading.Thread(target=worker, args=(i,)) for i in order]
+    t0 = time.perf_counter()
+    for t in threads[:half]:
+        t.start()
+    if between is not None:
+        between()
+    for t in threads[half:]:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    wrong = [i for i in got if got[i] != serial[i]]
+    if wrong or len(got) + len(failed) != len(order):
+        raise AssertionError(f"fleet: reports {wrong} differ from the "
+                             "serial ones, or a request never ended")
+    xs = list(lat.values()) or [0.0]
+    return {"wall_s": wall, "p50_s": _pct(xs, 50), "p99_s": _pct(xs, 99),
+            "failed": len(failed), "failures": failed[:4]}
+
+
+def _trace_chain(doc: dict, tid: str) -> list:
+    """The span names from the assembled trace's client.scan root down
+    to the replica's server.rpc, each the parent of the next."""
+    spans = {e["args"]["span_id"]: e for e in doc["traceEvents"]
+             if e["ph"] == "X" and e["args"].get("trace_id") == tid}
+    for e in spans.values():
+        if e["name"] != "server.rpc":
+            continue
+        chain, cur = [], e
+        while cur is not None:
+            chain.append(cur["name"])
+            cur = spans.get(cur["args"].get("parent_id") or "")
+        return chain[::-1]
+    return []
+
+
+def fleet_phase(tmp: str, table, names: dict, clients: tuple,
+                device: str = "cuda", n_fresh: int = FLEET_FRESH,
+                text=(5 << 19, 4 << 20), router: dict | None = None
+                ) -> dict:
+    """The router in front of two port servers, as a registry sweep
+    behind several servers sharing one cache deploys it: two in-process
+    replicas (serve_background on `device`, over `table`, on the server
+    phase's FS cache `clients[0]`, at ports fixed up front) behind
+    `python -m trivy_tpu_torch router` (one CLI process, no table;
+    `router` from spawn_router, or spawned here).
+    `n_fresh` new checkouts analyzed on `device` through
+    RemoteCache(router), their routed reports equal to direct ones with
+    the planted secrets; a round of the client artifacts through the
+    router (each report the serial one, both replicas served) and one
+    straight at a replica; a second round with replica 2 shut down while
+    its first half is in flight (no failed request, failovers, replica
+    2 lost), then replica 2 back on its port and readmitted; the
+    client's failover list past a dead port; the router's /metrics
+    under strict exposition, one assembled trace client.scan →
+    router.rpc → router.forward → server.rpc, a host-only
+    /debug/profile, no NVIDIA device file open in the router (this
+    process holds them), and SIGTERM's drain and fleet trace → the
+    figures, the merged dispatches the replicas recorded and the fresh
+    roots."""
+    import signal
+    import urllib.error
+    import urllib.request
+
+    from trivy_tpu_torch import types as T
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
+                                                 AnalyzerGroup)
+    from trivy_tpu_torch.fanal.artifact import FilesystemArtifact
+    from trivy_tpu_torch.fleet.ring import HashRing
+    from trivy_tpu_torch.obs import new_trace
+    from trivy_tpu_torch.obs.check import check_file
+    from trivy_tpu_torch.obs.collect import collect_trace
+    from trivy_tpu_torch.obs.exposition import parse_exposition
+    from trivy_tpu_torch.secret import SecretScanner
+    from trivy_tpu_torch.server.client import RemoteCache, RemoteScanner
+    from trivy_tpu_torch.server.listen import LaunchRecord, serve_background
+    cache_dir, refs, serial = clients
+    spawned = router if router is not None else spawn_router(tmp)
+    proc, ports = spawned["proc"], spawned["ports"]
+    trace_path, log_path = spawned["trace"], spawned["log"]
+    urls = [f"http://127.0.0.1:{p}" for p in ports[:2]]
+    router = f"http://127.0.0.1:{ports[2]}"
+    record = LaunchRecord()
+    replicas: dict = {}
+    opts = T.ScanOptions(scanners=("vuln", "secret"))
+    fig: dict = {"artifacts": len(refs)}
+
+    def start(i):
+        replicas[i] = serve_background(
+            "127.0.0.1", ports[i], table, cache_dir, SERVER_TOKEN,
+            device=device, launch_record=record)
+
+    def stop(i):
+        httpd, state = replicas.pop(i)
+        httpd.shutdown()
+        httpd.server_close()      # later connections are refused
+        state.drain(120.0)        # the requests it holds finish there
+        state.close()
+
+    def requests(i):
+        return _get_json(urls[i] + "/healthz")["detectd"]["requests"]
+
+    def router_health():
+        return _get_json(router + "/healthz")["fleet"]
+
+    t_phase = time.perf_counter()
+    steps: dict = {}
+
+    def step(name):
+        steps[name] = time.perf_counter() - t_phase
+
+    counts0 = launch_counts()
+    try:
+        # the replicas and the fresh trees while the router starts
+        t0 = time.perf_counter()
+        start(0)
+        start(1)
+        fig["replicas_start_s"] = time.perf_counter() - t0
+        for u in urls:
+            h = _get_json(u + "/healthz")
+            if device == "cuda" and (h["device"]["platform"] != "gpu"
+                                     or h["device_name"] != __import__(
+                                         "torch").cuda.get_device_name(0)):
+                raise AssertionError(f"fleet: replica {u} /healthz device "
+                                     f"{h['device']} {h['device_name']}")
+        fresh = server_checkouts(np.random.default_rng(SEED + 19), names,
+                                 n_distinct=n_fresh, n_repeat=0, text=text)
+        roots = []
+        for i, (files, _secrets) in enumerate(fresh):
+            roots.append(os.path.join(tmp, f"fleet-client{i}"))
+            _write_tree(roots[-1], files)
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"router exited {proc.returncode}:\n"
+                                     + open(log_path).read()[-4000:])
+            try:
+                health = router_health()
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.05)
+            if time.perf_counter() - spawned["t_spawn"] > 120:
+                raise AssertionError("router not ready after 120 s")
+        fig["router_ready_s"] = time.perf_counter() - spawned["t_spawn"]
+        step("ready")
+        if sorted(health["ring"]["replicas"]) != sorted(urls) \
+                or health["lost"]:
+            raise AssertionError(f"fleet: router /healthz {health}")
+
+        # 1. fresh artifacts analyzed here, pushed through the router
+        cache = RemoteCache(router, token=SERVER_TOKEN)
+        group = AnalyzerGroup(disabled=INDIVIDUAL_PKG_ANALYZERS + ("sbom",))
+        secrets = SecretScanner(device=device)
+        s0 = launch_counts()["shiftor"]
+        t0 = time.perf_counter()
+        fresh_refs = [FilesystemArtifact(root, cache, group=group,
+                                         scanners=("vuln", "secret"),
+                                         secret_scanner=secrets).inspect()
+                      for root in roots]
+        analyze_s = time.perf_counter() - t0
+        routed = RemoteScanner(router, token=SERVER_TOKEN, timeout=300)
+        direct = RemoteScanner(urls[0], token=SERVER_TOKEN, timeout=300)
+        for ref, (_files, planted) in zip(fresh_refs, fresh):
+            res, os_info = routed.scan(ref.name, ref.id, ref.blob_ids, opts)
+            want, want_os = direct.scan(ref.name, ref.id, ref.blob_ids,
+                                        opts)
+            found = {(r.target, f.rule_id) for r in res for f in r.secrets}
+            if (_canon(res), _os_key(os_info)) != (_canon(want),
+                                                   _os_key(want_os)) \
+                    or found != planted:
+                raise AssertionError(f"fleet: fresh {ref.name} routed "
+                                     f"report differs, secrets {found}")
+        fig["fresh"] = {"artifacts": len(fresh_refs), "analyze_s": analyze_s,
+                        "shiftor_launches": launch_counts()["shiftor"] - s0}
+        step("fresh")
+
+        # 2. a round through the router, and one straight at replica 1
+        order = list(range(len(refs)))
+        r0 = [requests(0), requests(1)]
+        fig["c16"] = _fleet_round(router, refs, serial, opts, order)
+        fig["c16"]["requests_by_replica"] = [requests(0) - r0[0],
+                                             requests(1) - r0[1]]
+        if fig["c16"]["failed"] or min(fig["c16"]["requests_by_replica"]) \
+                <= 0:
+            raise AssertionError(f"fleet: routed round {fig['c16']}")
+        fig["c16_direct"] = _fleet_round(urls[0], refs, serial, opts, order)
+        step("rounds")
+
+        # 3. replica 2 shut down while the round's first half is in
+        # flight; the second half holds its keys
+        ring = HashRing(urls, vnodes=FLEET_VNODES)
+        owned = [i for i in order if ring.node_for(refs[i].id) == urls[1]]
+        if not owned:
+            raise AssertionError("fleet: the ring gave replica 2 nothing")
+        order2 = [i for i in order if i not in owned] + owned
+        fo0 = _sample(router, "trivy_tpu_fleet_failovers_total")
+
+        def kill():
+            time.sleep(0.05)
+            httpd, _state = replicas[1]
+            httpd.shutdown()
+            httpd.server_close()
+        kill_round = _fleet_round(router, refs, serial, opts, order2,
+                                  between=kill, half=len(order2) // 2)
+        _httpd, state2 = replicas.pop(1)
+        state2.drain(120.0)
+        state2.close()
+        lost = router_health()["lost"]
+        failovers = _sample(router, "trivy_tpu_fleet_failovers_total") - fo0
+        if kill_round["failed"] or failovers <= 0 or lost != [urls[1]]:
+            raise AssertionError(f"fleet: kill round {kill_round}, "
+                                 f"failovers {failovers}, lost {lost}")
+        t0 = time.perf_counter()
+        start(1)
+        while True:
+            h = router_health()
+            if not h["lost"]:
+                break
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"fleet: replica 2 not readmitted {h}")
+            time.sleep(0.01)
+        fig["kill"] = {**kill_round, "owned_by_victim": len(owned),
+                       "failovers": failovers,
+                       "readmit_s": time.perf_counter() - t0,
+                       "readmissions": h["readmissions"]}
+        if h["readmissions"] < 1:
+            raise AssertionError(f"fleet: readmissions {h}")
+        step("kill")
+
+        # 4. the client's failover list, a dead port first
+        dead = f"http://127.0.0.1:{_free_port()}"
+        client = RemoteScanner(f"{dead},{router}", token=SERVER_TOKEN,
+                               timeout=300)
+        res, os_info = client.scan(refs[0].name, refs[0].id,
+                                   refs[0].blob_ids, opts)
+        fig["failover_client"] = {
+            "equal": (_canon(res), _os_key(os_info)) == serial[0],
+            "promoted": client.base_url == router}
+        if not all(fig["failover_client"].values()):
+            raise AssertionError(f"fleet: {fig['failover_client']}")
+
+        # 5. the router's observability
+        with urllib.request.urlopen(router + "/metrics", timeout=60) as r:
+            fams = parse_exposition(r.read().decode())
+        states = {lab.get("replica") for _n, lab, _v in
+                  fams["trivy_tpu_fleet_replica_state"]["samples"]}
+        lat = fams["trivy_tpu_fleet_router_latency_seconds"]
+        skew = fams.get("trivy_tpu_fleet_db_version_skew_total",
+                        {"samples": []})["samples"]
+        versions = set(router_health()["db_versions"].values())
+        if states != set(urls) or lat["type"] != "histogram" \
+                or fams["trivy_tpu_fleet_failovers_total"]["type"] \
+                != "counter" or skew \
+                or versions != {table.content_digest()}:
+            raise AssertionError(f"fleet: /metrics replica states {states}, "
+                                 f"skew {skew}, versions {versions}")
+        step("metrics")
+        with new_trace() as tid:
+            routed.scan(refs[1].name, refs[1].id, refs[1].blob_ids, opts)
+        chain = _trace_chain(collect_trace(router, tid, token=SERVER_TOKEN),
+                             tid)
+        if chain != ["client.scan", "router.rpc", "router.forward",
+                     "server.rpc"]:
+            raise AssertionError(f"fleet: assembled trace {chain}")
+        forward_ms = [s["dur_ms"] for s in _debug(router, "traces")["spans"]
+                      if s["name"] == "router.forward"]
+        step("trace")
+        prof = _debug(router, "profile?ms=50")
+        if prof["device"] != "cpu" or prof["events"]:
+            raise AssertionError(f"fleet: router profile {prof}")
+        # this process holds the card's device files; the router none
+        nv_self, nv_router = _nvidia_files("self"), _nvidia_files(proc.pid)
+        if nv_router or (device == "cuda" and not nv_self):
+            raise AssertionError(f"fleet: NVIDIA files open in the router "
+                                 f"{nv_router}, here {nv_self}")
+        fig["obs"] = {"families": sorted(n for n in fams
+                                         if n.startswith("trivy_tpu_fleet")),
+                      "router_latency_count": sum(
+                          v for n, _l, v in lat["samples"]
+                          if n.endswith("_count")),
+                      "trace_chain": chain,
+                      "forward_ms_p50": _pct(forward_ms, 50),
+                      "forward_ms_p99": _pct(forward_ms, 99),
+                      "nvidia_files": {"router": nv_router,
+                                       "this_process": nv_self}}
+        step("obs")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        step("drain")
+    finally:
+        stop_router(spawned)
+        for i in list(replicas):
+            stop(i)
+    err = open(log_path).read()
+    if rc != 0 or "router drain: admission stopped" not in err:
+        raise AssertionError(f"router exited {rc}:\n{err[-4000:]}")
+    problems = check_file(trace_path)
+    with open(trace_path) as f:
+        names_in_dump = {e["name"] for e in json.load(f)["traceEvents"]}
+    if problems or not {"router.forward", "server.rpc"} <= names_in_dump:
+        raise AssertionError(f"fleet: trace dump {problems}")
+    fig["launches"] = {k: v - counts0[k] for k, v in launch_counts().items()}
+    fig["steps_s"] = steps
+    fig["records"] = [{k: np.asarray(v) for k, v in e.items()}
+                      for e in record.entries]
+    fig["fresh_roots"] = roots
+    return fig
+
+
+def run_fleet_at_size(torch, tmp: str, table, names: dict, clients: tuple,
+                      router: dict | None = None) -> tuple:
+    """The fleet phase on the card (behind `router`, from spawn_router),
+    then the largest merged dispatch the replicas recorded against the
+    plain join on both routes (its kernels timed) and the fresh
+    artifacts' secret rows through shift-or → (launch counts, the
+    kernels on its inputs)."""
+    from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
+                                                 AnalyzerGroup)
+    from trivy_tpu_torch.fanal.walker import walk_fs
+    t0 = time.perf_counter()
+    fig = fleet_phase(tmp, table, names, clients, router=router)
+    counts = fig.pop("launches")
+    if counts["shiftor"] != fig["fresh"]["artifacts"] \
+            or counts["shiftor"] != fig["fresh"]["shiftor_launches"] \
+            or not counts["csr_join"] + counts["csr_join_compact"]:
+        raise AssertionError(f"fleet: launches {counts}")
+    records = fig.pop("records")
+    if not records:
+        raise AssertionError("fleet: the replicas recorded no dispatch")
+    e = max(records, key=lambda x: int(x["launch_total"]))
+    m = merged_case(torch, table, e, "fleet_merged")
+    at = {"csr_join_compact" if m["h_cap"] else "csr_join": m}
+    other = "csr_join" if m["h_cap"] else "csr_join_compact"
+    # the other join route on the same dispatch: dense at h_cap 0, or
+    # compacted at the smallest hit buffer
+    at[other] = {"forced": True, **merged_case(
+        torch, table, dict(e, h_cap=np.int64(0 if m["h_cap"] else 128)),
+        "fleet_merged_" + other)}
+    files = []
+    for root in fig.pop("fresh_roots"):
+        files += walk_fs(root, AnalyzerGroup(
+            disabled=INDIVIDUAL_PKG_ANALYZERS + ("sbom",)),
+            collect_secrets=True).secret_files
+    padded, bank, rows = secret_rows(files)
+    at["shiftor"] = shiftor_case(torch, bank, padded, "fleet_fresh")
+    phase("fleet", **fig, merged_recorded=len(records),
+          fresh_secret_rows=rows, launches=counts,
+          wall_s=time.perf_counter() - t0)
+    return counts, at
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
     """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`,
-    `server`, `memo`, `vm`, `caches`, `stream` and `mesh` phases over
-    one apps table,
+    `server`, `memo`, `vm`, `caches`, `stream`, `mesh` and `fleet`
+    phases over one apps table,
     saved as .npz (written as a trivy.db for `ci`) → ({path: launch
     counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.db.table import FlattenMemo, build_table
@@ -6771,21 +7230,30 @@ def run_language_phases(torch, tmp: str) -> tuple:
     caches_launches, at_caches = run_caches_at_size(
         torch, tmp, table, db, names, apps_image, apps_report, apps_batches,
         apps_rows)
-    stream_launches, at_stream, stream_state = run_stream_at_size(
-        torch, table, apps_batches + scan_batches(table, detail), clients)
-    mesh_launches, at_mesh = run_mesh_at_size(torch, stream_state, clients,
-                                              secrets)
+    # the fleet's router starts while the stream and mesh phases run
+    router = spawn_router(tmp)
+    try:
+        stream_launches, at_stream, stream_state = run_stream_at_size(
+            torch, table, apps_batches + scan_batches(table, detail),
+            clients)
+        mesh_launches, at_mesh = run_mesh_at_size(torch, stream_state,
+                                                  clients, secrets)
+        fleet_launches, at_fleet = run_fleet_at_size(
+            torch, tmp, table, names, clients, router)
+    finally:
+        stop_router(router)
     return ({"fs": fs_launches, "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
              "image_remote": remote_launches, **misconf_launches,
              "server": server_launches, "memo": memo_launches,
              "vm": vm_launches, "caches": caches_launches,
-             "stream": stream_launches, "mesh": mesh_launches},
+             "stream": stream_launches, "mesh": mesh_launches,
+             "fleet": fleet_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
              "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf,
              "at_server": at_server, "at_memo": at_memo, "at_vm": at_vm,
              "at_caches": at_caches, "at_stream": at_stream,
-             "at_mesh": at_mesh})
+             "at_mesh": at_mesh, "at_fleet": at_fleet})
 
 
 def main() -> int:

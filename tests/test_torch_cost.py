@@ -18,7 +18,9 @@ Not run, with what they need:
     test_dedup_apportionment_parks_detectd_without_failpoints below
     holds the same property, with a slowed launch.
   * TestStormConservationDrill::test_fleet_kill_c8_three_tenants_
-    conserves — graftstorm and the fleet (ROADMAP A12).
+    conserves — graftstorm (`resilience/storm.py`, ROADMAP A20) and the
+    GUARD and FAILPOINTS it resets; the fleet it drives is ported
+    (tests/test_torch_fleet.py).
 
 Beside them: conservation holds after concurrent scans of several
 tenants through the live server.

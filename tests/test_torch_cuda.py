@@ -602,3 +602,55 @@ def test_sharded_shiftor_on_cuda_equals_single_launch(cuda):
                                    kw_bits=packed[2])
         assert so.shiftor_cuda.launches - before == cells
         np.testing.assert_array_equal(got, single.cpu().numpy())
+
+
+def test_fleet_on_cuda_equals_cpu_fleet(cuda, tmp_path):
+    """Two replicas on the card behind the router (fleet/router.py): a
+    scan pushed and run through it launches the join on the card and
+    equals the same scan through a fleet of `--device cpu` replicas."""
+    import glob
+    import os
+
+    from helpers import ALPINE_OS_RELEASE, APK_INSTALLED, make_image
+    from trivy_tpu_torch.db import build_table
+    from trivy_tpu_torch.db.fixtures import load_fixture_files
+    from trivy_tpu_torch.fanal.artifact import ImageArchiveArtifact
+    from trivy_tpu_torch.fleet import serve_router_background
+    from trivy_tpu_torch.server.client import RemoteCache, RemoteScanner
+    from trivy_tpu_torch.server.listen import serve_background
+    db = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "fixtures", "db", "*.yaml")
+    advisories, details, _ = load_fixture_files(sorted(glob.glob(db)))
+    table = build_table(advisories, details)
+    image = str(tmp_path / "img.tar")
+    make_image(image, [{"etc/os-release": ALPINE_OS_RELEASE,
+                        "lib/apk/db/installed": APK_INSTALLED}])
+    reports = []
+    for device in ("cuda", "cpu"):
+        servers = [serve_background("127.0.0.1", 0, table,
+                                    str(tmp_path / device), device=device)
+                   for _ in range(2)]
+        router, state = serve_router_background(
+            "127.0.0.1", 0, [f"http://127.0.0.1:{h.server_address[1]}"
+                             for h, _s in servers])
+        base = f"http://127.0.0.1:{router.server_address[1]}"
+        try:
+            before = J.csr_join_cuda.launches \
+                + J.csr_join_compact_cuda.launches
+            ref = ImageArchiveArtifact(image, RemoteCache(base)).inspect()
+            results, os_info = RemoteScanner(base).scan(ref.name, ref.id,
+                                                        ref.blob_ids)
+            launched = J.csr_join_cuda.launches \
+                + J.csr_join_compact_cuda.launches - before
+            assert (launched > 0) == (device == "cuda")
+            reports.append(([r.to_json() for r in results], os_info))
+        finally:
+            router.shutdown()
+            router.server_close()
+            state.close()
+            for httpd, st in servers:
+                httpd.shutdown()
+                httpd.server_close()
+                st.close()
+    assert reports[0] == reports[1]
+    assert "CVE-2023-0286" in str(reports[0][0])

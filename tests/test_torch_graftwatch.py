@@ -13,10 +13,12 @@ the ones below.
     span ids and clocks are the process's own), their servers on the
     CPU.
 
-Not run, with the item that brings what they need:
-  * TestIncidentDrill::test_routed_hang_drill_end_to_end — the fleet
-    router and its replicas (ROADMAP A12), and the failpoints and the
-    breaker that drive it (not ported by the north star).
+Not run, with what it needs:
+  * TestIncidentDrill::test_routed_hang_drill_end_to_end — a
+    `detect.dispatch` hang failpoint and the device breaker (GUARD)
+    with its host join, which the port does not have (not ported by
+    the north star). The fleet router it runs behind is ported
+    (tests/test_torch_fleet.py).
 
 The two /debug/traces cases of TestDebugEndpoints wait, before each
 read of the page, until the server has no request in flight: the

@@ -53,7 +53,8 @@ need = ["trivy_tpu_torch." + m for m in (
     "server.client", "cloud", "cloud.sigv4", "cloud.aws", "fanal.vm",
     "fanal.gitrepo", "fanal.redis_cache", "fanal.s3_cache", "rekor",
     "fanal.analyzers.executable", "parallel", "parallel.stream",
-    "parallel.mesh", "parallel.multihost")]
+    "parallel.mesh", "parallel.multihost", "fleet.ring", "fleet.router",
+    "fleet.supervisor", "resilience.breaker")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """

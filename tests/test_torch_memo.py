@@ -12,17 +12,17 @@ after a DB swap (detect/redetect.py) and the delta flatten
   * Against the port alone: TestMemoStore's two fs cases (the two
     packages' stores would share one directory, so the second writer
     sees the first one's entry), TestScanPathMemo and TestRedetectd on a
-    live server on the CPU. Their `trivy_tpu.resilience.storm` imports
-    (`_post`, `canonical_digest`; graftstorm is ROADMAP A12) are the
+    live server on the CPU, and TestFleetDedupDrill: four CPU replicas
+    sharing one memo behind the port's router (fleet/router.py),
+    across a rolling DB swap. Their `trivy_tpu.resilience.storm` imports
+    (`_post`, `canonical_digest`; graftstorm is ROADMAP A20) are the
     copies below.
 
 Not run, with what they need:
   * TestRedetectd::test_sweep_faults_never_charge_the_backend_breaker
     and ::test_blameless_never_consumes_the_halfopen_probe — the
-    breaker, which the port does not have (ROADMAP A, not ported by the
-    north star);
-  * TestFleetDedupDrill::test_acceptance_drill — the fleet router
-    (ROADMAP A12).
+    device breaker, which the port does not have (ROADMAP A, not ported
+    by the north star).
 
 The four cases that arm the `memo.get`/`memo.put` failpoints (not
 ported) have counterparts here that inject a memo object whose backend
@@ -126,19 +126,23 @@ _TWIN = ("TestMemoStore::test_open_memo_spellings",
          "TestMemoStore::test_query_digest_orders_and_scopes",
          "TestDeltaFlatten::")
 _PORT_ALONE = ("TestMemoStore::test_fs_", "TestScanPathMemo::",
-               "TestRedetectd::")
+               "TestRedetectd::", "TestFleetDedupDrill::")
 _OWN = ("TestMemoStore::test_backend_fault_degrades_never_raises",
         "TestScanPathMemo::test_memo_faults_fall_back_to_live_detect",
         "TestRedetectd::test_drain_cancels_sweep_cleanly_no_leaked_threads",
         "TestRedetectd::test_newer_swap_preempts_running_sweep")
 _NOT_RUN = (
     "TestRedetectd::test_sweep_faults_never_charge_the_backend_breaker",
-    "TestRedetectd::test_blameless_never_consumes_the_halfopen_probe",
-    "TestFleetDedupDrill::")
+    "TestRedetectd::test_blameless_never_consumes_the_halfopen_probe")
 _PORT_ENV = {"LocalScanner": functools.partial(LocalScanner, device="cpu"),
              "_post": _post, "canonical_digest": canonical_digest}
 _PORT_SUBS = [("memo_backend=memo, **kw)",
-               "memo_backend=memo, device=\"cpu\", **kw)")]
+               "memo_backend=memo, device=\"cpu\", **kw)"),
+              ("cache_backend=shared_cache, memo_backend=shared_memo)",
+               "cache_backend=shared_cache, memo_backend=shared_memo, "
+               "device=\"cpu\")"),
+              ("cache_backend=\"memory\")",
+               "cache_backend=\"memory\", device=\"cpu\")")]
 
 # the JAX file's builders (tables, blob documents) on each package
 PORT_MEMO = load_mirror("test_memo.py", PORT, _subs(PORT, _PORT_SUBS),
@@ -155,7 +159,7 @@ def test_every_reference_case_is_accounted_for():
         - groups[1] - groups[2]
     assert sum(map(len, groups)) + len(alone) == len(ids) == 22
     assert set().union(alone, *groups) == ids
-    assert len(groups[1]) == 4 and len(groups[2]) == 3
+    assert len(groups[1]) == 4 and len(groups[2]) == 2
 
 
 @pytest.mark.parametrize("cls,fn,given", twin_cases(

@@ -6,16 +6,13 @@ the one below.
   * TestDispatchLedger and TestPerfcheck go through test_torch_mirror's
     twins: each value equals the reference's at tolerance 0; but the
     memory-view case, whose `isinstance(..., dict)` a twin cannot pass.
-  * That case, TestEngineIntegration, TestProfiler and TestDebugSurfaces
-    run
-    against the port alone, on the CPU: the detector with
-    `device="cpu"`, and each Profiler the tests build with
+  * That case, TestEngineIntegration, TestProfiler, TestDebugSurfaces
+    and TestAcceptanceDrill run against the port alone, on the CPU: the
+    detector with `device="cpu"`, and each Profiler the tests build with
     `device="cpu"` (a CPU capture records the CPU activity only; the
-    port's profiler defaults to the card).
-
-Not run, with the item that brings what it needs:
-  * TestAcceptanceDrill::test_routed_load_ledger_reconciles_and_live_
-    profile — the fleet router and its replicas (ROADMAP A12).
+    port's profiler defaults to the card). The drill's fleet is the
+    port's router (fleet/router.py) in front of two CPU replicas
+    sharing one FakeRedis cache (`drill_fleet` below).
 
 Beside them: the per-shape ledger rows of the same batches equal the
 reference's shape-table keys, a capture "on the card" that saw no CUDA
@@ -37,7 +34,6 @@ FIXGLOB = os.path.join(REPO, "tests", "fixtures", "db", "*.yaml")
 
 _TWIN = ("TestDispatchLedger::", "TestPerfcheck::")
 _PORT_ONLY = "TestDispatchLedger::test_resident_and_memory_status"
-_NOT_RUN = ("TestAcceptanceDrill::",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,6 +72,42 @@ def perf_server(tmp_path_factory):
     state.close()
 
 
+@pytest.fixture(scope="class")
+def drill_fleet(tmp_path_factory):
+    """tests/test_perf.py's drill fleet on the port: two CPU replicas
+    sharing one FakeRedis cache behind the router."""
+    from helpers import FakeRedis
+    from trivy_tpu_torch.fleet.router import serve_router_background
+    from trivy_tpu_torch.obs import RECORDER
+    from trivy_tpu_torch.server.listen import serve_background
+    table = _fixture_table()
+    redis = FakeRedis()
+    backend = f"redis://127.0.0.1:{redis.port}"
+    incident_dir = str(tmp_path_factory.mktemp("drill-incidents"))
+    RECORDER.configure(incident_dir=incident_dir, incident_cooldown_s=0.0)
+    replicas = []
+    for _ in range(2):
+        httpd, state = serve_background(
+            "127.0.0.1", 0, table,
+            cache_dir=str(tmp_path_factory.mktemp("cache")),
+            cache_backend=backend, device="cpu")
+        replicas.append([f"http://127.0.0.1:{httpd.server_address[1]}",
+                         httpd, state])
+    rhttpd, rstate = serve_router_background(
+        "127.0.0.1", 0, [u for u, _, _ in replicas])
+    yield {"router": f"http://127.0.0.1:{rhttpd.server_address[1]}",
+           "replicas": replicas, "incident_dir": incident_dir}
+    RECORDER.configure(incident_cooldown_s=30.0)
+    rhttpd.shutdown()
+    rhttpd.server_close()
+    rstate.close()
+    for _, httpd, state in replicas:
+        httpd.shutdown()
+        httpd.server_close()
+        state.close()
+    redis.close()
+
+
 _NO_GUARD = "from {}.resilience import FAILPOINTS, GUARD\n"
 
 
@@ -89,7 +121,7 @@ def test_perf_case_like_reference(cls, fn, given, request):
 
 @pytest.mark.parametrize("cls,fn,given", port_cases(
     "test_perf.py",
-    keep=lambda c: c == _PORT_ONLY or not c.startswith(_TWIN + _NOT_RUN),
+    keep=lambda c: c == _PORT_ONLY or not c.startswith(_TWIN),
     subs=[(_NO_GUARD.format("trivy_tpu_torch"), ""),
           ("p.configure(cooldown_s=cooldown)",
            "p.configure(cooldown_s=cooldown, device=\"cpu\")"),

@@ -30,7 +30,7 @@ Not mirrored here: the cases of tests/test_sbom.py for the parse
 breaker and watchdog, the failpoints, the server route and the storm
 lane. The breaker, watchdog and failpoints are not ported by design
 (ROADMAP, "Not ported"), the SBOMArtifact of the port has no metrics,
-the storm lane comes with A12, and tests/test_torch_server.py holds the
+the storm lane comes with graftstorm (ROADMAP A20), and tests/test_torch_server.py holds the
 server's ScanSBOM route both ways."""
 
 import json

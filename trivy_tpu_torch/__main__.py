@@ -109,6 +109,14 @@ the card but streams through a double-buffered pair of resident slices
 server's device type, one kernel launch per cell (parallel/mesh.py).
 The JAX server's meshguard, breaker and failpoint flags are refused
 with their reason (SERVER_REFUSED).
+
+`router` (fleet/router.py) runs the scan router in front of N `server`
+replicas (`--replica URL`, repeatable): a consistent-hash ring over the
+artifacts, one fault domain per replica with /healthz readmission, and
+the router's /healthz, /version, /metrics and token-gated /debug pages;
+`--trace FILE` writes the fleet's assembled trace at shutdown. It loads
+no table and takes no `--device`; its replicas run on the card unless
+given `--device cpu`. Its `--failpoint` is refused as the server's is.
 """
 
 from __future__ import annotations
@@ -670,6 +678,9 @@ _MESHGUARD = ("the port has no meshguard: a mesh keeps every device it "
 _GUARD = ("the port has no breaker, watchdog or failpoints: a failed "
           "launch or fetch fails the requests it carried (ROADMAP A, "
           "not ported by the north star)")
+_NO_FAILPOINTS = ("the port has no failpoints, and the router no "
+                  "rpc.route site (ROADMAP A, not ported by the north "
+                  "star)")
 # the JAX server's flags that the port refuses, and why
 SERVER_REFUSED = {
     "mesh_min_devices": _MESHGUARD, "mesh_rebuild_cooldown_ms": _MESHGUARD,
@@ -773,6 +784,42 @@ def cmd_server(args) -> int:
     return 0
 
 
+def cmd_router(args) -> int:
+    """The scan router (reference cli.py:1249): consistent-hashes
+    artifacts across the `server` replicas, with a fault domain each.
+    Clients point at it as at one server. It loads no table and never
+    touches the card."""
+    from .fleet import ReplicaOptions, RouterOptions, serve_router
+    from .resilience import RetryPolicy
+    if args.failpoint is not None:
+        raise SystemExit(f"router: --failpoint: {_NO_FAILPOINTS}")
+    if not args.replicas:
+        raise SystemExit("router needs at least one --replica URL")
+    # the router never uses a card: hide them from this process, so that
+    # nothing here (torch.profiler's CUPTI start-up in a /debug/profile
+    # capture initializes CUDA even for host activity) can open a card
+    # or hold card memory
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    _configure_watch(args)
+    opts = RouterOptions(
+        vnodes=args.ring_vnodes,
+        replica_timeout_s=args.replica_timeout_ms / 1e3,
+        token=args.token,
+        retry=RetryPolicy(attempts=max(1, args.route_retries),
+                          base_delay_s=0.05, max_delay_s=1.0,
+                          budget_s=10.0),
+        replica=ReplicaOptions(
+            fail_threshold=args.replica_fail_threshold,
+            reset_timeout_ms=args.replica_reset_ms,
+            probe_interval_ms=args.replica_probe_interval_ms,
+            probe_timeout_ms=args.replica_probe_timeout_ms))
+    host, _, port = args.listen.rpartition(":")
+    serve_router(host or "0.0.0.0", int(port), args.replicas, opts,
+                 trace_path=args.trace,
+                 drain_grace_s=args.drain_grace_ms / 1e3)
+    return 0
+
+
 def _configure_watch(args) -> None:
     """The flight recorder, SLO and profiler flags onto the process
     singletons (reference cli.py:190-201)."""
@@ -782,6 +829,80 @@ def _configure_watch(args) -> None:
     SLO.configure(latency_threshold_ms=args.slo_latency_ms)
     PROF.configure(cooldown_s=args.profile_cooldown_s,
                    auto_burn_threshold=args.profile_auto_burn)
+
+
+def _watch_flags(p: argparse.ArgumentParser) -> None:
+    """The flight recorder, SLO and profiler flags of the server and the
+    router (reference cli.py:163-187)."""
+    p.add_argument("--incident-dir", default="",
+                   help="flight-recorder incident snapshots and live "
+                        "profiles land here (default: "
+                        "$TRIVY_TPU_INCIDENT_DIR or "
+                        "<tmp>/trivy-tpu-incidents), listed at "
+                        "/debug/incidents")
+    p.add_argument("--slow-trace-ms", type=float, default=1000.0,
+                   help="the flight recorder pins traces whose root span "
+                        "takes longer, so slow requests survive ring "
+                        "churn (default 1000)")
+    p.add_argument("--slo-latency-ms", type=float, default=2000.0,
+                   help="the scan-latency threshold of the p99 objective "
+                        "(default 2000)")
+    p.add_argument("--profile-auto-burn", type=float, default=0.0,
+                   help="short-window SLO burn rate at or above which one "
+                        "live profile is captured into the incident dir "
+                        "(cooldown-limited; 0 disables, the default)")
+    p.add_argument("--profile-cooldown-s", type=float, default=30.0,
+                   help="least time between live profile captures "
+                        "(/debug/profile and the SLO trigger share it; "
+                        "default 30)")
+
+
+def _router_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX router's flags (trivy_tpu/cli.py:446-490); its
+    --failpoint is refused."""
+    p.add_argument("--listen", default="0.0.0.0:4953")
+    p.add_argument("--replica", action="append", default=[],
+                   metavar="URL", dest="replicas",
+                   help="server replica base URL (repeatable; at least "
+                        "one)")
+    p.add_argument("--ring-vnodes", type=int, default=64,
+                   help="virtual nodes per replica on the consistent-"
+                        "hash ring (more: a smoother balance; default "
+                        "64)")
+    p.add_argument("--replica-timeout-ms", type=float, default=60000.0,
+                   help="per-forward socket bound (further bounded by "
+                        "the client's X-Trivy-Deadline-Ms)")
+    p.add_argument("--replica-fail-threshold", type=int, default=3,
+                   help="routed-RPC failures that open one replica's "
+                        "fault domain (default 3)")
+    p.add_argument("--replica-reset-ms", type=float, default=2000.0,
+                   help="how long a domain stays open before a /healthz "
+                        "probe may readmit the replica (default 2000)")
+    p.add_argument("--replica-probe-interval-ms", type=float,
+                   default=200.0,
+                   help="readmission loop cadence (default 200)")
+    p.add_argument("--replica-probe-timeout-ms", type=float,
+                   default=2000.0,
+                   help="/healthz probe bound (default 2000)")
+    p.add_argument("--route-retries", type=int, default=3,
+                   help="ring walks when every replica sheds or fails "
+                        "(default 3)")
+    p.add_argument("--trace", default="", metavar="FILE",
+                   help="at shutdown, pull every replica's "
+                        "/debug/traces fragment and write ONE assembled "
+                        "Chrome trace of the fleet to FILE")
+    p.add_argument("--token", default="",
+                   help="Trivy-Token gating the router's /debug pages "
+                        "(the scan routes relay the client's token for "
+                        "the replicas to check)")
+    p.add_argument("--drain-grace-ms", type=float, default=10000.0,
+                   help="SIGTERM/SIGINT: stop admitting (503 + "
+                        "Retry-After), let the forwards in flight finish "
+                        "for up to this long, then close (default "
+                        "10000)")
+    _watch_flags(p)
+    p.add_argument("--failpoint", action="append", default=None,
+                   help="refused: " + _NO_FAILPOINTS)
 
 
 def _server_flags(p: argparse.ArgumentParser) -> None:
@@ -865,27 +986,7 @@ def _server_flags(p: argparse.ArgumentParser) -> None:
                    help="record every span for the server's lifetime and "
                         "write the Chrome trace-event JSON to FILE at "
                         "shutdown")
-    p.add_argument("--incident-dir", default="",
-                   help="flight-recorder incident snapshots and live "
-                        "profiles land here (default: "
-                        "$TRIVY_TPU_INCIDENT_DIR or "
-                        "<tmp>/trivy-tpu-incidents), listed at "
-                        "/debug/incidents")
-    p.add_argument("--slow-trace-ms", type=float, default=1000.0,
-                   help="the flight recorder pins traces whose root span "
-                        "takes longer, so slow requests survive ring "
-                        "churn (default 1000)")
-    p.add_argument("--slo-latency-ms", type=float, default=2000.0,
-                   help="the scan-latency threshold of the p99 objective "
-                        "(default 2000)")
-    p.add_argument("--profile-auto-burn", type=float, default=0.0,
-                   help="short-window SLO burn rate at or above which one "
-                        "live profile is captured into the incident dir "
-                        "(cooldown-limited; 0 disables, the default)")
-    p.add_argument("--profile-cooldown-s", type=float, default=30.0,
-                   help="least time between live profile captures "
-                        "(/debug/profile and the SLO trigger share it; "
-                        "default 30)")
+    _watch_flags(p)
     p.add_argument("--ingest-tenant-walker-share", type=float, default=1.0,
                    help="largest share of the walker pool one tenant may "
                         "hold (1.0 = off)")
@@ -1167,6 +1268,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("server", help="run the scan server")
     _server_flags(p)
     p.set_defaults(func=cmd_server)
+    p = sub.add_parser("router", help="run the scan router in front of N "
+                                      "server replicas")
+    _router_flags(p)
+    p.set_defaults(func=cmd_router)
     sub.add_parser("version", help="print version").set_defaults(
         func=cmd_version)
     for sp in sub.choices.values():

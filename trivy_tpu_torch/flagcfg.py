@@ -80,6 +80,15 @@ CONFIG_PATHS = {
     "table_stream_slices": "mesh.table-stream-slices",
     "memo_backend": "memo.backend",
     "redetect_concurrency": "memo.redetect-concurrency",
+    # the router's (fleet.*)
+    "replicas": "fleet.replicas",
+    "ring_vnodes": "fleet.ring-vnodes",
+    "replica_timeout_ms": "fleet.replica-timeout-ms",
+    "replica_fail_threshold": "fleet.replica-fail-threshold",
+    "replica_reset_ms": "fleet.replica-reset-ms",
+    "replica_probe_interval_ms": "fleet.replica-probe-interval-ms",
+    "replica_probe_timeout_ms": "fleet.replica-probe-timeout-ms",
+    "route_retries": "fleet.route-retries",
 }
 
 # dests bound to the command line only

@@ -19,8 +19,8 @@ The metric catalog — every series name, type, and help string — lives
 at the bottom of this module. It is the JAX package's catalog, name
 for name, type for type, help text and bucket edges included, so a
 dashboard built for one package reads the other. A few series are fed
-only by modules the port does not have yet and stay at 0 (listed in
-UNFED below, each with the ROADMAP item that brings its feeder).
+only by modules the port does not have and stay at 0 (listed in UNFED
+below, each with the reason).
 Label values that name a route are the port's own: the secrets
 prefilter's `path` is "cuda" (the shift-or kernel), "torch" (its
 plain torch version, on the CPU) or "host" (small batches).
@@ -615,13 +615,13 @@ METRICS.declare(
 
 # ---------------------------------------------------------------------------
 # series declared for the dashboards' sake but fed only by modules the
-# port does not have (yet): each stays at 0 until its ROADMAP item
-# lands. The breaker, watchdog, host join and meshguard are not ported
-# by design (there is no fallback from the card), so theirs stay 0 for
-# good: the mesh series are meshguard's (the reference feeds them from
-# resilience/meshguard.py alone), not the mesh's. trivy_tpu_device_
-# serving_ratio is fed (SLOEngine) and reads 1.0 for the same reason:
-# every join is served by the card.
+# port does not have. The device breaker, watchdog, host join and
+# meshguard are not ported by design (there is no fallback from the
+# card), so theirs stay 0 for good: the mesh series are meshguard's (the
+# reference feeds them from resilience/meshguard.py alone), not the
+# mesh's. trivy_tpu_device_serving_ratio is fed (SLOEngine) and reads
+# 1.0 for the same reason: every join is served by the card. The fleet
+# series are fed by the router and its replica breakers (fleet/).
 _NO_FALLBACK = "not ported: no breaker, watchdog or host join"
 _NO_MESHGUARD = "not ported: no meshguard"
 UNFED = {
@@ -633,8 +633,4 @@ UNFED = {
     "trivy_tpu_mesh_rebuilds_total": _NO_MESHGUARD,
     "trivy_tpu_mesh_device_lost_total": _NO_MESHGUARD,
     "trivy_tpu_mesh_host_lost_total": _NO_MESHGUARD,
-    "trivy_tpu_fleet_replica_state": "A12",
-    "trivy_tpu_fleet_failovers_total": "A12",
-    "trivy_tpu_fleet_db_version_skew_total": "A12",
-    "trivy_tpu_fleet_router_latency_seconds": "A12",
 }

@@ -1,9 +1,10 @@
 """graftwatch trace assembly: one trace across processes.
 
-A scan served by the scan server produces span fragments in two
-places today — the client process (`client.scan`) and the server that
-served it (`server.rpc` and everything under it) — and in a third, the
-router, once the fleet is ported. Each process exposes its
+A scan served by the scan server produces span fragments in up to
+three places: the client process (`client.scan`), the fleet router
+(`router.rpc` and a `router.forward` per hop, fleet/router.py) when one
+stands in front, and the server that served it (`server.rpc` and
+everything under it). Each process exposes its
 flight-recorder buffer at `/debug/traces?trace_id=`; this module pulls
 those fragments (or takes a process's own, from
 `recorder.debug_traces_payload`) and assembles ONE Chrome/Perfetto

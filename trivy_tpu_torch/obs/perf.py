@@ -572,17 +572,19 @@ class Profiler:
         return summary
 
     def capture(self, ms: float, reason: str = "manual",
-                force: bool = False) -> dict:
+                force: bool = False, device: str | None = None) -> dict:
         """Blocking capture of `ms` milliseconds of live traffic. → the
         manifest document (schema trivy-tpu-profile/1, manifest path
         under `manifest`, the kernels seen and the card's busy ms).
-        Raises ProfilerBusy / ProfilerCooldown when not admitted, and
-        NoDeviceEvents when a capture on the card saw no kernel."""
+        `device` overrides the configured one ("cpu": host activity
+        only, as the fleet router asks). Raises ProfilerBusy /
+        ProfilerCooldown when not admitted, and NoDeviceEvents when a
+        capture on the card saw no kernel."""
         ms = min(max(float(ms), 1.0), self.MAX_MS)
         self._admit(force)
         try:
             from .recorder import RECORDER
-            device = self.device
+            device = device or self.device
             started_unix = time.time()
             slug = _SLUG_RE.sub("-", reason)[:48] or "manual"
             name = "profile-{}-{}-{}".format(
@@ -759,11 +761,13 @@ def debug_perf_payload() -> dict:
     }
 
 
-def debug_profile_payload(path: str) -> tuple[int, dict]:
+def debug_profile_payload(path: str,
+                          device: str | None = None) -> tuple[int, dict]:
     """Handle GET /debug/profile?ms=N[&reason=...]: run one blocking
-    capture against live traffic. → (http_code, json_payload); 409
-    while another capture runs, 429 + retry_after_s inside the
-    cooldown (the endpoint is already token-gated by the caller)."""
+    capture against live traffic (of `device`, the profiler's own by
+    default). → (http_code, json_payload); 409 while another capture
+    runs, 429 + retry_after_s inside the cooldown (the endpoint is
+    already token-gated by the caller)."""
     import math
     import urllib.parse
     q = urllib.parse.parse_qs(urllib.parse.urlparse(path).query)
@@ -780,7 +784,7 @@ def debug_profile_payload(path: str) -> tuple[int, dict]:
                      "msg": f"ms must be in (0, {int(Profiler.MAX_MS)}]"}
     reason = (q.get("reason") or ["manual"])[0]
     try:
-        doc = PROF.capture(ms, reason=reason)
+        doc = PROF.capture(ms, reason=reason, device=device)
     except ProfilerBusy as e:
         return 409, {"code": "already_exists", "msg": str(e)}
     except ProfilerCooldown as e:

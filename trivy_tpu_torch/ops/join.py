@@ -175,7 +175,7 @@ def csr_join_cuda(adv_lo_tok, adv_hi_tok, adv_flags, ver_tok,
     rc = lib.trivy_csr_join(
         *args, torch.cuda.current_stream(out.device).cuda_stream)
     kernels.check(rc, "csr_join")
-    csr_join_cuda.launches += 1
+    kernels.count_launch(csr_join_cuda)
     return out
 
 
@@ -202,7 +202,7 @@ def csr_join_compact_cuda(adv_lo_tok, adv_hi_tok, adv_flags, ver_tok,
         *args, hit_idx.data_ptr(), hit_bits.data_ptr(), h_cap,
         n_hits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, "csr_join_compact")
-    csr_join_compact_cuda.launches += 1
+    kernels.count_launch(csr_join_compact_cuda)
     return hit_idx, hit_bits, n_hits, out
 
 

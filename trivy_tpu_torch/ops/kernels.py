@@ -134,3 +134,14 @@ def check(rc: int, name: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if rc != 0:
         raise KernelError(f"{name} launch failed: cudaError {rc}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a wrapper's `launches`, under a lock: several servers
+    in one process (a fleet's replicas) launch from their own detectd
+    threads, and `+=` on an attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -122,7 +122,7 @@ def shiftor_cuda(kw_words, kw_masks, kw_bits, chunks, *, n_words: int,
         kw_bits.data_ptr(), bitmap.data_ptr(), cand_ptr, n_state,
         out.data_ptr(), n_words, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, "shiftor")
-    shiftor_cuda.launches += 1
+    kernels.count_launch(shiftor_cuda)
     return out
 
 

@@ -1,9 +1,14 @@
-"""The server's admission queue, the client's retry policy, and the
-blameless mark of background work.
+"""The server's admission queue, the client's retry policy, the fleet's
+circuit breaker, and the blameless mark of background work.
 
-The JAX package's breaker, watchdog, host-join fallback, failpoints and
-mesh fault domains are not ported (ROADMAP A, "Not ported"): a device
-failure raises here. Of its breaker module only `Deadline` is copied.
+The JAX package's device breaker, watchdog, host-join fallback,
+failpoints and mesh fault domains are not ported (ROADMAP A, "Not
+ported"): a device failure raises here. Of its breaker module
+`Deadline` (admission.py) and `CircuitBreaker` (breaker.py) are copied.
+The breakers are routing state: one per replica of a fleet
+(fleet/supervisor.py), so that the router walks past a lost replica to
+another port server, which serves the request on its own card. No
+breaker wraps a kernel launch, and no launch falls back.
 
 `blameless()` stands for the two things the JAX package's
 `GUARD.blameless()` does on redetectd's path (the post-swap memo sweep,

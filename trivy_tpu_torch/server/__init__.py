@@ -11,9 +11,13 @@ TOKEN_HEADER = "Trivy-Token"
 # request produces
 TRACE_HEADER = "X-Trivy-Trace-Id"
 # cross-process parentage: the forwarding span's id (the client's
-# client.scan), so the server's root span links under it and
+# client.scan, or the router's router.forward for the hop), so the server's root span links under it and
 # obs.collect stitches one tree across processes with no shared clock
 PARENT_SPAN_HEADER = "X-Trivy-Parent-Span"
+# stamped by the router (fleet/router.py) on every relayed response:
+# the replica that answered, which a failover makes other than the
+# ring's owner
+REPLICA_HEADER = "X-Trivy-Replica"
 # per-request deadline: milliseconds the client is willing to wait,
 # queue time included; the admission queue never parks a handler past it
 DEADLINE_HEADER = "X-Trivy-Deadline-Ms"

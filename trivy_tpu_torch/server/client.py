@@ -11,8 +11,13 @@ never queues it past that. Each RPC also carries the active trace id
 spans and log lines join the client's trace; `scan` and `scan_sbom`
 run under a `client.scan` / `client.scan_sbom` span, and the response's
 X-Trivy-Cost document lands in `last_cost`. Speaks the JAX package's
-wire (trivy_tpu/server/client.py), JSON-encoded; its list of failover
-URLs belongs to the fleet (ROADMAP A12) and is not ported.
+wire (trivy_tpu/server/client.py), JSON-encoded.
+
+The server URL may be a comma-separated list ("http://a,http://b"):
+several routers (fleet/router.py), or the replicas themselves in a
+fleet with no router. One pass over the list moves past an unreachable base to the
+next before any backoff, and the base that answered is remembered, so
+later calls do not knock on a dead one first.
 """
 
 from __future__ import annotations
@@ -45,14 +50,27 @@ class TwirpError(RuntimeError):
 class _Base:
     def __init__(self, base_url: str, token: str = "", timeout: float = 60,
                  retry: RetryPolicy | None = None, tenant: str = ""):
-        self.base_url = base_url.rstrip("/")
+        # the failover list: a comma-separated URL list, tried in order
+        # from the last base that answered
+        self.bases = [u.strip().rstrip("/")
+                      for u in base_url.split(",") if u.strip()]
+        if not self.bases:
+            raise ValueError("empty server url")
+        self._base_idx = 0
         self.token = token
         self.timeout = timeout
         self.retry = retry or DEFAULT_RETRY
         # X-Trivy-Tenant on every RPC; empty → the server's "default"
         self.tenant = tenant
-        # the X-Trivy-Cost document of the last answered RPC
+        # the X-Trivy-Cost document of the last answered RPC (merged
+        # across the hops when a router answered)
         self.last_cost: dict | None = None
+
+    @property
+    def base_url(self) -> str:
+        """The preferred base: the first of `bases` until a failover
+        promotes another."""
+        return self.bases[self._base_idx % len(self.bases)]
 
     def _call(self, service: str, method: str, payload: dict) -> dict:
         body = json.dumps(payload).encode()
@@ -66,17 +84,34 @@ class _Base:
             **({TOKEN_HEADER: self.token} if self.token else {}),
             **({TENANT_HEADER: self.tenant} if self.tenant else {}),
         }
-        url = f"{self.base_url}/twirp/{service}/{method}"
 
         def attempt() -> dict:
-            req = urllib.request.Request(url, data=body, method="POST",
-                                         headers=headers)
-            with urllib.request.urlopen(req, timeout=self.timeout) as r:
-                result = json.loads(r.read() or b"{}")
-                raw_cost = r.headers.get(COST_HEADER)
-            if raw_cost:
-                self.last_cost = parse_cost_header(raw_cost)
-            return result
+            # one pass over the bases: a connection error moves to the
+            # NEXT base at once (a dead endpoint costs one connect, not
+            # a retry budget); the policy retries a whole failed pass.
+            # An HTTPError propagates: the endpoint answered, so 429/503
+            # retry after Retry-After and the rest are the answer
+            last: Exception | None = None
+            for hop in range(len(self.bases)):
+                idx = (self._base_idx + hop) % len(self.bases)
+                url = f"{self.bases[idx]}/twirp/{service}/{method}"
+                req = urllib.request.Request(url, data=body, method="POST",
+                                             headers=headers)
+                try:
+                    with urllib.request.urlopen(
+                            req, timeout=self.timeout) as r:
+                        result = json.loads(r.read() or b"{}")
+                        raw_cost = r.headers.get(COST_HEADER)
+                except urllib.error.HTTPError:
+                    raise
+                except urllib.error.URLError as e:
+                    last = e
+                    continue   # unreachable: try the next base
+                self._base_idx = idx
+                if raw_cost:
+                    self.last_cost = parse_cost_header(raw_cost)
+                return result
+            raise last
 
         try:
             return self.retry.call(attempt, should_retry=_SHOULD_RETRY)

@@ -797,12 +797,16 @@ def serve_background(host: str, port: int, table, cache_dir: str,
                      token: str = "", cache_backend: str = "fs",
                      detect_opts=None, admission=None, device=None,
                      sbom_opts=None, memo_backend="", redetect_opts=None,
-                     stream_opts=None, mesh_opts: MeshOptions | None = None):
+                     stream_opts=None, mesh_opts: MeshOptions | None = None,
+                     launch_record: LaunchRecord | None = None):
     """Serve from a daemon thread → (httpd, state) once listening. The
-    caller shuts down: `httpd.shutdown()`, then `state.close()`."""
+    caller shuts down: `httpd.shutdown()`, then `state.close()`.
+    `launch_record` keeps a few merged dispatches, as `serve` does for
+    `server --debug-launches`."""
     state = ServerState(table, cache_dir, token, cache_backend,
                         detect_opts=detect_opts, admission=admission,
                         device=device, sbom_opts=sbom_opts,
+                        launch_record=launch_record,
                         memo_backend=memo_backend,
                         redetect_opts=redetect_opts,
                         stream_opts=stream_opts, mesh_opts=mesh_opts)
