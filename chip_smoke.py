@@ -134,10 +134,11 @@ was printed); any failure exits non-zero:
            directory that holds a .trivyignore.yaml (an entry that
            ignores everywhere, an expired one, one scoped to a path, a
            secret rule): first as SARIF, flattening the bolt file
-           (flatten_s, rows), then the same flags from trivy.yaml and
-           TRIVY_* env with --cache-dir and --skip-db-update and a
-           template; then in this process, on one load of the memo (its
-           load time): as JSON, with --device cpu --scanners vuln as
+           (flatten_s, rows), in a process of its own; then in this
+           process the same flags from trivy.yaml and TRIVY_* env with
+           --cache-dir and --skip-db-update and a template, and, on one
+           load of the memo (its load time): as JSON, with --device cpu
+           --scanners vuln as
            the reference (equal vulnerability results), and with a
            stricter ignore file (exit code 0).
            Checks the exit codes, the surviving findings against the
@@ -168,7 +169,9 @@ was printed); any failure exits non-zero:
            and a second run that walks the three partial layers again.
            Then no --db: a small trivy.db pulled from --db-repository into
            a fresh cache dir, flattened and scanned (equal to --db on the
-           same file), and a tampered DB blob refused and quarantined.
+           same file), and a tampered DB blob refused and quarantined,
+           both in this process (inprocess_cli; the cold run holds the
+           phase's start-up).
   misconf  misconfiguration scanning in the scans that launch the
            kernels: the fs checkout grown by 60 multi-stage Dockerfiles,
            300 Kubernetes manifests (Deployments, Pods, CronJobs, a third
@@ -386,6 +389,30 @@ was printed); any failure exits non-zero:
            the fresh rows through shift-or ("at_fleet"). Figures: the
            rounds' walls, p50 and p99 routed and direct, the failovers,
            the readmission time, router.forward ms from the spans.
+  k8s      a cluster sweep, in this process (inprocess_cli): `k8s
+           --scanners vuln,secret,misconfig --components workload,infra
+           --exclude-nodes pool=spot --format json` on the card against a
+           FakeKubeAPI on 127.0.0.1 (token auth; 42 workload items of all
+           seven kinds in three namespaces, the owned ReplicaSets, Pods
+           and Jobs among them, init and ephemeral containers, CronJob
+           templates; five nodes with kubelet v1.27-v1.29 on containerd,
+           cri-o and docker, one excluded), whose workloads name six
+           images of the memo phase's kind (one Debian base layer, a thin
+           layer each with 2.5-4 MiB of text and a planted token) served
+           by an OCIRegistry with token auth, over the apps advisories
+           plus ~230 component rows (k8s.io/kubelet and the other
+           components under `k8s::Official Kubernetes`, the runtimes'
+           Go modules), flattened through the delta flatten memo; then
+           the same run with --device cpu, whose report must be equal
+           apart from CreatedAt. Checks: every planted token once per
+           workload naming its image, exactly the node CVEs the rows'
+           ranges give, the node checks' failures, no owned item, one
+           shift-or launch per image whose analyzed layers reach 2 MiB,
+           join launches from both the images' scan_many and the nodes'
+           detect_many. Then the largest join batch of the images on both
+           routes, timed, and the images' secret rows through shift-or
+           ("at_k8s"). Figures: pull_s, inspect_s, detect_s, infra_s,
+           wall_s and the counts of workloads, images, nodes, results.
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
@@ -396,8 +423,10 @@ largest blob the memo phase's sweep replayed), "at_vm" (the disk),
 "at_caches" (the image_apps image through the shared caches),
 "at_stream" (the largest advisory slice of the stream phase) and
 "at_mesh" (a 2×2 mesh cell of the largest batch; shift-or: one of 4
-cells' rows) and "at_fleet" (the largest merged dispatch the fleet's
-replicas recorded; shift-or: the fresh artifacts' rows);
+cells' rows), "at_fleet" (the largest merged dispatch the fleet's
+replicas recorded; shift-or: the fresh artifacts' rows) and "at_k8s"
+(the largest join batch of the cluster's images; shift-or: their
+rows);
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -1099,7 +1128,8 @@ def run_port_cli(args: list, env: dict | None = None,
 
 
 def inprocess_cli(args: list, tables: dict, env: dict | None = None,
-                  raw: bool = False, cwd: str = REPO, rc: int = 0) -> tuple:
+                  raw: bool = False, cwd: str = REPO, rc: int = 0,
+                  defaults: bool = True) -> tuple:
     """run_port_cli's command in this process, from `cwd`: a --db spec
     found in `tables` ({--db spec: table}) stands in for its load, and
     one it lacks is loaded once and kept there (the load's figures in
@@ -1108,7 +1138,9 @@ def inprocess_cli(args: list, tables: dict, env: dict | None = None,
     command exits with `rc`. For the CPU references and the runs whose
     check is the report of a flag (a compliance spec, the user checks
     in an image, an SBOM's decode), not the process's own start-up and
-    table load, which the phase's first run holds."""
+    table load, which the phase's first run holds. With `defaults`
+    False, neither a cache dir nor the format is added: the flag sources
+    (TRIVY_* env, the working directory's trivy.yaml) give them."""
     import contextlib
 
     import trivy_tpu_torch.__main__ as port_cli
@@ -1118,9 +1150,9 @@ def inprocess_cli(args: list, tables: dict, env: dict | None = None,
         if spec not in tables:
             tables[spec] = load_table(spec, **kw)
         return tables[spec]
-    cache = None if "--cache-dir" in args else \
+    cache = None if "--cache-dir" in args or not defaults else \
         tempfile.mkdtemp(prefix="chip_smoke_cache_")
-    fmt = [] if "--format" in args else ["--format", "json"]
+    fmt = [] if "--format" in args or not defaults else ["--format", "json"]
     saved = {k: os.environ.get(k) for k in env or {}}
     prev_cwd, out, err = os.getcwd(), io.StringIO(), io.StringIO()
     before = port_cli.launch_counts()
@@ -2586,22 +2618,23 @@ def run_ci_at_size(torch, tmp: str, raw: list, rows: int, root: str,
     # below)
     a, a_s = run_ci_cli(["fs", root, "--db", bolt, *flags, "--format",
                          "sarif", "-o", out["out.sarif"]], work, rc=1)
-    # 3. the same from trivy.yaml and TRIVY_* env, the cached DB
-    c, c_s = run_ci_cli(["fs", root], work_cfg, env={
+    # In this process (these runs check report bytes, exit codes and
+    # flag sources; run 1 holds the start-up): 3. the same from
+    # trivy.yaml and TRIVY_* env, the cached DB; then, sharing one load
+    # of the memo, 2. the JSON report from the memo; 4. the reference,
+    # the plain versions on the CPU; a stricter ignore file holding
+    # every finding of the checkout in place of .trivyignore.yaml (exit
+    # code 0); then convert of the JSON report into SARIF and the
+    # template, which must not load the table.
+    loaded: dict = {}
+    _text, c, c_s = inprocess_cli(["fs", root], {}, env={
         "TRIVY_SEVERITY": "HIGH,CRITICAL", "TRIVY_EXIT_CODE": "1",
-        "TRIVY_CACHE_DIR": cache, "TRIVY_SKIP_DB_UPDATE": "true"}, rc=1)
+        "TRIVY_CACHE_DIR": cache, "TRIVY_SKIP_DB_UPDATE": "true",
+        "TRIVY_TPU_FAKE_NOW": CI_NOW}, raw=True, cwd=work_cfg, rc=1,
+        defaults=False)
     for what, counts in (("ci", a), ("ci config", c)):
         if counts["launches"] != a["launches"]:
             raise AssertionError(f"{what}: launches {counts['launches']}")
-
-    # In this process, sharing one load of the memo (these runs check
-    # report bytes and exit codes; the first one's load is the memo's):
-    # 2. the JSON report from the memo; 4. the reference, the plain
-    # versions on the CPU; a stricter ignore file holding every finding
-    # of the checkout in place of .trivyignore.yaml (exit code 0); then
-    # convert of the JSON report into SARIF and the template, which must
-    # not load the table.
-    loaded: dict = {}
     strict = os.path.join(work, "strict.yaml")
     every = {k[1] for k in _vuln_keys(fs_report)}
     with open(strict, "w") as f:
@@ -2693,9 +2726,9 @@ def run_ci_at_size(torch, tmp: str, raw: list, rows: int, root: str,
           table_s={"flatten": a["table"]["table_s"],
                    "memo": b["table"]["table_s"],
                    "config": c["table"]["table_s"]},
-          wall_s={"flatten_sarif": a_s, "config_template": c_s},
-          in_process_s={"memo_json": b_s, "cpu_json": cpu_s,
-                        "strict": direct_s},
+          wall_s={"flatten_sarif": a_s},
+          in_process_s={"config_template": c_s, "memo_json": b_s,
+                        "cpu_json": cpu_s, "strict": direct_s},
           exit_codes={"findings": 1, "strict": 0},
           unfiltered=len(_vuln_keys(fs_report)), without_fix=sum(
               not v.get("FixedVersion") for r in fs_report["Results"]
@@ -2749,13 +2782,17 @@ def _untargeted(report: dict) -> list:
 
 
 def _failing_cli(args: list) -> str:
-    """A port CLI run that must fail → its stderr."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "trivy_tpu_torch", *args], cwd=REPO,
-        capture_output=True, text=True, timeout=300)
-    if proc.returncode == 0:
-        raise AssertionError(f"{' '.join(args[:2])} did not fail")
-    return proc.stderr
+    """A port CLI run in this process that must exit with an error →
+    its message."""
+    import trivy_tpu_torch.__main__ as port_cli
+    try:
+        code = port_cli.main(args)
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            return str(e.code)
+        code = e.code
+    raise AssertionError(f"{' '.join(args[:2])} exited {code}, did not "
+                         f"fail")
 
 
 def run_image_remote_at_size(torch, tmp: str, table, db: str,
@@ -2859,9 +2896,9 @@ def run_image_remote_at_size(torch, tmp: str, table, db: str,
                       _diff_ids(tars[:1]))
         db_cache = os.path.join(tmp, "db-cache")
         alpine = ["image", f"{base}/alpine:1", "--image-src", "remote"]
-        pulled_report, db_counts, db_s = run_port_cli(
+        pulled_report, db_counts, db_s = inprocess_cli(
             alpine + ["--db-repository", f"{base}/trivy-db:2",
-                      "--cache-dir", db_cache])
+                      "--cache-dir", db_cache], {})
         direct, _c, direct_s = inprocess_cli(alpine + ["--db", bolt], {})
         if findings(pulled_report)[0] != REMOTE_DB_VULNS or \
                 vuln_results(pulled_report) != vuln_results(direct) or \
@@ -7179,10 +7216,420 @@ def run_fleet_at_size(torch, tmp: str, table, names: dict, clients: tuple,
     return counts, at
 
 
+# --- k8s: a cluster sweep through `k8s` on the card ---------------------
+
+K8S_TOKEN = "chip-smoke-kube-token"
+K8S_NAMESPACES = ("payments", "storefront", "platform")
+K8S_IMAGES = 6
+K8S_SOURCE = "k8s::Official Kubernetes"
+K8S_COMPONENTS = ("k8s.io/kubelet", "k8s.io/kube-apiserver",
+                  "k8s.io/kube-controller-manager", "k8s.io/kube-scheduler",
+                  "k8s.io/kube-proxy", "k8s.io/kubectl", "k8s.io/kubeadm",
+                  "k8s.io/apiextensions-apiserver")
+# runtime → (the Go module node_vuln_apps names, (major, lowest minor,
+# highest minor + 1) and (lowest patch, highest patch + 1) of its fixes)
+K8S_RUNTIMES = {"containerd": ("github.com/containerd/containerd",
+                               (1, 5, 8), (0, 30)),
+                "cri-o": ("github.com/cri-o/cri-o", (1, 25, 31), (0, 12)),
+                "docker": ("github.com/moby/moby", (20, 0, 1), (0, 12))}
+K8S_ROWS_EACH = 20   # advisories per component and per runtime
+# (name, kubelet, runtime, labels, NodeInfo type); `pool=spot` is excluded
+K8S_NODES = (
+    ("cp-1", "v1.29.2", "containerd://1.7.13",
+     {"node-role.kubernetes.io/control-plane": ""}, "master"),
+    ("worker-a", "v1.27.4", "containerd://1.6.21", {"pool": "general"},
+     "worker"),
+    ("worker-b", "v1.28.6", "cri-o://1.28.1", {"pool": "general"}, "worker"),
+    ("worker-c", "v1.28.2+k3s1", "docker://24.0.7", {"pool": "batch"},
+     "worker"),
+    ("spot-a", "v1.29.0", "containerd://1.7.11", {"pool": "spot"}, "worker"),
+)
+K8S_EXCLUDE = "pool=spot"
+# the node collector's output: a worker that fails KCV0073 and KCV0075,
+# a master that fails KCV0056
+K8S_NODE_INFO = {
+    "worker": {"kubeletConfFilePermissions": {"values": [644]},
+               "kubeletConfFileOwnership": {"values": ["root:root"]},
+               "kubeletAnonymousAuthArgumentSet": {"values": ["true"]},
+               "kubeletAuthorizationModeArgumentSet": {"values": ["Webhook"]},
+               "kubeletClientCaFileArgumentSet":
+                   {"values": ["/etc/kubernetes/pki/ca.crt"]},
+               "kubeletReadOnlyPortArgumentSet": {"values": ["0"]},
+               "kubeletHostnameOverrideArgumentSet": {"values": []}},
+    "master": {"kubeAPIServerSpecFilePermission": {"values": [600]},
+               "kubeEtcdDataDirectoryPermission": {"values": [755]},
+               "kubePKIKeyFilePermissions": {"values": [600]}},
+}
+K8S_NODE_FAILS = {"worker": {"AVD-KCV-0073", "AVD-KCV-0075"},
+                  "master": {"AVD-KCV-0056"}}
+# plants for the workload specs, but those that swap the image or the
+# namespace: every image must be one the phase's registry serves
+K8S_WORKLOAD_PLANTS = {k: v for k, v in K8S_PLANTS.items()
+                       if k not in ("KSV013", "KSV110")}
+
+
+def _vtuple(v: str) -> tuple:
+    return tuple(int(x) for x in v.lstrip("v").split("+")[0].split("."))
+
+
+def _in_range(version: str, rng_expr: str) -> bool:
+    """`< b` or `>= a, < b` over plain x.y.z versions."""
+    v = _vtuple(version)
+    for part in rng_expr.split(","):
+        op, bound = part.split()
+        if (op == "<" and not v < _vtuple(bound)) or \
+                (op == ">=" and not v >= _vtuple(bound)):
+            return False
+    return True
+
+
+def _excluded(labels: dict) -> bool:
+    return labels.get("pool") == "spot"
+
+
+def k8s_component_rows(rng) -> list:
+    """About 200 advisories on the cluster's components: K8S_ROWS_EACH
+    under `k8s::Official Kubernetes` for each k8s.io component (most
+    bounded to one minor line, as Kubernetes publishes its fixes) and
+    for each container runtime's Go module under the go source, plus
+    one planted advisory on the kubelet and one on the runtime of every
+    node not excluded, just above its version."""
+    from trivy_tpu_torch.db.table import RawAdvisory
+    go = _lang_source("go")
+    rows = []
+
+    def add(source, eco, name, rng_expr):
+        n = len(rows)
+        rows.append(RawAdvisory(
+            source=source, ecosystem=eco, pkg_name=name,
+            vuln_id=f"CVE-{2019 + n % 6}-{31000 + n}",
+            vulnerable_ranges=rng_expr,
+            severity=SEVERITIES[n % len(SEVERITIES)]))
+    for name in K8S_COMPONENTS:
+        for _ in range(K8S_ROWS_EACH):
+            minor = int(rng.integers(20, 31))
+            fix = f"1.{minor}.{rng.integers(1, 15)}"
+            add(K8S_SOURCE, "k8s", name, f">= 1.{minor}.0, < {fix}"
+                if rng.random() < 0.7 else f"< {fix}")
+    for module, (major, lo, hi), (p_lo, p_hi) in K8S_RUNTIMES.values():
+        for _ in range(K8S_ROWS_EACH):
+            fix = f"{major}.{rng.integers(lo, hi)}.{rng.integers(p_lo, p_hi)}"
+            add(go, "go", module, f"< {fix}")
+    for _name, kubelet, runtime, labels, _t in K8S_NODES:
+        if _excluded(labels):
+            continue
+        a, b, c = _vtuple(kubelet)
+        add(K8S_SOURCE, "k8s", "k8s.io/kubelet", f"< {a}.{b}.{c + 1}")
+        rname, rver = runtime.split("://")
+        a, b, c = _vtuple(rver)
+        add(go, "go", K8S_RUNTIMES[rname][0], f"< {a}.{b}.{c + 1}")
+    return rows
+
+
+def k8s_expected_node_vulns(rows: list) -> set:
+    """{(node, package, vulnerability id)} the nodes not excluded must
+    report, from the rows' ranges."""
+    want = set()
+    for name, kubelet, runtime, labels, _t in K8S_NODES:
+        if _excluded(labels):
+            continue
+        rname, rver = runtime.split("://")
+        pkgs = {"k8s.io/kubelet": kubelet, K8S_RUNTIMES[rname][0]: rver}
+        for r in rows:
+            if r.pkg_name in pkgs and _in_range(pkgs[r.pkg_name],
+                                                r.vulnerable_ranges):
+                want.add((name, r.pkg_name, r.vuln_id))
+    return want
+
+
+def k8s_cluster(rng, images: list) -> tuple:
+    """The cluster the fake API serves: in each of K8S_NAMESPACES two
+    Deployments, a StatefulSet, a DaemonSet, a CronJob, a Job and a
+    debug Pod with an ephemeral container, and the ReplicaSets, Pods and
+    Job their controllers own (which must collapse into them), 14 items
+    a namespace. Containers, init containers and CronJob templates name
+    `images` in turn (each outside an owned item too), and some specs
+    carry planted misconfigurations; then the five K8S_NODES and their
+    collector output → (routes, {node: NodeInfo}, {workload path: the
+    images it names}, the paths of the owned items)."""
+    from trivy_tpu_torch.k8s.client import WORKLOAD_KINDS
+    lists = {kind: [] for kind in WORKLOAD_KINDS}
+    carried, owned_paths = {}, []
+    cursor = [0]
+
+    def next_images(k: int) -> list:
+        out = [images[(cursor[0] + j) % len(images)] for j in range(k)]
+        cursor[0] += k
+        return out
+
+    def spec(name: str, imgs: list, init=(), ephemeral=()) -> dict:
+        s = _pod_spec(name)
+        s["containers"] = []
+        for j, img in enumerate(imgs):
+            c = _container(f"{name}-{j}")
+            c["image"] = img
+            s["containers"].append(c)
+        if init:
+            s["initContainers"] = [{"name": f"{name}-init{j}", "image": img}
+                                   for j, img in enumerate(init)]
+        if ephemeral:
+            s["ephemeralContainers"] = [{"name": f"{name}-dbg{j}",
+                                         "image": img}
+                                        for j, img in enumerate(ephemeral)]
+        for plant in _pick_plants(rng, K8S_WORKLOAD_PLANTS, 0, 2,
+                                  _K8S_CLASH):
+            K8S_WORKLOAD_PLANTS[plant]({}, s)
+        return s
+
+    def add(kind, ns, name, s, owner=None):
+        # list items carry no kind or apiVersion: the client restores them
+        meta = {"name": name, "namespace": ns,
+                "labels": {"app.kubernetes.io/name": name}}
+        if owner:
+            meta["ownerReferences"] = [{"kind": owner[0], "name": owner[1],
+                                        "controller": True}]
+        tmpl = {"metadata": {"labels": meta["labels"]}, "spec": s}
+        body = {"Pod": s,
+                "CronJob": {"schedule": "*/30 * * * *",
+                            "jobTemplate": {"spec": {"template": tmpl}}},
+                "Job": {"template": tmpl}}.get(kind, {
+                    "replicas": 2, "template": tmpl,
+                    "selector": {"matchLabels": meta["labels"]}})
+        lists[kind].append({"metadata": meta, "spec": body})
+        path = f"{ns}/{kind}/{name}"
+        if owner:
+            owned_paths.append(path)
+            return
+        carried[path] = list(dict.fromkeys(
+            c["image"] for key in ("containers", "initContainers",
+                                   "ephemeralContainers")
+            for c in s.get(key) or []))
+
+    for ns in K8S_NAMESPACES:
+        add("Deployment", ns, "web", spec("web", next_images(2),
+                                          init=next_images(1)))
+        add("Deployment", ns, "api", spec("api", next_images(1)))
+        add("StatefulSet", ns, "db", spec("db", next_images(1)))
+        add("DaemonSet", ns, "agent", spec("agent", next_images(1)))
+        add("CronJob", ns, "report", spec("report", next_images(1)))
+        add("Job", ns, "migrate", spec("migrate", next_images(1)))
+        add("Pod", ns, "debug", spec("debug", next_images(1),
+                                     ephemeral=next_images(1)))
+        for rs, dep in (("web-5d9f8", "web"), ("api-7c4b2", "api")):
+            add("ReplicaSet", ns, rs, spec(rs, next_images(1)),
+                owner=("Deployment", dep))
+        for pod, owner in (("web-5d9f8-x1k2p", ("ReplicaSet", "web-5d9f8")),
+                           ("db-0", ("StatefulSet", "db")),
+                           ("agent-q7w2e", ("DaemonSet", "agent")),
+                           ("migrate-7ml4c", ("Job", "migrate"))):
+            add("Pod", ns, pod, spec(pod, next_images(1)), owner=owner)
+        add("Job", ns, "report-28901", spec("report-28901", next_images(1)),
+            owner=("CronJob", "report"))
+    routes = {"/version": {"gitVersion": "v1.29.2",
+                           "platform": "linux/amd64"},
+              "/api/v1/namespaces": {"items": [
+                  {"metadata": {"name": ns}} for ns in K8S_NAMESPACES]}}
+    for kind, (prefix, plural) in WORKLOAD_KINDS.items():
+        routes[f"/{prefix}/{plural}"] = {"items": lists[kind]}
+        for ns in K8S_NAMESPACES:
+            routes[f"/{prefix}/namespaces/{ns}/{plural}"] = {"items": [
+                i for i in lists[kind] if i["metadata"]["namespace"] == ns]}
+    nodes, infos = [], {}
+    for name, kubelet, runtime, labels, kind in K8S_NODES:
+        nodes.append({"metadata": {"name": name, "labels": labels},
+                      "status": {"nodeInfo": {
+                          "architecture": "amd64",
+                          "kernelVersion": "6.1.0-18-cloud-amd64",
+                          "osImage": "Debian GNU/Linux 12 (bookworm)",
+                          "kubeletVersion": kubelet,
+                          "containerRuntimeVersion": runtime}}})
+        infos[name] = {"apiVersion": "v1", "kind": "NodeInfo", "type": kind,
+                       "info": K8S_NODE_INFO[kind]}
+    routes["/api/v1/nodes"] = {"items": nodes}
+    return routes, infos, carried, owned_paths
+
+
+def k8s_table(raw: list, flatten=None) -> tuple:
+    """The apps advisories and k8s_component_rows flattened, through the
+    delta flatten memo `flatten` when given → (table, the component
+    rows, the flatten's seconds)."""
+    from trivy_tpu_torch.db.table import build_table
+    rows = k8s_component_rows(np.random.default_rng(SEED + 19))
+    t0 = time.perf_counter()
+    table = build_table(list(raw) + rows, memo=flatten)
+    return table, rows, time.perf_counter() - t0
+
+
+def k8s_phase(tmp: str, table, rows: list, deb: list, names: dict,
+              device: str = "cuda", n_images: int = K8S_IMAGES,
+              text=(5 << 19, 4 << 20)) -> dict:
+    """A platform team's cluster sweep: `k8s --scanners
+    vuln,secret,misconfig --components workload,infra --exclude-nodes
+    pool=spot --format json` against a FakeKubeAPI on 127.0.0.1 with
+    bearer-token auth (k8s_cluster: 42 workload items of all seven
+    kinds, five nodes) whose workloads name `n_images` images of
+    memo_images (one shared Debian base layer, a thin layer each with
+    `text` bytes of text and a planted token) served by an OCIRegistry
+    with token auth, over `table` (k8s_table's, its component rows
+    `rows`), on `device`; then the same run with `--device cpu` as the
+    reference. Both in this process (inprocess_cli). Checks: equal
+    reports apart from CreatedAt; every planted token once per workload
+    that names its image; exactly the node vulnerabilities of
+    k8s_expected_node_vulns; the node checks' failures; no owned item
+    reported; on the card one shift-or launch per image whose analyzed
+    layers (the base with the first image) reach SMALL_BATCH_BYTES, and
+    join launches from both the images' scan_many and the nodes'
+    detect_many → {"figures", "layers": each image's layer tars,
+    "counts": the card run's debug lines}."""
+    from trivy_tpu_torch.fanal.fixtures import OCIRegistry
+    from trivy_tpu_torch.k8s.fixtures import FakeKubeAPI
+    from trivy_tpu_torch.secret.engine import SMALL_BATCH_BYTES
+    t0 = time.perf_counter()
+    base_tar, thins, _held = memo_images(np.random.default_rng(SEED + 20),
+                                         deb, names, n_images, text)
+    reg = OCIRegistry(token=K8S_TOKEN)
+    base_url = reg.start()
+    images = []
+    for i, (thin, _secrets) in enumerate(thins):
+        reg.put_image(f"k8s/app{i:02d}", "1", [base_tar, thin],
+                      _diff_ids([base_tar, thin]))
+        images.append(f"{base_url}/k8s/app{i:02d}:1")
+    routes, infos, carried, owned = k8s_cluster(
+        np.random.default_rng(SEED + 21), images)
+    api = FakeKubeAPI(routes, infos, token=K8S_TOKEN)
+    api.start()
+    kubeconfig = api.write_kubeconfig(os.path.join(tmp, "kubeconfig"))
+    db = os.path.join(tmp, "k8s-table.npz")   # a key of `tables` only
+    tables = {db: table}
+    args = ["k8s", "--kubeconfig", kubeconfig, "--scanners",
+            "vuln,secret,misconfig", "--components", "workload,infra",
+            "--exclude-nodes", K8S_EXCLUDE, "--db", db, "--format", "json"]
+    setup_s = time.perf_counter() - t0
+    try:
+        report, counts, wall_s = inprocess_cli(
+            args + ["--device", device], tables)
+        cpu_report, cpu_counts, cpu_wall_s = inprocess_cli(
+            args + ["--device", "cpu"], tables)
+    finally:
+        api.stop()
+        reg.stop()
+    report.pop("CreatedAt")
+    cpu_report.pop("CreatedAt")
+    if report != cpu_report:
+        raise AssertionError("k8s: the card's report differs from the "
+                             "--device cpu one")
+    results = report.get("Results", [])
+    token_of = {img: s for img, (_t, s) in zip(images, thins)}
+    want = {(f"{path}/{p}", rule) for path, imgs in carried.items()
+            for img in imgs for p, rule in token_of[img]}
+    got = [(r["Target"], f["RuleID"]) for r in results
+           for f in r.get("Secrets", [])]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"k8s: secrets {sorted(set(got) ^ want)[:8]} "
+                             f"differ from the planted ones")
+    node_names = {n for n, *_ in K8S_NODES}
+    node_vulns = {(r["Target"], v["PkgName"], v["VulnerabilityID"])
+                  for r in results if r["Target"] in node_names
+                  for v in r.get("Vulnerabilities", [])}
+    want_nodes = k8s_expected_node_vulns(rows)
+    if node_vulns != want_nodes:
+        raise AssertionError(f"k8s: node vulnerabilities "
+                             f"{sorted(node_vulns ^ want_nodes)[:8]} differ")
+    node_fails = {r["Target"]: {m["ID"] for m in
+                                r.get("Misconfigurations", [])}
+                  for r in results if r.get("Type") == "node-info"}
+    want_fails = {n: K8S_NODE_FAILS[kind] for n, _k, _r, labels, kind
+                  in K8S_NODES if not _excluded(labels)}
+    if node_fails != want_fails:
+        raise AssertionError(f"k8s: node checks {node_fails}")
+    workloads = {"/".join(r["Target"].split("/")[:3]) for r in results
+                 if r["Target"] not in node_names}
+    if not workloads <= set(carried) or set(owned) & workloads:
+        raise AssertionError(f"k8s: workload targets "
+                             f"{sorted(workloads - set(carried))[:8]}")
+    # one shift-or launch per image whose newly analyzed layers reach
+    # the threshold: the sweep's MemoryCache holds the base after the
+    # first image
+    layers = {img: [base_tar, thin] for img, (thin, _s) in zip(images, thins)}
+    seen, shiftor_batches = set(), 0
+    for img in dict.fromkeys(i for imgs in carried.values() for i in imgs):
+        n_bytes = 0
+        for layer in layers[img]:
+            if layer not in seen:
+                seen.add(layer)
+                n_bytes += sum(len(c) for _p, c in walk_image([layer])[1])
+        shiftor_batches += n_bytes >= SMALL_BATCH_BYTES
+    fig = counts["k8s"]
+    work, infra = fig["launches_workload"], fig["launches_infra"]
+    if device == "cuda" and not (
+            counts["launches"]["shiftor"] == work["shiftor"]
+            == shiftor_batches == counts["prefilter_path"].get("cuda", 0)
+            and infra["shiftor"] == 0
+            and work["csr_join"] + work["csr_join_compact"] >= 1
+            and infra["csr_join"] + infra["csr_join_compact"] >= 1):
+        raise AssertionError(f"k8s: launches {counts}, expected "
+                             f"{shiftor_batches} shift-or launches")
+    figures = {
+        "workload_items": len(carried) + len(owned),
+        "workloads": fig["workloads"], "owned_collapsed": len(owned),
+        "images": fig["images"], "nodes": len(K8S_NODES),
+        "nodes_scanned": len(want_fails), "results": len(results),
+        "secrets": len(got), "node_vulns": len(node_vulns),
+        "misconfigs": sum(len(r.get("Misconfigurations", []))
+                          for r in results),
+        "component_rows": len(rows), "pull_s": fig["pull_s"],
+        "inspect_s": fig["inspect_s"], "detect_s": fig["detect_s"],
+        "infra_s": fig["infra_s"], "wall_s": wall_s,
+        "cpu_wall_s": cpu_wall_s, "cpu_inspect_s": cpu_counts["k8s"][
+            "inspect_s"], "setup_s": setup_s,
+        "shiftor_batches": shiftor_batches, "launches": counts["launches"],
+        "launches_workload": work, "launches_infra": infra}
+    return {"figures": figures, "layers": list(layers.values()),
+            "counts": counts}
+
+
+def run_k8s_at_size(torch, tmp: str, raw: list, deb: list, names: dict,
+                    flatten) -> tuple:
+    """The k8s phase on the card over k8s_table (the apps advisories
+    and the component rows, through `flatten`), then the largest join
+    batch of the images' scan_many against the plain join on both
+    routes (the detector's, and the other: dense at h_cap 0 or
+    compacted at the smallest hit buffer) and the images' secret rows
+    through shift-or → (launch counts, the kernels on its inputs)."""
+    from trivy_tpu_torch.detect.engine import BatchDetector
+    t0 = time.perf_counter()
+    table, rows, flatten_s = k8s_table(raw, flatten)
+    out = k8s_phase(tmp, table, rows, deb, names, device="cuda")
+    fig = out["figures"]
+    files, largest = [], None
+    for layers in out["layers"]:
+        detail, secret_files = walk_image(layers)
+        files += secret_files
+        for name, qs in scan_batches(table, detail):
+            if largest is None or len(qs) > len(largest[1]):
+                largest = (name, qs)
+    det = BatchDetector(table, device="cuda")
+    prep = det._prepare(largest[1])
+    h_cap = det._hit_capacity(prep.t_pad)
+    at = {"csr_join": {"batch": largest[0], "forced": bool(h_cap),
+                       **join_case(torch, table, det, prep,
+                                   f"k8s_{largest[0]}")},
+          "csr_join_compact": {"batch": largest[0], "forced": not h_cap,
+                               **compact_case(torch, table, det, prep,
+                                              h_cap or 128,
+                                              f"k8s_{largest[0]}")}}
+    padded, bank, n_rows = secret_rows(files)
+    at["shiftor"] = shiftor_case(torch, bank, padded, "k8s_images")
+    phase("k8s", **fig, flatten_s=flatten_s, table_rows=len(table),
+          secret_rows=n_rows, largest_batch=[largest[0], len(largest[1])],
+          phase_s=time.perf_counter() - t0)
+    return fig["launches"], at
+
+
 def run_language_phases(torch, tmp: str) -> tuple:
     """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`,
-    `server`, `memo`, `vm`, `caches`, `stream`, `mesh` and `fleet`
-    phases over one apps table,
+    `server`, `memo`, `vm`, `caches`, `stream`, `mesh`, `fleet` and
+    `k8s` phases over one apps table (`k8s` adds its component rows),
     saved as .npz (written as a trivy.db for `ci`) → ({path: launch
     counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.db.table import FlattenMemo, build_table
@@ -7242,18 +7689,20 @@ def run_language_phases(torch, tmp: str) -> tuple:
             torch, tmp, table, names, clients, router)
     finally:
         stop_router(router)
+    k8s_launches, at_k8s = run_k8s_at_size(torch, tmp, raw, deb, names,
+                                           flatten)
     return ({"fs": fs_launches, "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
              "image_remote": remote_launches, **misconf_launches,
              "server": server_launches, "memo": memo_launches,
              "vm": vm_launches, "caches": caches_launches,
              "stream": stream_launches, "mesh": mesh_launches,
-             "fleet": fleet_launches},
+             "fleet": fleet_launches, "k8s": k8s_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
              "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf,
              "at_server": at_server, "at_memo": at_memo, "at_vm": at_vm,
              "at_caches": at_caches, "at_stream": at_stream,
-             "at_mesh": at_mesh, "at_fleet": at_fleet})
+             "at_mesh": at_mesh, "at_fleet": at_fleet, "at_k8s": at_k8s})
 
 
 def main() -> int:

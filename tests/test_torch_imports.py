@@ -54,7 +54,8 @@ need = ["trivy_tpu_torch." + m for m in (
     "fanal.gitrepo", "fanal.redis_cache", "fanal.s3_cache", "rekor",
     "fanal.analyzers.executable", "parallel", "parallel.stream",
     "parallel.mesh", "parallel.multihost", "fleet.ring", "fleet.router",
-    "fleet.supervisor", "resilience.breaker")]
+    "fleet.supervisor", "resilience.breaker", "k8s", "k8s.client",
+    "k8s.kubeconfig", "k8s.scanner", "k8s.nodes", "k8s.fixtures")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """
@@ -116,6 +117,10 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
                  lambda: cli.main(["image", "alpine:3.19", "--image-src",
                                    "docker,containerd,podman",
                                    "--cache-dir", str(tmp_path / "cache")]),
+                 # k8s raises before it reads a kubeconfig
+                 lambda: cli.main(["k8s", "--kubeconfig",
+                                   str(tmp_path / "none"), "--scanners",
+                                   "misconfig"]),
                  # the server raises before it loads a table or listens
                  lambda: cli.main(["server", "--listen", "127.0.0.1:1",
                                    "--db", str(tmp_path / "none.npz"),
