@@ -80,6 +80,13 @@ was printed); any failure exits non-zero:
            ranges in each ecosystem's grammar (a share of them in
            operators the token encoding cannot hold: INEXACT rows), as
            an .npz; its rows, INEXACT rows and device bytes.
+  native   the native C++ host helpers (trivy_tpu_torch/native/, built
+           with the host's c++ right after `env`: the compiler's path
+           and native_build_s): pack_chunks over the `image` phase's
+           secret candidates equal to _pack_one_py's rows, and
+           fnv1a64_batch over the apps table's distinct (source, name)
+           keys equal to fnv1a64 of each, with the native and the plain
+           times of both.
   fs       a seeded monorepo checkout (package-lock v3, a yarn
            workspace, go.mod + go.sum, Cargo.lock, poetry, Gemfile.lock,
            composer.lock, pom.xml; 40 MiB of text with planted tokens)
@@ -98,6 +105,17 @@ was printed); any failure exits non-zero:
            the analyzers, secret.prefilter and secret.confirm, the query
            building, the detect phases, the assembly) and the share of
            the wall its root spans cover.
+  extensions
+           two extension modules installed with `module install` into
+           the script's TRIVY_TPU_HOME (an empty temporary directory for
+           the script and every CLI process it starts, so no other
+           phase sees a module): one gives a custom resource (bytes,
+           sha256) for each of the checkout's 8 lockfiles, one deletes
+           an ID the `fs` report holds; `fs` once on the card in this
+           process; the report equal to the `fs` report less that ID
+           plus a Custom result of the entries the script computes from
+           the files, the launches those of `fs`, `module list` naming
+           both. The modules are uninstalled after.
   image_apps
            a 4-layer gzip application image (Debian 12 and 200 dpkg
            packages; 900 node_modules packages; 40 jars and a Go binary
@@ -1507,7 +1525,8 @@ def run_image_at_size(torch, tmp: str) -> tuple:
     scanner, in this process, as the reference (the secret lane's
     reference is shift-or's plain version on the image's rows, below);
     then the kernels on the very inputs this image hands them → (launch
-    counts of the cold cuda scan, the kernels' measurements)."""
+    counts of the cold cuda scan, the kernels' measurements, the image's
+    secret candidates)."""
     from trivy_tpu_torch.fanal.fixtures import gz_bytes, write_docker_archive
     rng = np.random.default_rng(SEED + 3)
     t0 = time.perf_counter()
@@ -1574,7 +1593,7 @@ def run_image_at_size(torch, tmp: str) -> tuple:
           wall_s_warm=warm_s, wall_s_cpu=cpu_s,
           launches=launches, warm_launches=warm_counts["launches"],
           prefilter_path=cold_counts["prefilter_path"])
-    return launches, at_image
+    return launches, at_image, secret_files
 
 
 # --- the language ecosystems: a monorepo checkout and an application image
@@ -1981,7 +2000,7 @@ def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
     on the card, and `fs --device cpu --scanners vuln` in this process
     as the reference → (launch counts of the fs
     scan, the kernels on its inputs, the checkout's root, the fs report,
-    its detail, its secret rows and bank)."""
+    its detail, its secret rows and bank, its batches' figures)."""
     from trivy_tpu_torch.fanal.analyzers import (INDIVIDUAL_PKG_ANALYZERS,
                                                  AnalyzerGroup)
     from trivy_tpu_torch.fanal.applier import apply_layers
@@ -2045,7 +2064,8 @@ def run_fs_at_size(torch, tmp: str, table, db: str, names: dict) -> tuple:
         kernel_share=kernel_ms / 1e3 / fs_s, launches=fs_counts["launches"],
         repo_launches=repo_counts["launches"],
         prefilter_path=fs_counts["prefilter_path"])
-    return fs_counts["launches"], at_fs, root, fs, detail, (padded, bank)
+    return (fs_counts["launches"], at_fs, root, fs, detail, (padded, bank),
+            figures)
 
 
 def trace_breakdown(doc: dict, wall_s: float) -> dict:
@@ -7626,12 +7646,193 @@ def run_k8s_at_size(torch, tmp: str, raw: list, deb: list, names: dict,
     return fig["launches"], at
 
 
-def run_language_phases(torch, tmp: str) -> tuple:
-    """The `fs`, `image_apps`, `sbom`, `ci`, `image_remote`, `misconf`,
-    `server`, `memo`, `vm`, `caches`, `stream`, `mesh`, `fleet` and
-    `k8s` phases over one apps table (`k8s` adds its component rows),
-    saved as .npz (written as a trivy.db for `ci`) → ({path: launch
-    counts}, {path: kernels on its inputs})."""
+# --- extensions (module.py) and the native host helpers (native/)
+
+EXT_LOCKFILES = (r"(package-lock\.json|yarn\.lock|go\.mod|Cargo\.lock|"
+                 r"poetry\.lock|Gemfile\.lock|composer\.lock|pom\.xml)$")
+EXT_ANALYZER = """\
+import hashlib
+
+name = "lockfile-digest"
+version = 1
+required_files = [r"{pattern}"]
+
+
+def analyze(path, content):
+    return {{"bytes": len(content),
+            "sha256": hashlib.sha256(content).hexdigest()}}
+"""
+EXT_DROPPER = """\
+name = "drop-one"
+version = 1
+post_scan_spec = {{"action": "delete", "ids": ["{vid}"]}}
+
+
+def post_scan(results):
+    return results
+"""
+
+
+def native_checks(secret_files: list, raw: list, device: str = "cuda"
+                  ) -> dict:
+    """The native helpers against their plain versions: pack_chunks on
+    a scan's secret candidates (equal to _pack_one_py's rows, file by
+    file in order) and fnv1a64_batch on a table's distinct (source,
+    name) keys (equal to fnv1a64 of each), both timed → the `native`
+    line's figures. Any difference fails."""
+    from trivy_tpu_torch import native
+    from trivy_tpu_torch.ops import ac
+    from trivy_tpu_torch.ops.hashing import fnv1a64
+    from trivy_tpu_torch.secret.engine import CHUNK_LEN, SecretScanner
+    overlap = SecretScanner(device=device)._bank.max_kw_len - 1
+    contents = [c for _, c in secret_files]
+    t0 = time.perf_counter()
+    rows, _owner = ac.pack_chunks(contents, CHUNK_LEN, overlap)
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = [ac._pack_one_py(c, CHUNK_LEN, overlap) for c in contents if c]
+    plain = np.concatenate(blocks) if blocks else \
+        np.zeros((0, CHUNK_LEN), np.uint8)
+    plain_pack_s = time.perf_counter() - t0
+    if rows.shape != plain.shape or not np.array_equal(rows, plain):
+        raise AssertionError("native pack_chunks rows differ from "
+                             "_pack_one_py's")
+    keys = [s.encode() + b"\x00" + n.encode()
+            for s, n in sorted({(r.source, r.pkg_name) for r in raw})]
+    t0 = time.perf_counter()
+    hashes = native.fnv1a64_batch(keys)
+    fnv_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_hashes = np.fromiter((fnv1a64(k) for k in keys), np.uint64,
+                               count=len(keys))
+    plain_fnv_s = time.perf_counter() - t0
+    if not np.array_equal(hashes, plain_hashes):
+        raise AssertionError("native fnv1a64_batch differs from fnv1a64")
+    return {"files": len(contents), "bytes": sum(map(len, contents)),
+            "rows": int(rows.shape[0]), "pack_ms": pack_s * 1e3,
+            "plain_pack_ms": plain_pack_s * 1e3, "keys": len(keys),
+            "fnv_ms": fnv_s * 1e3, "plain_fnv_ms": plain_fnv_s * 1e3,
+            "equal": True}
+
+
+def _droppable_id(report: dict) -> str:
+    """The first vulnerability ID (sorted) whose every result holds
+    another ID too, so deleting it empties no result."""
+    ids = [{v["VulnerabilityID"] for v in r.get("Vulnerabilities", [])}
+           for r in report["Results"]]
+    for vid in sorted(set().union(*ids)):
+        if all(len(s) > 1 for s in ids if vid in s):
+            return vid
+    raise AssertionError("no vulnerability ID to delete in the fs report")
+
+
+def _cli_stdout(port_cli, argv: list) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = port_cli.main(argv)
+    if code != 0:
+        raise AssertionError(f"{' '.join(argv[:2])} exited {code}")
+    return out.getvalue()
+
+
+def extensions_phase(tmp: str, root: str, table, db: str, fs_report: dict,
+                     device: str = "cuda") -> tuple:
+    """Two modules installed with `module install` into TRIVY_TPU_HOME,
+    empty until now: one gives a custom resource for each lockfile of
+    the checkout, one deletes an ID the fs report holds; then `fs` on
+    the checkout once, through the CLI in this process, on `device`.
+    Fails unless `module list` names both and the report is the fs
+    report less that ID plus a Custom result of the entries computed
+    here from the files. The modules are uninstalled after → (the fs
+    run's counts, the phase's figures)."""
+    import hashlib
+    import re
+
+    import trivy_tpu_torch.__main__ as port_cli
+    from trivy_tpu_torch import module
+    vid = _droppable_id(fs_report)
+    src = os.path.join(tmp, "ext-modules")
+    os.makedirs(src)
+    paths = []
+    for name, text in (
+            ("lockfile_digest.py", EXT_ANALYZER.format(pattern=EXT_LOCKFILES)),
+            ("drop_one.py", EXT_DROPPER.format(vid=vid))):
+        paths.append(os.path.join(src, name))
+        with open(paths[-1], "w") as f:
+            f.write(text)
+    t0 = time.perf_counter()
+    try:
+        for path in paths:
+            _cli_stdout(port_cli, ["module", "install", path])
+        listed = [ln.split("\t")[:2] for ln in
+                  _cli_stdout(port_cli, ["module", "list"]).splitlines()]
+        if listed != [["drop-one", "1"], ["lockfile-digest", "1"]]:
+            raise AssertionError(f"module list: {listed}")
+        cpu = ["--device", "cpu"] if device == "cpu" else []
+        report, counts, wall_s = inprocess_cli(
+            ["fs", root, "--db", db, "--scanners", "vuln,secret", *cpu],
+            {db: table})
+    finally:
+        for path in paths:
+            _cli_stdout(port_cli, ["module", "uninstall",
+                                   os.path.basename(path)])
+        module.clear_modules()
+    phase_s = time.perf_counter() - t0
+    want = []
+    for dirpath, _dirs, names in os.walk(root):
+        for name in names:
+            full = os.path.join(dirpath, name)
+            rel = os.path.relpath(full, root).replace(os.sep, "/")
+            if re.search(EXT_LOCKFILES, rel):
+                with open(full, "rb") as f:
+                    data = f.read()
+                want.append({"Type": "lockfile-digest", "FilePath": rel,
+                             "Data": {"bytes": len(data),
+                                      "sha256": hashlib.sha256(
+                                          data).hexdigest()}})
+    want.sort(key=lambda c: c["FilePath"])
+    custom = [r for r in report["Results"] if r.get("Class") == "custom"]
+    if len(custom) != 1 or custom[0]["CustomResources"] != want:
+        raise AssertionError(f"the Custom result {custom} != {want}")
+    expected = json.loads(json.dumps(fs_report))
+    for res in expected["Results"]:
+        if "Vulnerabilities" in res:
+            res["Vulnerabilities"] = [v for v in res["Vulnerabilities"]
+                                      if v["VulnerabilityID"] != vid]
+    expected["Results"].append(custom[0])
+    if {k: v for k, v in report.items() if k != "CreatedAt"} != \
+            {k: v for k, v in expected.items() if k != "CreatedAt"}:
+        raise AssertionError("the report with modules is not the fs report "
+                             f"less {vid} plus the Custom result")
+    return counts, {"modules": [n for n, _v in listed], "deleted": vid,
+                    "custom_resources": len(want),
+                    "vulnerabilities": sum(
+                        len(r.get("Vulnerabilities", []))
+                        for r in report["Results"]),
+                    "wall_s_fs": wall_s, "wall_s": phase_s}
+
+
+def run_extensions_at_size(tmp: str, table, db: str, root: str,
+                           fs_report: dict, figures: list) -> dict:
+    """extensions_phase on the card after the fs phase, its launches
+    those of `fs` (one shift-or, one join per batch with pairs on the
+    fs phase's routes) → its launch counts."""
+    counts, fig = extensions_phase(tmp, root, table, db, fs_report)
+    _expect_launches(counts, figures, "extensions")
+    phase("extensions", **fig, launches=counts["launches"],
+          prefilter_path=counts["prefilter_path"])
+    return counts["launches"]
+
+
+def run_language_phases(torch, tmp: str, image_files: list,
+                        native_build: dict) -> tuple:
+    """The `native` line (the helpers on `image_files`, the image
+    phase's secret candidates, and on the apps table's keys), then the
+    `fs`, `extensions`, `image_apps`, `sbom`, `ci`, `image_remote`,
+    `misconf`, `server`, `memo`, `vm`, `caches`, `stream`, `mesh`,
+    `fleet` and `k8s` phases over one apps table (`k8s` adds its
+    component rows), saved as .npz (written as a trivy.db for `ci`) →
+    ({path: launch counts}, {path: kernels on its inputs})."""
     from trivy_tpu_torch.db.table import FlattenMemo, build_table
     from trivy_tpu_torch.ops.constants import INEXACT
     rng = np.random.default_rng(SEED + 6)
@@ -7653,8 +7854,12 @@ def run_language_phases(torch, tmp: str) -> tuple:
                            for t in (lo, hi, flags, lo_pre, hi_pre)),
           npz_bytes=os.path.getsize(db), build_s=build_s,
           flatten_s=flatten_s)
-    fs_launches, at_fs, root, fs_report, detail, secrets = run_fs_at_size(
-        torch, tmp, table, db, names)
+    phase("native", **native_build, **native_checks(image_files, raw))
+    del image_files[:]
+    fs_launches, at_fs, root, fs_report, detail, secrets, fs_figures = \
+        run_fs_at_size(torch, tmp, table, db, names)
+    ext_launches = run_extensions_at_size(tmp, table, db, root, fs_report,
+                                          fs_figures)
     apps_launches, at_apps, apps_image, apps_report, apps_rows, \
         apps_batches = run_image_apps_at_size(torch, tmp, table, db, deb,
                                               names)
@@ -7691,7 +7896,8 @@ def run_language_phases(torch, tmp: str) -> tuple:
         stop_router(router)
     k8s_launches, at_k8s = run_k8s_at_size(torch, tmp, raw, deb, names,
                                            flatten)
-    return ({"fs": fs_launches, "image_apps": apps_launches,
+    return ({"fs": fs_launches, "extensions": ext_launches,
+             "image_apps": apps_launches,
              "sbom": sbom_launches, "ci": ci_launches,
              "image_remote": remote_launches, **misconf_launches,
              "server": server_launches, "memo": memo_launches,
@@ -7719,6 +7925,19 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    # an empty extension home for this process and every CLI process it
+    # starts: only the extensions phase installs modules, and removes them
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    os.environ["TRIVY_TPU_HOME"] = os.path.join(tmp, "home")
+    try:
+        return _main(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _main(torch, tmp: str) -> int:
+    from trivy_tpu_torch import native
+    from trivy_tpu_torch.detect.engine import BatchDetector
     from trivy_tpu_torch.ops import kernels
 
     smi = subprocess.run(
@@ -7728,34 +7947,32 @@ def main() -> int:
     kernels.library()
     phase("env", gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
           kernel_build_s=kernels.build_seconds)
+    native.library()
+    native_build = {"compiler": native.compiler(),
+                    "native_build_s": native.build_seconds}
     phase("ptxas", kernels=ptxas_report())
-    from trivy_tpu_torch.detect.engine import BatchDetector
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        root = os.path.join(tmp, "rootfs")
-        expected_secrets = make_rootfs(root)
-        at_main = check_main_path_shapes(torch, root)
-        rng = np.random.default_rng(SEED)
-        at_scale = {"shiftor": check_shiftor_at_scale(torch, rng)}
-        table, queries, n_names = scale_join_setup(torch, rng)
-        det = BatchDetector(table, device="cuda")
-        prep = det._prepare(queries)
-        at_scale["csr_join"] = join_case(torch, table, det, prep, "scale")
-        compact = check_compact_at_scale(torch, table, det, prep)
-        # this slice's path: installed versions mostly past every fix, so
-        # the hits fit the detector's hit buffer
-        few_hits = _scale_queries(
-            rng, n_names, _synth_versions(rng, 1900, 7, 9)
-            + _synth_versions(rng, 100, 4, 9))
-        detect_launches = run_detect_path(torch, table, few_hits)
-        edges = check_shiftor_edges(torch, np.random.default_rng(SEED + 1))
-        launches = run_rootfs(root, expected_secrets)
-        fixture_launches = run_image_fixture(tmp)
-        image_launches, at_image = run_image_at_size(torch, tmp)
-        language_launches, at_language = run_language_phases(torch, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    root = os.path.join(tmp, "rootfs")
+    expected_secrets = make_rootfs(root)
+    at_main = check_main_path_shapes(torch, root)
+    rng = np.random.default_rng(SEED)
+    at_scale = {"shiftor": check_shiftor_at_scale(torch, rng)}
+    table, queries, n_names = scale_join_setup(torch, rng)
+    det = BatchDetector(table, device="cuda")
+    prep = det._prepare(queries)
+    at_scale["csr_join"] = join_case(torch, table, det, prep, "scale")
+    compact = check_compact_at_scale(torch, table, det, prep)
+    # this slice's path: installed versions mostly past every fix, so
+    # the hits fit the detector's hit buffer
+    few_hits = _scale_queries(
+        rng, n_names, _synth_versions(rng, 1900, 7, 9)
+        + _synth_versions(rng, 100, 4, 9))
+    detect_launches = run_detect_path(torch, table, few_hits)
+    edges = check_shiftor_edges(torch, np.random.default_rng(SEED + 1))
+    launches = run_rootfs(root, expected_secrets)
+    fixture_launches = run_image_fixture(tmp)
+    image_launches, at_image, image_files = run_image_at_size(torch, tmp)
+    language_launches, at_language = run_language_phases(
+        torch, tmp, image_files, native_build)
     by_path = {"rootfs": launches, "detect": detect_launches,
                "image_fixture": fixture_launches, "image": image_launches,
                **language_launches}

@@ -51,6 +51,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import native
 from .. import version as V
 from ..db.table import AdvisoryTable
 from ..device import resolve_device
@@ -61,7 +62,6 @@ from ..obs.perf import LEDGER, stamp_table_resident
 from ..ops import bucket_ladder, bucket_size
 from ..ops import join as J
 from ..ops import next_pow2 as _next_pow2
-from ..ops.hashing import fnv1a64_batch
 from ..resilience import blameless_active
 
 # hit-buffer budget: the fraction of a dispatch's padded pairs the
@@ -272,14 +272,15 @@ class BatchDetector:
         return i
 
     def _hashes(self, keys: list[tuple[str, str]]) -> np.ndarray:
-        """→ uint64[len(keys)], hashing cold keys once."""
+        """→ uint64[len(keys)], hashing cold keys once, in one native
+        batch."""
         cache = self._hash_cache
         cold = list({ck for ck in keys if ck not in cache})
         if cold:
-            hv = fnv1a64_batch(
+            hv = native.fnv1a64_batch(
                 [s.encode() + b"\x00" + n.encode() for s, n in cold])
             with self._lock:
-                cache.update(zip(cold, hv))
+                cache.update(zip(cold, hv.tolist()))
         return np.fromiter((cache[ck] for ck in keys),
                            dtype=np.uint64, count=len(keys))
 

@@ -15,7 +15,8 @@ one (the digests of unpackaged binaries, for the Rekor post-handler).
 `file_patterns` ("analyzer:regex", --file-patterns)
 routes more paths to an analyzer, and `misconf` (misconf.MisconfSettings)
 carries the scan's user checks, helm overrides and rego trace to the
-config analyzers."""
+config analyzers. The loaded extension modules (module.py) join the
+dispatch, `required()` and the versions through set_module_analyzers."""
 
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ class AnalysisResult:
     # SystemInstalledFiles)
     system_installed_files: list = field(default_factory=list)
     build_info: Optional[T.BuildInfo] = None  # Red Hat content sets, nvr
+    custom_resources: list = field(default_factory=list)  # module output
     # path → sha256 digest of each unpackaged executable; consumed by the
     # unpackaged (Rekor) post-handler (reference AnalysisResult.Digests)
     digests: dict = field(default_factory=dict)
@@ -58,6 +60,7 @@ class AnalysisResult:
         self.misconfigurations.extend(other.misconfigurations)
         self.licenses.extend(other.licenses)
         self.system_installed_files.extend(other.system_installed_files)
+        self.custom_resources.extend(other.custom_resources)
         self.digests.update(other.digests)
         if other.build_info is not None:
             if self.build_info is None:
@@ -109,6 +112,17 @@ def register(cls):
 def register_post(cls):
     _POST_REGISTRY[cls.name] = cls
     return cls
+
+
+# extension modules (module.py): the loaded set takes part in dispatch
+# and in the cache-key versions like a built-in analyzer (reference
+# pkg/module Register hooks into the analyzer registry)
+_MODULE_ANALYZERS: list = []
+
+
+def set_module_analyzers(mods: list) -> None:
+    global _MODULE_ANALYZERS
+    _MODULE_ANALYZERS = list(mods)
 
 
 def _ensure_loaded():
@@ -181,10 +195,13 @@ class AnalyzerGroup:
         """name → version, for cache keys."""
         out = {a.name: a.version for a in self.analyzers}
         out.update({a.name: a.version for a in self.post_analyzers})
+        out.update({f"module:{m.name}": m.version
+                    for m in _MODULE_ANALYZERS})
         return out
 
     def required(self, path: str, size: int = -1) -> bool:
-        return any(self._wants(a, path, size) for a in self.analyzers)
+        return any(self._wants(a, path, size) for a in self.analyzers) \
+            or any(m.required(path) for m in _MODULE_ANALYZERS)
 
     def post_required(self, path: str, size: int = -1) -> bool:
         return any(self._wants(a, path, size) for a in self.post_analyzers)
@@ -200,6 +217,19 @@ class AnalyzerGroup:
                     r = a.analyze(path, content)
                 if r is not None:
                     result.merge(r)
+        # a module's failure is the user's code: the file goes on
+        # without its resource, as in the reference
+        for m in _MODULE_ANALYZERS:
+            if m.required(path):
+                try:
+                    with span("fanal.analyze",
+                              analyzer=f"module:{m.name}", path=path):
+                        data = m.analyze(path, content)
+                except Exception:  # noqa: BLE001 — user module code
+                    continue
+                if data:
+                    result.custom_resources.append({
+                        "Type": m.name, "FilePath": path, "Data": data})
 
     def analyze_batch(self, files: list, on_error=None) -> list:
         """The ingest pipeline's batched dispatch: one pass per analyzer
@@ -231,6 +261,24 @@ class AnalyzerGroup:
                         if results[i] is None:
                             results[i] = AnalysisResult()
                         results[i].merge(r)
+        for m in _MODULE_ANALYZERS:
+            wanted = [(i, p, c) for i, (p, c) in enumerate(files)
+                      if m.required(p)]
+            if not wanted:
+                continue
+            with span("fanal.analyze", analyzer=f"module:{m.name}",
+                      batched=True, files=len(wanted)):
+                for i, path, content in wanted:
+                    try:
+                        data = m.analyze(path, content)
+                    except Exception:  # noqa: BLE001 — user module code
+                        continue
+                    if data:
+                        if results[i] is None:
+                            results[i] = AnalysisResult()
+                        results[i].custom_resources.append({
+                            "Type": m.name, "FilePath": path,
+                            "Data": data})
         return results
 
     def post_analyze(self, files: dict, result: AnalysisResult) -> None:

@@ -92,6 +92,7 @@ def _apply_layers_impl(blobs: list[T.BlobInfo]) -> T.ArtifactDetail:
             f.layer = layer
         detail.misconfigurations.append(mc)
     for blob in blobs:
+        detail.custom_resources.extend(blob.custom_resources)
         detail.licenses.extend(blob.licenses)
         # degradation annotations squash additively in layer order: a
         # later complete layer cannot mask an earlier degraded one

@@ -298,6 +298,9 @@ def blob_from_json(j: dict) -> T.BlobInfo:
             confidence=li.get("Confidence", 1.0),
             link=li.get("Link", ""))
             for li in j.get("Licenses", [])],
+        # the modules' output survives the cache round trip into the
+        # Custom result (the JAX package's reader drops it)
+        custom_resources=j.get("CustomResources", []),
         build_info=T.BuildInfo(content_sets=bi_j.get("ContentSets", []),
                                nvr=bi_j.get("Nvr", ""),
                                arch=bi_j.get("Arch", ""))

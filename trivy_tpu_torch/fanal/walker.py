@@ -339,6 +339,7 @@ def blob_info(scan: BlobScan, diff_id: str = "",
         misconfigurations=sorted(r.misconfigurations,
                                  key=lambda m: m.file_path),
         licenses=r.licenses,
+        custom_resources=r.custom_resources,
         build_info=r.build_info,
         # the pipeline's annotations ride the BlobInfo and its cache
         # round trip into the report

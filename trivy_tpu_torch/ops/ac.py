@@ -24,6 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
+
 _LOWER = np.arange(256, dtype=np.uint8)
 _LOWER[65:91] += 32  # A-Z → a-z
 
@@ -152,12 +154,13 @@ def shiftor_scan(kw_words: torch.Tensor, kw_masks: torch.Tensor,
 def pack_chunks(files: list[bytes], chunk_len: int,
                 overlap: int) -> tuple[np.ndarray, np.ndarray]:
     """Pack lowercased file bytes into [B, chunk_len] with per-chunk file
-    index map [B]. Stride = chunk_len - overlap."""
+    index map [B]. Stride = chunk_len - overlap. Each file goes through
+    the native C++ packer; _pack_one_py is its plain version."""
     blocks, owner = [], []
     for fi, data in enumerate(files):
         if not data:
             continue
-        block = _pack_one_py(data, chunk_len, overlap)
+        block = native.lower_pack_chunks(data, chunk_len, overlap)
         if block.shape[0]:
             blocks.append(block)
             owner.extend([fi] * block.shape[0])

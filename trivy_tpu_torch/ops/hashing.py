@@ -41,8 +41,3 @@ def split_u64(values) -> np.ndarray:
     hi = (v >> np.uint64(32)).astype(np.int64) - (1 << 31)
     lo = (v & np.uint64(0xFFFFFFFF)).astype(np.int64) - (1 << 31)
     return np.stack([hi, lo], axis=-1).astype(np.int32)
-
-
-def fnv1a64_batch(keys: list) -> list:
-    """fnv1a64 over many byte strings (the detector's cold-key path)."""
-    return [fnv1a64(k) for k in keys]

@@ -207,6 +207,7 @@ def report_from_json(j: dict) -> T.Report:
                 file_path=lj.get("FilePath", ""),
                 name=lj.get("Name", ""),
                 confidence=lj.get("Confidence", 0)))
+        res.custom_resources = list(rj.get("CustomResources") or [])
         results.append(res)
     meta = j.get("Metadata") or {}
     os_j = meta.get("OS") or {}

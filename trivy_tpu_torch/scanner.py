@@ -45,6 +45,7 @@ from .detect.langpkg import LangpkgScanner
 from .detect.ospkg import OspkgScanner
 from .fanal.applier import apply_layers
 from .licensing import scan_license_name
+from .module import apply_post_scan, loaded_modules
 from .obs import cost as _cost
 from .obs import ensure_trace, span
 from .parallel.stream import StreamingDetector, StreamOptions, plan_slices
@@ -278,6 +279,15 @@ class LocalScanner:
                     secrets=sec.findings))
         if T.Scanner.LICENSE in options.scanners:
             results.extend(_license_results(detail))
+        # extension modules: their resources travel as one Custom result
+        # (module.go PostScan:478), then the post-scan hooks (reference
+        # post.Scan at pkg/scanner/local/scan.go:162)
+        if loaded_modules():
+            if detail.custom_resources:
+                results.append(T.Result(
+                    target="Custom", clazz=T.ResultClass.CUSTOM,
+                    custom_resources=detail.custom_resources))
+            results = apply_post_scan(results)
         return results
 
     def _vuln_result(self, vulns, target: str, clazz, rtype, packages,

@@ -129,6 +129,14 @@ def proto_blob_to_json(b: dict) -> dict:
             "Match": f.get("match", ""),
         } for f in s.get("findings", [])],
     } for s in b.get("secrets", [])]
+    # the extension modules' output (absent without modules, so such a
+    # blob converts as the JAX converter does)
+    if b.get("custom_resources"):
+        out["CustomResources"] = [{
+            "Type": c.get("type", ""),
+            "FilePath": c.get("file_path", ""),
+            "Data": c.get("data"),
+        } for c in b["custom_resources"]]
     return out
 
 
@@ -281,6 +289,11 @@ def results_to_proto(results: list[T.Result], os_info: T.OS) -> dict:
                                   for m in r.misconfigurations],
             "secrets": [_secret_proto(s) for s in r.secrets],
             "packages": [_pkg_proto(p) for p in r.packages],
+            "custom_resources": [{
+                "type": c.get("Type", ""),
+                "file_path": c.get("FilePath", ""),
+                "data": c.get("Data"),
+            } for c in r.custom_resources],
         }
         out_results.append(pr)
     return {

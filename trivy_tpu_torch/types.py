@@ -348,6 +348,8 @@ class BlobInfo(JsonMixin):
     misconfigurations: list = field(default_factory=list)  # [Misconfiguration]
     secrets: list = field(default_factory=list)         # [Secret]
     licenses: list = field(default_factory=list)        # [DetectedLicense]
+    # extension modules' output: [{"Type", "FilePath", "Data"}]
+    custom_resources: list = field(default_factory=list)
     build_info: Optional[BuildInfo] = None
     # per-stage degradation annotations (fanal/ingest.py); a non-empty
     # list marks this blob a PARTIAL analysis, cached only under a
@@ -378,6 +380,7 @@ class ArtifactDetail(JsonMixin):
     misconfigurations: list = field(default_factory=list)  # [Misconfiguration]
     secrets: list = field(default_factory=list)       # [Secret]
     licenses: list = field(default_factory=list)      # [DetectedLicense]
+    custom_resources: list = field(default_factory=list)
     # the blobs' annotations squashed in layer order (applier.py); the
     # scanner surfaces them as one ResultClass.INGEST result
     ingest_errors: list = field(default_factory=list)
@@ -532,6 +535,7 @@ class Result(JsonMixin):
     misconfigurations: list = field(default_factory=list)
     secrets: list = field(default_factory=list)
     licenses: list = field(default_factory=list)
+    custom_resources: list = field(default_factory=list)
     # degradation annotations (ResultClass.INGEST results)
     ingest_errors: list = field(default_factory=list)
     _json_names = {"clazz": "Class", "ingest_errors": "IngestErrors"}
@@ -546,8 +550,8 @@ class Result(JsonMixin):
             or self.misconf_summary.exceptions)
         return not (self.packages or self.vulnerabilities
                     or self.misconfigurations or self.secrets
-                    or self.licenses or self.ingest_errors
-                    or has_summary)
+                    or self.licenses or self.custom_resources
+                    or self.ingest_errors or has_summary)
 
 
 @dataclass
