@@ -382,6 +382,29 @@ was printed); any failure exits non-zero:
            cell's share of the rows at 4 cells ("at_mesh"). Figures: each
            grid's wall beside the resident detector's, dispatches,
            launches, the streamed grid's uploads, the server's round.
+  mesh_procs
+           a mesh across processes: this process is rank 0 of a
+           2-process gloo job on 127.0.0.1 whose rank 1, spawned before
+           the stream phase (so its start-up overlaps), runs the port's
+           follower loop on the same cuda:0 (mesh_follower_main). On the
+           stream phase's fresh table and batches: MeshDetector over the
+           job's two slots as 2×1 and 1×2, resident and streamed through
+           4 forced slices, each walked dense and compacted (hit buffers
+           of 128 that the fuller cells overflow): every batch's hits
+           equal to the resident detector's, the largest batch's bits
+           to BatchDetector's, rank 1 launching cells in every walk; the
+           fs phase's secret rows through sharded_shiftor_scan on 2×1
+           across the ranks, equal to one launch; an in-process server
+           with --mesh-devices -1 over the job (2×1) at c=16, each report
+           equal to the serial local one. Rank 1 reports its own launch
+           counts by kernel (csr_join, csr_join_compact and shiftor must
+           each be > 0, on cuda). Then rank 1 times its own cell of the
+           largest batch (1×2: cell (0, 1)) through both joins and its
+           half of the rows through shift-or, each against its plain
+           version there ("at_mesh_procs"). The group is destroyed and
+           rank 1 must exit 0. Figures: each walk's wall, the exchange's
+           wait, each detector's ship time and bytes, rank 1's start-up
+           (spawn to ready), the phase's wall.
   fleet    the router in front of two port servers: two in-process
            replicas on the card over the apps table (one object: they
            share its device arrays) and the server phase's FS cache,
@@ -441,8 +464,10 @@ largest blob the memo phase's sweep replayed), "at_vm" (the disk),
 "at_caches" (the image_apps image through the shared caches),
 "at_stream" (the largest advisory slice of the stream phase) and
 "at_mesh" (a 2×2 mesh cell of the largest batch; shift-or: one of 4
-cells' rows), "at_fleet" (the largest merged dispatch the fleet's
-replicas recorded; shift-or: the fresh artifacts' rows) and "at_k8s"
+cells' rows), "at_mesh_procs" (rank 1's cell of the largest batch and
+its half of the fs rows, timed on rank 1), "at_fleet" (the largest
+merged dispatch the fleet's replicas recorded; shift-or: the fresh
+artifacts' rows) and "at_k8s"
 (the largest join batch of the cluster's images; shift-or: their
 rows);
 the compacted join at its detect path's shapes; "launches" on the
@@ -456,6 +481,7 @@ there is no CUDA device or no port beside it.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -6803,6 +6829,348 @@ def run_mesh_at_size(torch, stream_state: tuple, clients: tuple,
     return counts, at
 
 
+# --- the mesh_procs phase: a mesh across two processes ----------------------
+
+MESH_PROCS_GRIDS = ((2, 1), (1, 2))
+# the compacted walks' hit buffer a cell: the fuller cells overflow it,
+# so the followers' second round (the dense bits) runs too
+MESH_PROCS_H_CAP = 128
+
+
+def spawn_mesh_follower(tmp: str, device: str) -> dict:
+    """Rank 1 of the mesh_procs phase's 2-process gloo job
+    (mesh_follower_main) on `device`, spawned ahead of the phases before
+    mesh_procs so that its start-up overlaps theirs → the process, its
+    log, its spawn time and rank 0's job environment."""
+    job = {"TRIVY_TPU_DIST_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "TRIVY_TPU_DIST_NPROC": "2"}
+    env = {**os.environ, **job, "TRIVY_TPU_DIST_PROC_ID": "1",
+           "CHIP_SMOKE_DEVICE": device,
+           "PYTHONPATH": os.pathsep.join(
+               [REPO, *filter(None, [os.environ.get("PYTHONPATH")])])}
+    follower = {"log": os.path.join(tmp, "mesh-follower.log"),
+                "spawned": time.time(),
+                "env": {**job, "TRIVY_TPU_DIST_PROC_ID": "0"}}
+    with open(follower["log"], "w") as log:
+        follower["proc"] = subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.mesh_follower_main()"],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return follower
+
+
+def stop_mesh_follower(follower: dict) -> int:
+    """Wait for the follower to leave (a minute at most, then kill it) →
+    its exit code."""
+    proc = follower["proc"]
+    try:
+        return proc.wait(60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait()
+
+
+def _bank_key(bank) -> str:
+    from trivy_tpu_torch.ops import shiftor as so
+    return hashlib.sha256(b"".join(
+        a.tobytes() for a in so.pack_bank(bank))).hexdigest()
+
+
+def mesh_follower_main() -> None:
+    """Rank 1 of the mesh_procs phase: the port's follower loop on
+    $CHIP_SMOKE_DEVICE, with two more requests that time this rank's own
+    launches on the shapes rank 0 sends (`time_join`: one of its cells'
+    dense and compacted joins against the plain join; `time_shiftor`:
+    its cell's share of the rows), and its start-up in `counts`."""
+    device = os.environ["CHIP_SMOKE_DEVICE"]
+    import torch
+
+    from trivy_tpu_torch.parallel import multihost
+    from trivy_tpu_torch.parallel.follower import Follower
+    from trivy_tpu_torch.secret import SecretScanner
+    ready = time.time()
+
+    class TimingFollower(Follower):
+        def handle(self, header, arrays):
+            if header["op"] == "time_join":
+                return self._time_join(header, arrays), ()
+            if header["op"] == "time_shiftor":
+                bank = SecretScanner(device=device)._bank
+                if _bank_key(bank) != header["key"]:
+                    raise ValueError("rank 1's default bank is not rank 0's")
+                return {"shiftor": shiftor_case(
+                    torch, bank, arrays[0], "mesh_procs_rank1_cell")}, ()
+            reply, out = super().handle(header, arrays)
+            if header["op"] == "counts":
+                reply["ready"] = ready
+            return reply, out
+
+        def _time_join(self, header, arrays):
+            from types import SimpleNamespace
+            held = self._get(header)
+            (d, s, total), = header["cells"]
+            dev = held.cells[(d, s)]
+            lo, hi, flags, lo_pre, hi_pre = held.shards[(dev, s)]
+            q = arrays[0][0]
+            qs, qc, qv = (torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                          for c in q)
+            inputs = ((lo, hi, flags, held.ver[dev], qs, qc, qv, total),
+                      (lo_pre, hi_pre))
+            prep = SimpleNamespace(
+                n_queries=int((q[1] > 0).sum()), n_pairs=total,
+                t_pad=header["t_loc"], q_start=q[0], q_count=q[1],
+                q_ver=q[2])
+            label = f"mesh_procs_rank1_cell{d}{s}"
+            return {"csr_join": join_case(torch, None, None, prep, label,
+                                          inputs=inputs),
+                    "csr_join_compact": compact_case(
+                        torch, None, None, prep, header["h_cap"], label,
+                        inputs=inputs)}
+
+    multihost.maybe_init_distributed()
+    TimingFollower(multihost.join_job(device)).serve()
+    multihost.leave_job()
+
+
+def _dispatch_bits(det, batch) -> np.ndarray:
+    """One batch's bits through `det`'s own prep and one dispatch,
+    dense, in pair order."""
+    from trivy_tpu_torch.detect.engine import BatchDetector, CompactBits
+    p = det._prepare(batch)
+    if isinstance(det, BatchDetector):
+        bits = det._fetch_bits(det._launch(
+            p.q_start, p.q_count, p.q_ver, p.n_queries, p.n_pairs, p.t_pad,
+            p.u_pad, h_cap=0))
+    else:
+        bits = det._fetch(det._dispatch(p.q_start, p.q_count, p.q_ver,
+                                        p.n_pairs, p.t_pad, p.u_pad))
+    if isinstance(bits, CompactBits):
+        bits = bits.dense()
+    return np.asarray(bits)[:p.n_pairs]
+
+
+def _mesh_overflows() -> int:
+    from trivy_tpu_torch.obs.perf import LEDGER
+    return sum(r["overflows"] for r in LEDGER.shape_table()
+               if r["site"] == "mesh")
+
+
+def largest_batch_bits(table, queries: list, device: str) -> tuple:
+    """The reference for mesh_procs_walks: the batch of the most pairs
+    and its bits through a BatchDetector on `table` → (its index, the
+    bits). Computed before the phase reads its launch counts."""
+    from trivy_tpu_torch.detect.engine import BatchDetector
+    bd = BatchDetector(table, device=device)
+    try:
+        preps = [bd._prepare(qs) for qs in queries]
+        big = max(range(len(queries)),
+                  key=lambda i: preps[i].n_pairs if preps[i] else 0)
+        return big, _dispatch_bits(bd, queries[big])
+    finally:
+        bd.close()
+
+
+def mesh_procs_walks(fresh, queries: list, want: list, largest: tuple,
+                     job, device: str) -> dict:
+    """MeshDetector over the job's two slots (rank 0's and rank 1's) on
+    each grid of MESH_PROCS_GRIDS, resident and streamed through
+    STREAM_SLICES forced slices, each walked dense and compacted
+    (MESH_PROCS_H_CAP): every batch's hits equal to `want` (the resident
+    single-device detector's), the largest batch's bits equal to
+    `largest` (largest_batch_bits), one ledger row at site "mesh" a
+    dispatch, and the follower launching cells in every walk → per
+    walk its figures, per detector its build and ship."""
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.obs.perf import LEDGER
+    from trivy_tpu_torch.parallel.mesh import MeshDetector
+    from trivy_tpu_torch.parallel.multihost import global_mesh
+    from trivy_tpu_torch.parallel.stream import StreamOptions
+    big, want_bits = largest
+    walks, builds = {}, {}
+    for dp, db in MESH_PROCS_GRIDS:
+        for stream in (None, StreamOptions(slices=STREAM_SLICES)):
+            name = f"{dp}x{db}" + ("_streamed" if stream else "")
+            t0 = time.perf_counter()
+            md = MeshDetector(fresh, global_mesh(db, device), stream=stream)
+            builds[name] = {"build_s": time.perf_counter() - t0,
+                            "ship_s": md.ship_s,
+                            "ship_bytes": md.ship_bytes}
+            if md.mesh.ranks.tolist() != ([[0], [1]] if dp == 2
+                                          else [[0, 1]]):
+                raise AssertionError(f"mesh_procs {name}: cells owned by "
+                                     f"{md.mesh.ranks.tolist()}")
+            try:
+                for route, h_cap in (("dense", 0),
+                                     ("compact", MESH_PROCS_H_CAP)):
+                    md._inner._hit_capacity = \
+                        lambda t_pad, budget=None, h=h_cap: h
+                    label = f"{name}_{route}"
+                    sites0 = LEDGER.site_dispatches().get("mesh", 0)
+                    over0 = _mesh_overflows()
+                    c0 = launch_counts()
+                    f0 = job.call(1, {"op": "counts"})[0]
+                    w0 = job.stats["wait_ms"]
+                    t0 = time.perf_counter()
+                    got = md.detect_many(queries)
+                    wall = time.perf_counter() - t0
+                    f1 = job.call(1, {"op": "counts"})[0]
+                    counts = {k: v - c0[k] for k, v in launch_counts().items()}
+                    follower = {k: v - f0["launches"][k]
+                                for k, v in f1["launches"].items()}
+                    dispatches = LEDGER.site_dispatches().get("mesh", 0) \
+                        - sites0
+                    for i, (g, w) in enumerate(zip(got, want)):
+                        if _hit_rows(g) != _hit_rows(w):
+                            raise AssertionError(
+                                f"mesh_procs {label}: batch {i}'s hits "
+                                "differ from the resident detector's")
+                    if not np.array_equal(_dispatch_bits(md, queries[big]),
+                                          want_bits):
+                        raise AssertionError(f"mesh_procs {label}: the "
+                                             "largest batch's bits differ")
+                    cells = f1["cells_launched"] - f0["cells_launched"]
+                    if stream is None and dispatches != len(queries):
+                        raise AssertionError(
+                            f"mesh_procs {label}: {dispatches} ledger rows "
+                            f"for {len(queries)} batches")
+                    kernel = "csr_join_compact" if h_cap else "csr_join"
+                    if not cells or (device == "cuda"
+                                     and not follower[kernel]):
+                        raise AssertionError(
+                            f"mesh_procs {label}: the follower launched "
+                            f"{cells} cells, {follower}")
+                    walks[label] = {
+                        "wall_s": wall, "dispatches": dispatches,
+                        "overflows": _mesh_overflows() - over0,
+                        "launches": counts, "follower_launches": follower,
+                        "follower_cells": cells,
+                        "exchange_wait_ms": job.stats["wait_ms"] - w0,
+                        "hits": sum(map(len, got)), "equal": True}
+            finally:
+                md.close()
+    if fresh._device:
+        raise AssertionError("mesh_procs: the fresh table was shipped "
+                             "whole")
+    return {"walks": walks, "detectors": builds}
+
+
+def mesh_procs_kernels(torch, fresh, queries: list, job, rows: np.ndarray,
+                       bank) -> dict:
+    """Rank 1's kernels on its own card: the largest batch partitioned
+    over the 1×2 grid, the follower's cell (0, 1) through its dense and
+    compacted joins against the plain join, timed there; and its half of
+    the rows through shift-or against the plain version, timed there →
+    {kernel: measurement}."""
+    from trivy_tpu_torch.parallel.mesh import (MeshDetector, cell_columns,
+                                               partition_queries)
+    from trivy_tpu_torch.parallel.multihost import global_mesh
+    md = MeshDetector(fresh, global_mesh(2, "cuda"))
+    try:
+        preps = [p for p in (md._prepare(qs) for qs in queries if qs)
+                 if p is not None and p.n_pairs]
+        prep = max(preps, key=lambda p: p.n_pairs)
+        part = partition_queries(md.st, prep.q_start, prep.q_count,
+                                 prep.q_ver, md.dp)
+        md._ver_by_device(prep.u_pad)
+        h_cap = md._inner._hit_capacity(part.t_loc) or MESH_PROCS_H_CAP
+        total = int(part.total[0, 1])
+        timed = job.call(1, {
+            "op": "time_join", "det": md._det_id, "digest": md._digest,
+            "t_loc": part.t_loc, "h_cap": h_cap,
+            "cells": [[0, 1, total]]}, [cell_columns(part, [(0, 1)])])[0]
+    finally:
+        md.close()
+    half = rows.shape[0] // 2
+    shiftor = job.call(1, {"op": "time_shiftor", "key": _bank_key(bank)},
+                       [rows[half:]])[0]["shiftor"]
+    figures = {"rank": 1, "grid": [1, 2], "cell": [0, 1],
+               "t_loc": part.t_loc, "batch_pairs": prep.n_pairs,
+               "cell_pairs": total}
+    return {"csr_join": {**figures, **timed["csr_join"]},
+            "csr_join_compact": {**figures, "h_cap": h_cap,
+                                 **timed["csr_join_compact"]},
+            "shiftor": {"rank": 1, "grid": [2, 1], "cell": [1, 0],
+                        **shiftor}}
+
+
+def mesh_procs_phase(fresh, table, queries: list, want: list,
+                     clients: tuple, secrets: tuple, follower: dict,
+                     device: str) -> tuple:
+    """The mesh across processes: this process is rank 0 of a 2-process
+    gloo job whose rank 1 is `follower` (spawn_mesh_follower) on the
+    same card. mesh_procs_walks; the fs phase's secret rows
+    (`secrets`: rows, bank) through sharded_shiftor_scan on the 2×1
+    grid, equal to one launch; mesh_servers over the job (a 2×1 mesh);
+    the follower's own launch counts by kernel; on the card, rank 1's
+    kernels timed there (mesh_procs_kernels). The group is destroyed at
+    the end, and the follower must exit 0 → (the figures, the launches
+    of both ranks on the phase's path, the kernels on rank 1)."""
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.ops import shiftor as so
+    from trivy_tpu_torch.parallel import multihost
+    from trivy_tpu_torch.parallel.mesh import sharded_shiftor_scan
+    rows, bank = secrets
+    t_phase = time.perf_counter()
+    try:
+        multihost.maybe_init_distributed(env=follower["env"])
+        job = multihost.join_job(device)
+        joined_s = time.perf_counter() - t_phase
+        # the reference's launches stay out of the phase's counts
+        largest = largest_batch_bits(table, queries, device)
+        c0 = launch_counts()
+        f0 = job.call(1, {"op": "counts"})[0]
+        walks = mesh_procs_walks(fresh, queries, want, largest, job,
+                                 device)
+        kww, kwm, kwb = so.pack_bank(bank)
+        scans = {2: sharded_shiftor_scan(multihost.global_mesh(1, device),
+                                         kww, kwm, rows, bank.words,
+                                         kw_bits=kwb)}
+        server = mesh_servers(fresh, clients, device)
+        f1 = job.call(1, {"op": "counts"})[0]
+        counts = {k: v - c0[k] for k, v in launch_counts().items()}
+        rank1 = {k: v - f0["launches"][k] for k, v in
+                 f1["launches"].items()}
+        shiftor = mesh_shiftor_check(scans, rows, bank, device)
+        if server["grid"] != [2, 1]:
+            raise AssertionError(f"mesh_procs server: grid {server['grid']}")
+        if device == "cuda" and (min(rank1.values()) == 0 or any(
+                not d.startswith("cuda") for d in f1["launched_on"])):
+            raise AssertionError(f"mesh_procs: rank 1 launched {rank1} on "
+                                 f"{f1['launched_on']}")
+        at = {}
+        if device == "cuda":
+            import torch
+            at = mesh_procs_kernels(torch, fresh, queries, job, rows, bank)
+        stats = dict(job.stats)
+    finally:
+        multihost.leave_job()
+        rc = stop_mesh_follower(follower)
+    if rc != 0:
+        with open(follower["log"], errors="replace") as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"mesh_procs: the follower exited {rc}:\n"
+                             f"{tail}")
+    fig = {"rows": len(fresh), "batches": len(queries),
+           "wall_s": time.perf_counter() - t_phase, "join_s": joined_s,
+           "follower_startup_s": f0["ready"] - follower["spawned"],
+           **walks, "shiftor": shiftor, "server": server,
+           "launches": counts, "rank1_launches": rank1,
+           "rank1_launched_on": f1["launched_on"], "exchange": stats}
+    return fig, {k: counts[k] + rank1[k] for k in counts}, at
+
+
+def run_mesh_procs_at_size(torch, table, stream_state: tuple,
+                           clients: tuple, secrets: tuple,
+                           follower: dict) -> tuple:
+    """The mesh_procs phase on the card → (launch counts of both ranks,
+    rank 1's kernels on its inputs)."""
+    fresh, queries, want, _resident_s = stream_state
+    fig, counts, at = mesh_procs_phase(fresh, table, queries, want, clients,
+                                       secrets, follower, "cuda")
+    phase("mesh_procs", **fig)
+    return counts, at
+
+
 # --- the fleet phase: the router in front of two port servers -------------
 
 FLEET_FRESH = 4       # new client checkouts analyzed through the router
@@ -7882,18 +8250,25 @@ def run_language_phases(torch, tmp: str, image_files: list,
     caches_launches, at_caches = run_caches_at_size(
         torch, tmp, table, db, names, apps_image, apps_report, apps_batches,
         apps_rows)
-    # the fleet's router starts while the stream and mesh phases run
+    # the fleet's router and the mesh_procs phase's follower start while
+    # the stream and mesh phases run
     router = spawn_router(tmp)
+    follower = spawn_mesh_follower(tmp, "cuda")
     try:
         stream_launches, at_stream, stream_state = run_stream_at_size(
             torch, table, apps_batches + scan_batches(table, detail),
             clients)
         mesh_launches, at_mesh = run_mesh_at_size(torch, stream_state,
                                                   clients, secrets)
+        procs_launches, at_procs = run_mesh_procs_at_size(
+            torch, table, stream_state, clients, secrets, follower)
         fleet_launches, at_fleet = run_fleet_at_size(
             torch, tmp, table, names, clients, router)
     finally:
         stop_router(router)
+        if follower["proc"].poll() is None:
+            follower["proc"].kill()
+            follower["proc"].wait()
     k8s_launches, at_k8s = run_k8s_at_size(torch, tmp, raw, deb, names,
                                            flatten)
     return ({"fs": fs_launches, "extensions": ext_launches,
@@ -7903,12 +8278,14 @@ def run_language_phases(torch, tmp: str, image_files: list,
              "server": server_launches, "memo": memo_launches,
              "vm": vm_launches, "caches": caches_launches,
              "stream": stream_launches, "mesh": mesh_launches,
-             "fleet": fleet_launches, "k8s": k8s_launches},
+             "mesh_procs": procs_launches, "fleet": fleet_launches,
+             "k8s": k8s_launches},
             {"at_fs": at_fs, "at_image_apps": at_apps, "at_sbom": at_sbom,
              "at_ci": at_ci, "at_image_remote": at_remote, **at_misconf,
              "at_server": at_server, "at_memo": at_memo, "at_vm": at_vm,
              "at_caches": at_caches, "at_stream": at_stream,
-             "at_mesh": at_mesh, "at_fleet": at_fleet, "at_k8s": at_k8s})
+             "at_mesh": at_mesh, "at_mesh_procs": at_procs,
+             "at_fleet": at_fleet, "at_k8s": at_k8s})
 
 
 def main() -> int:

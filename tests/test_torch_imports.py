@@ -56,7 +56,7 @@ need = ["trivy_tpu_torch." + m for m in (
     "parallel.mesh", "parallel.multihost", "fleet.ring", "fleet.router",
     "fleet.supervisor", "resilience.breaker", "k8s", "k8s.client",
     "k8s.kubeconfig", "k8s.scanner", "k8s.nodes", "k8s.fixtures",
-    "module", "plugin", "native")]
+    "module", "plugin", "native", "parallel.follower")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """

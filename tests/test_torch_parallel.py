@@ -51,8 +51,8 @@ site "mesh", "redetect" under blameless()); detectd over a streamed
 mesh; the sharded shift-or and SecretScanner(mesh=) against the
 JAX package; `server --mesh-devices 4 --device cpu` with a DB swap
 against the JAX server; the flags from argv, TRIVY_* and trivy.yaml;
-the A19 refusal in a faked 2-process job; and the chip script's
-`mesh` phase at a small size."""
+and the chip script's `mesh` phase at a small size. A mesh across the
+processes of a torch.distributed job is tests/test_torch_multiproc.py's."""
 
 import functools
 import glob
@@ -357,11 +357,6 @@ _PORT_SUBS = [
      "    import torch.distributed as _dist\n"
      "    monkeypatch.setattr(_dist, \"init_process_group\",\n"
      "                        FakeDistributed.initialize)\n"),
-    ("        assert multihost.maybe_init_distributed(env=env) is True\n"
-     "        assert calls ==",
-     "        assert multihost.maybe_init_distributed(env=env,\n"
-     "                                                device=\"cpu\")"
-     " is True\n        assert calls =="),
 ]
 _PORT_ENV = {
     "make_mesh": functools.partial(PM.make_mesh, device="cpu"),
@@ -862,41 +857,6 @@ def test_meshguard_flags_refuse_with_their_reason(tmp_path):
                       "--cache-dir", str(tmp_path), "--mesh-devices", "2",
                       flag, "1"])
         assert flag in str(e.value)
-
-
-def test_cross_process_mesh_refuses_naming_a19(monkeypatch, tmp_path):
-    """A faked 2-process job: the server joins it (a recorded
-    init_process_group, gloo for --device cpu), then --mesh-devices
-    exits naming ROADMAP A19, as global_mesh does; a single-device
-    server in the same job is not refused."""
-    import torch.distributed as dist
-    joined = []
-    monkeypatch.setattr(dist, "init_process_group",
-                        lambda **kw: joined.append(kw))
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_rank", lambda: 1)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    monkeypatch.setattr(PH, "_initialized", False)
-    for k, v in (("TRIVY_TPU_DIST_COORDINATOR", "127.0.0.1:29500"),
-                 ("TRIVY_TPU_DIST_NPROC", "2"),
-                 ("TRIVY_TPU_DIST_PROC_ID", "1")):
-        monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match="ROADMAP A19"):
-        cli.main(["server", "--device", "cpu", "--db", FIXGLOB,
-                  "--cache-dir", str(tmp_path), "--mesh-devices", "2"])
-    assert joined == [{"backend": "gloo",
-                       "init_method": "tcp://127.0.0.1:29500",
-                       "world_size": 2, "rank": 1}]
-    assert PH.process_info() == (1, 2)
-    assert PH.host_assignments([CPU] * 2) == {0: 1, 1: 1}
-    with pytest.raises(SystemExit, match="ROADMAP A19"):
-        PH.global_mesh(device="cpu")
-    adv, det, _ = load_fixture_files(FIXTURES)
-    httpd, state = serve_background("127.0.0.1", 0, build_table(adv, det),
-                                    str(tmp_path / "one"), device="cpu")
-    httpd.shutdown()
-    httpd.server_close()
-    state.close()
 
 
 def test_chip_mesh_phase_at_a_small_size_on_cpu(tmp_path):

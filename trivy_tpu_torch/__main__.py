@@ -798,19 +798,37 @@ def cmd_server(args) -> int:
     """The scan server (reference cli.py:1153): the table on the card,
     detectd merging concurrent scans' launches, until SIGTERM or SIGINT
     drains it. A multi-process job (TRIVY_TPU_DIST_*) is joined first,
-    as in the reference."""
-    from .detect.redetect import RedetectOptions
-    from .detect.sched import SchedOptions
-    from .parallel.multihost import maybe_init_distributed, process_info
-    from .parallel.stream import StreamOptions
-    from .resilience import AdmissionOptions
-    from .server.listen import LaunchRecord, MeshOptions, serve
-    if maybe_init_distributed(device=args.device):
+    as in the reference. With --mesh-devices every rank runs the same
+    command line: rank 0 serves over the mesh of every rank's slots,
+    the other ranks hold their cells' shards (no table of their own)
+    and launch them until rank 0 stops them."""
+    from .parallel import multihost
+    joined = multihost.maybe_init_distributed()
+    if joined:
         from .log import logger
-        rank, world = process_info()
+        rank, world = multihost.process_info()
         logger.info("joined multi-host job: process %d/%d", rank, world)
     _refuse_server_flags(args)
     device = resolve_device(args.device)
+    if not (joined and args.mesh_devices):
+        return _serve(args, device)
+    try:
+        if multihost.process_info()[0] > 0:
+            from .parallel.follower import follow
+            follow(multihost.join_job(device))
+            return 0
+        return _serve(args, device)
+    finally:
+        multihost.leave_job()
+
+
+def _serve(args, device) -> int:
+    """cmd_server's serving half, on `device`."""
+    from .detect.redetect import RedetectOptions
+    from .detect.sched import SchedOptions
+    from .parallel.stream import StreamOptions
+    from .resilience import AdmissionOptions
+    from .server.listen import LaunchRecord, MeshOptions, serve
     _configure_watch(args)
     # the ingest defaults (the tenant shares) for walks run in the
     # server's requests

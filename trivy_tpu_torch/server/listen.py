@@ -31,8 +31,10 @@ the slice plan under `stream`. With MeshOptions (`mesh_opts`; the CLI's
 a DB swap too (the new table re-sharded over the same mesh), joins over
 a dp×db mesh of the server's device type (parallel/mesh.py), one kernel
 launch per cell at ledger site "mesh" ("redetect" in redetectd's
-sweep). Not ported: meshguard, the breaker and its recovery; a mesh
-over more than one process (ROADMAP A19).
+sweep); in a torch.distributed job the mesh spans every rank's slots
+(multihost.global_mesh), this server is rank 0 and the other ranks run
+the follower loop, and /healthz shows each cell's rank under `mesh`.
+Not ported: meshguard, the breaker and its recovery.
 """
 
 from __future__ import annotations
@@ -167,13 +169,9 @@ class ServerState:
         # a table swap keeps it and re-shards the new table
         self.mesh = None
         if mesh_opts is not None and mesh_opts.devices:
-            from ..parallel.mesh import device_slots, mesh_from_devices
-            from ..parallel.multihost import CROSS_PROCESS, process_info
-            if process_info()[1] > 1:
-                raise SystemExit(f"--mesh-devices: {CROSS_PROCESS}")
-            self.mesh = mesh_from_devices(
-                device_slots(mesh_opts.devices, device),
-                mesh_opts.db_shards)
+            from ..parallel.multihost import global_mesh
+            self.mesh = global_mesh(mesh_opts.db_shards, device,
+                                    mesh_opts.devices)
         self.admission = AdmissionQueue(admission)
         self.launch_record = launch_record
         self._table = table
@@ -384,12 +382,27 @@ class ServerState:
         stream_status = getattr(scanner.detector, "status", None)
         if callable(stream_status):
             payload["stream"] = stream_status()
+        if self.mesh is not None:
+            payload["mesh"] = mesh_status(self.mesh)
         if self.memo is not None:
             memo = self.memo.status()
             if self.redetect is not None:
                 memo["sweep"] = self.redetect.status()
             payload["memo"] = memo
         return payload
+
+
+def mesh_status(mesh) -> dict:
+    """/healthz's `mesh`: the grid, each cell's rank and device (the
+    device as its rank names it), and the followers the job lost."""
+    dp, db = mesh.devices.shape
+    out = {"grid": [dp, db], "cells": [
+        {"cell": [d, s], "device": str(mesh.devices[d, s]),
+         "rank": 0 if mesh.ranks is None else int(mesh.ranks[d, s])}
+        for d in range(dp) for s in range(db)]}
+    if mesh.job is not None:
+        out["lost"] = {str(r): why for r, why in mesh.job.lost().items()}
+    return out
 
 
 class ScanServer(ThreadingHTTPServer):
