@@ -454,6 +454,31 @@ was printed); any failure exits non-zero:
            routes, timed, and the images' secret rows through shift-or
            ("at_k8s"). Figures: pull_s, inspect_s, detect_s, infra_s,
            wall_s and the counts of workloads, images, nodes, results.
+  storm    graftstorm (resilience/storm.py) in this process on the card,
+           over storm_table(n_pkgs=100000) (199,851 rows, built here and
+           held on the card by every server): first a schedule with one
+           failpoint event, which run_storm refuses (StormRefused naming
+           it) before any server starts; then three runs, the launch
+           counts set to 0 just before each and read just after, every
+           invariant required to pass: `fleet` (the router in front of 3
+           replicas sharing a cache and a result memo, c=8, 24 requests
+           of 3 tenants; replica 0 killed at 60 ms and restarted on its
+           port 400 ms later, a flood of 12 from a hostile tenant at 120
+           ms, a rolling upgrade to another table at 200 ms), `ingest`
+           (12 requests through the ingest pipeline and the sbom lane,
+           a truncated and a bomb window; every archive's token file
+           through shift-or with a two-rule bank, built and first
+           launched before the oracle pass) and `mesh` (a server over a
+           2×2 grid of 4 slots of the card, 12 requests of 2 tenants, a
+           flood of 12 and a table swap). Per run: the summary, each
+           invariant's verdict, the launches by kernel and the mesh
+           dispatches, and torch.cuda.memory_allocated before and after
+           (no more after: the killed, swapped and closed servers free
+           their tensors). Then the largest merged dispatch the fleet's
+           replicas recorded against the plain join on both routes, the
+           mesh run's largest request partitioned over the 2×2 grid
+           through both joins in every cell, and the ingest run's
+           largest request's rows through shift-or ("at_storm").
 
 Then the kernel table as one JSON line (rootfs shapes, with the
 largest scale case under "at_scale", the image's under "at_image", and
@@ -467,9 +492,10 @@ largest blob the memo phase's sweep replayed), "at_vm" (the disk),
 cells' rows), "at_mesh_procs" (rank 1's cell of the largest batch and
 its half of the fs rows, timed on rank 1), "at_fleet" (the largest
 merged dispatch the fleet's replicas recorded; shift-or: the fresh
-artifacts' rows) and "at_k8s"
+artifacts' rows), "at_k8s"
 (the largest join batch of the cluster's images; shift-or: their
-rows);
+rows) and "at_storm" (per run: the fleet's largest merged dispatch, the
+mesh run's largest cell, the ingest run's rows);
 the compacted join at its detect path's shapes; "launches" on the
 rootfs path, and on the detect path for the compacted join, with every
 path's count under "launches_by_path"), the card's name and power
@@ -676,11 +702,13 @@ def layerless_results(report: dict) -> list:
     return out
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Median milliseconds of fn() over `reps` runs, CUDA events, after
-    one warm-up call."""
+    one warm-up call (none with warm=False, for a function the caller
+    has just run on the same inputs)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -784,7 +812,7 @@ def shiftor_case(torch, bank, chunks: np.ndarray, label: str,
     share = filter_share(torch, x, index[1])
     ms = cuda_ms(kernel, reps)
     loop_ms = looped_ms(kernel)
-    plain_ms = cuda_ms(plain, 2)
+    plain_ms = cuda_ms(plain, 2, warm=False)
     # the function's inputs (the rows, pack_bank's arrays) read once, its
     # output written once; the index is this design's own derived input
     n_bytes = rows * length + sum(a.nbytes for a in packed) + \
@@ -860,7 +888,8 @@ def join_case(torch, table, det, prep, label: str, inputs=None) -> dict:
                              f"{int((got != want).sum())} slots differ")
     ms = cuda_ms(kernel, 20)
     loop_ms = looped_ms(kernel)
-    plain_ms = cuda_ms(lambda: J.csr_pair_join_plain(*args, t_pad), 2)
+    plain_ms = cuda_ms(lambda: J.csr_pair_join_plain(*args, t_pad), 2,
+                       warm=False)
     bound = join_bytes(args, prep, t_pad) / HBM_BYTES_PER_S * 1e3
     phase("kernels", kernel="csr_join", at=label, rows=rows,
           queries=prep.n_queries, pairs=prep.n_pairs, t_pad=t_pad,
@@ -4796,6 +4825,10 @@ def _pct(xs: list, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
+PROFILE_RESCANS = 3   # the c=16 round's further scans per artifact while
+                      # a /debug/profile capture is pending
+
+
 def server_phase(tmp: str, table, db: str, names: dict,
                  device: str = "cuda") -> dict:
     """`trivy server` as users deploy it: `python -m trivy_tpu_torch
@@ -4898,19 +4931,33 @@ def server_phase(tmp: str, table, db: str, names: dict,
 
         def c16_round(profile: bool = False):
             """All artifacts at once; with `profile`, a 17th thread asks
-            /debug/profile?ms=200 as the round starts."""
+            /debug/profile?ms=200 as the round starts, and every worker
+            scans its artifact again, up to PROFILE_RESCANS times, until
+            that capture has returned (the window opens only once the
+            server's profiler has started, which can come after a fast
+            round's last join; unbounded, the traffic slows the capture
+            it waits for)."""
             got = [None] * len(refs)
+            more = []
             barrier = threading.Barrier(len(refs) + profile)
             prof = {}
+            captured = threading.Event()
 
             def worker(i):
                 barrier.wait()
                 got[i] = scan(i)
+                for _ in range(PROFILE_RESCANS if profile else 0):
+                    if captured.is_set():
+                        break
+                    more.append((i, scan(i)))
 
             def profiler():
                 barrier.wait()
-                prof["doc"] = _debug(base, "profile?ms=200",
-                                     allow_error=True)
+                try:
+                    prof["doc"] = _debug(base, "profile?ms=200",
+                                         allow_error=True)
+                finally:
+                    captured.set()
             threads = [threading.Thread(target=worker, args=(i,))
                        for i in range(len(refs))]
             if profile:
@@ -4921,7 +4968,7 @@ def server_phase(tmp: str, table, db: str, names: dict,
             for t in threads:
                 t.join(600)
             wall = time.perf_counter() - t0
-            for i, res in enumerate(got):
+            for i, res in [*enumerate(got), *more]:
                 if res is None or res[0] != serial[i]:
                     raise AssertionError(f"server: artifact {i}'s c=16 "
                                          "report differs from its c=1 one")
@@ -6742,7 +6789,7 @@ def mesh_servers(fresh, clients: tuple, device: str) -> dict:
             "reports_equal": True}
 
 
-def mesh_kernels(torch, fresh, queries: list) -> dict:
+def mesh_kernels(torch, fresh, queries: list, label: str = "mesh") -> dict:
     """The largest batch partitioned over a 2×2 mesh of the card: every
     cell's dense and compacted join launch against its plain version on
     that cell's own operands (its shard, prefix planes and descriptors),
@@ -6788,7 +6835,7 @@ def mesh_kernels(torch, fresh, queries: list) -> dict:
                     q_start=cols[0], q_count=cols[1], q_ver=cols[2]),
                     inputs))
         _total, cell, cprep, inputs = max(cases, key=lambda c: c[0])
-        label = f"mesh_cell{cell[0]}{cell[1]}"
+        label = f"{label}_cell{cell[0]}{cell[1]}"
         dense = join_case(torch, None, None, cprep, label, inputs=inputs)
         compact = compact_case(torch, None, None, cprep, h_cap, label,
                                inputs=inputs)
@@ -8192,6 +8239,210 @@ def run_extensions_at_size(tmp: str, table, db: str, root: str,
     return counts["launches"]
 
 
+# --- storm: graftstorm's schedules against the port's servers -----------
+
+STORM_PKGS = 100_000   # storm_table(n_pkgs=...): 199,851 interval rows
+
+
+def storm_runs(requests: int = 24) -> dict:
+    """The storm phase's three runs → {name: (schedule, options)}: a
+    fleet of 3 replicas (the CLI's defaults, c=8) with replica 0 killed
+    at 60 ms for 400 ms, a rolling DB upgrade at 200 ms and a tenant
+    flood of 12; the ingest pipeline with a truncated and a bomb window
+    (every request's token file through shift-or); a 4-slot mesh with a
+    table swap under a tenant flood."""
+    from trivy_tpu_torch.resilience.storm import (Schedule, StormEvent,
+                                                  StormOptions)
+    half = max(requests // 2, 2)
+    return {
+        "fleet": (Schedule(seed=2261, topology="fleet", horizon_ms=1200.0,
+                           events=[
+            StormEvent(at_ms=60.0, kind="kill_replica", replica=0,
+                       dur_ms=400.0),
+            StormEvent(at_ms=120.0, kind="adversarial_tenant", arg=12.0),
+            StormEvent(at_ms=200.0, kind="db_swap")]),
+            StormOptions(requests=requests, concurrency=8, replicas=3,
+                         tenants=3)),
+        "ingest": (Schedule(seed=2262, topology="ingest",
+                            horizon_ms=1500.0, events=[
+            StormEvent(at_ms=100.0, kind="hostile_layer",
+                       variant="truncated", dur_ms=400.0),
+            StormEvent(at_ms=600.0, kind="hostile_layer", variant="bomb",
+                       dur_ms=500.0)]),
+            StormOptions(requests=half, concurrency=4)),
+        "mesh": (Schedule(seed=2263, topology="mesh", horizon_ms=1000.0,
+                          events=[
+            StormEvent(at_ms=100.0, kind="adversarial_tenant", arg=12.0),
+            StormEvent(at_ms=150.0, kind="swap_table")]),
+            StormOptions(requests=half, concurrency=8, mesh_devices=4,
+                         mesh_db_shards=2, tenants=2)),
+    }
+
+
+def _largest_request(opts, seed: int) -> dict:
+    """The run's request doc with the most packages (its first on a
+    tie)."""
+    from trivy_tpu_torch.resilience.storm import request_doc
+    docs = [request_doc(opts.load_seed or seed, i)
+            for i in range(opts.requests)]
+    return max(docs, key=lambda d: len(d["PackageInfos"][0]["Packages"]))
+
+
+def storm_refusal(table, device: str) -> dict:
+    """A schedule with one failpoint event: run_storm raises StormRefused
+    naming it, before any server starts (no thread, no launch)."""
+    import threading
+
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.resilience.storm import (Schedule, StormEvent,
+                                                  StormRefused, run_storm)
+    ev = StormEvent(at_ms=50.0, site="detect.dispatch", mode="error",
+                    dur_ms=200.0)
+    threads0 = {t.ident for t in threading.enumerate()}
+    counts0 = launch_counts()
+    try:
+        run_storm(Schedule(seed=1, topology="single", horizon_ms=500.0,
+                           events=[ev]), table=table, device=device)
+    except StormRefused as e:
+        refused = e.refused
+    else:
+        raise AssertionError("storm: a failpoint schedule ran")
+    started = {t.ident for t in threading.enumerate()} - threads0
+    if [label for label, _ in refused] != [ev.label()] or started \
+            or launch_counts() != counts0:
+        raise AssertionError(f"storm: refusal {refused}")
+    return {"refused": refused}
+
+
+def storm_phase(table, device: str = "cuda", requests: int = 24) -> dict:
+    """graftstorm on `device`: each of storm_runs' schedules through
+    run_storm over `table`, the launch counts set to 0 just before each
+    run and read just after; every invariant must pass. Per run: the
+    summary, each invariant's verdict, the launches by kernel, the mesh
+    dispatches, the card's allocated bytes before and after (the killed
+    and swapped-out servers free theirs), and (fleet) the merged
+    dispatches the replicas recorded → the figures."""
+    import gc
+
+    from trivy_tpu_torch.__main__ import launch_counts
+    from trivy_tpu_torch.obs.perf import LEDGER
+    from trivy_tpu_torch.ops import join as J
+    from trivy_tpu_torch.ops import shiftor as so
+    from trivy_tpu_torch.resilience.storm import INVARIANTS, run_storm
+    from trivy_tpu_torch.server.listen import LaunchRecord
+    cuda = device == "cuda"
+    if cuda:
+        import torch
+        table.device_arrays(torch.device("cuda"))   # held by every server
+
+    def allocated():
+        gc.collect()
+        if not cuda:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+    fig = {"refusal": storm_refusal(table, device)}
+    for name, (sched, opts) in storm_runs(requests).items():
+        record = LaunchRecord(per_kind=64)
+        mesh0 = LEDGER.site_dispatches().get("mesh", 0)
+        mem0 = allocated()
+        for fn in (J.csr_join_cuda, J.csr_join_compact_cuda, so.shiftor_cuda):
+            fn.launches = 0
+        rep = run_storm(sched, opts, table=table, device=device,
+                        launch_record=record)
+        launches = launch_counts()
+        mem1 = allocated()
+        summary = rep.summary()
+        run = {"summary": summary,
+               "invariants": {k: rep.violations.get(k, "pass")
+                              for k in INVARIANTS},
+               "launches": launches,
+               "mesh_dispatches": LEDGER.site_dispatches().get("mesh", 0)
+               - mesh0,
+               "memory_allocated": {"before": mem0, "after": mem1},
+               "flood": summary.get("flood"),
+               "records": [e for e in record.entries
+                           if int(e["rows"]) == len(table)]}
+        if not rep.ok or any(o is None for o in rep.outcomes):
+            raise AssertionError(f"storm {name}: {summary}")
+        if cuda and mem1 > mem0:
+            raise AssertionError(f"storm {name}: the card holds {mem1} "
+                                 f"bytes after the run, {mem0} before")
+        fig[name] = run
+    return fig
+
+
+def storm_secret_rows(opts, seed: int):
+    """The ingest run's largest request's secret candidates (the files of
+    its clean archive) packed as the ingest topology's two-rule scanner
+    packs them → (rows padded to a launch, the bank, rows)."""
+    from trivy_tpu_torch.ops import ac, next_pow2
+    from trivy_tpu_torch.resilience.storm import ingest_layers
+    from trivy_tpu_torch.secret import BUILTIN_RULES, SecretScanner
+    from trivy_tpu_torch.secret.engine import CHUNK_LEN
+    files = [data for layer in ingest_layers(_largest_request(opts, seed))
+             for data in layer.values()]
+    bank = SecretScanner(rules=[r for r in BUILTIN_RULES if r.id in (
+        "github-pat", "aws-access-key-id")], device="cpu")._bank
+    chunks, _ = ac.pack_chunks(files, CHUNK_LEN, bank.max_kw_len - 1)
+    padded = np.zeros((next_pow2(chunks.shape[0], floor=64), CHUNK_LEN),
+                      np.uint8)
+    padded[:chunks.shape[0]] = chunks
+    return padded, bank, int(chunks.shape[0])
+
+
+def run_storm_at_size(torch) -> tuple:
+    """The storm phase on the card over storm_table(n_pkgs=STORM_PKGS),
+    built here and held on the card by every server; then the largest
+    merged dispatch the fleet's replicas recorded against the plain join
+    on both routes (timed), every cell of the mesh run's largest request
+    on the 2×2 grid through both joins, and the ingest run's largest
+    request's rows through shift-or with its two-rule bank ("at_storm")
+    → ({path: launch counts}, {kernel: {run: measurement}})."""
+    from trivy_tpu_torch.detect.engine import PkgQuery
+    from trivy_tpu_torch.resilience.storm import storm_table
+    t0 = time.perf_counter()
+    table = storm_table(n_pkgs=STORM_PKGS)
+    build_s = time.perf_counter() - t0
+    fig = storm_phase(table)
+    counts = {f"storm_{name}": fig[name]["launches"]
+              for name in ("fleet", "ingest", "mesh")}
+    if counts["storm_ingest"]["shiftor"] < 1 \
+            or counts["storm_fleet"]["csr_join"] < 1 \
+            or counts["storm_mesh"]["csr_join"] < 1 \
+            or fig["mesh"]["mesh_dispatches"] < 1:
+        raise AssertionError(f"storm: launches {counts}, mesh dispatches "
+                             f"{fig['mesh']['mesh_dispatches']}")
+    records = fig["fleet"].pop("records")
+    fig["ingest"].pop("records")
+    fig["mesh"].pop("records")
+    if not records:
+        raise AssertionError("storm: the fleet recorded no dispatch")
+    e = max(records, key=lambda x: int(x["launch_total"]))
+    m = merged_case(torch, table, e, "storm_fleet")
+    at = {"csr_join_compact" if m["h_cap"] else "csr_join": {"fleet": m}}
+    other = "csr_join" if m["h_cap"] else "csr_join_compact"
+    at[other] = {"fleet": {"forced": True, **merged_case(
+        torch, table, dict(e, h_cap=np.int64(0 if m["h_cap"] else 128)),
+        "storm_fleet_" + other)}}
+    sched, opts = storm_runs()["mesh"]
+    doc = _largest_request(opts, sched.seed)
+    queries = [PkgQuery(source="alpine 3.17", ecosystem="alpine",
+                        name=p["SrcName"], version=p["SrcVersion"])
+               for p in doc["PackageInfos"][0]["Packages"]]
+    for kernel, case in mesh_kernels(torch, table, [queries],
+                                     "storm_mesh").items():
+        at[kernel]["mesh"] = case
+    sched, opts = storm_runs()["ingest"]
+    padded, bank, rows = storm_secret_rows(opts, sched.seed)
+    at["shiftor"] = {"ingest": shiftor_case(torch, bank, padded,
+                                            "storm_ingest")}
+    phase("storm", table_rows=len(table), table_build_s=build_s,
+          **fig, ingest_secret_rows=rows,
+          wall_s=time.perf_counter() - t0)
+    return counts, at
+
+
 def run_language_phases(torch, tmp: str, image_files: list,
                         native_build: dict) -> tuple:
     """The `native` line (the helpers on `image_files`, the image
@@ -8350,9 +8601,10 @@ def _main(torch, tmp: str) -> int:
     image_launches, at_image, image_files = run_image_at_size(torch, tmp)
     language_launches, at_language = run_language_phases(
         torch, tmp, image_files, native_build)
+    storm_launches, at_language["at_storm"] = run_storm_at_size(torch)
     by_path = {"rootfs": launches, "detect": detect_launches,
                "image_fixture": fixture_launches, "image": image_launches,
-               **language_launches}
+               **language_launches, **storm_launches}
     rows = []
     for name, source, replaces in KERNELS[:2]:
         rows.append({"name": name, "route": "cuda", "source": source,

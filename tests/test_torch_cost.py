@@ -9,7 +9,9 @@ every case of tests/test_cost.py runs here but the ones below.
     both packages' cost singletons reset first.
   * Every other case runs against the port alone (ledger clocks, context
     managers and process-wide series), its live server on the CPU with
-    warmup on.
+    warmup on. TestStormConservationDrill drives the port's graftstorm
+    (resilience/storm.py) on the CPU, without the FAILPOINTS and GUARD
+    resets the port has nothing for.
 
 Not run, with what they need:
   * TestDedupApportionment::test_two_tenants_shared_base_layer_one_
@@ -17,10 +19,6 @@ Not run, with what they need:
     failpoints are not ported by the north star).
     test_dedup_apportionment_parks_detectd_without_failpoints below
     holds the same property, with a slowed launch.
-  * TestStormConservationDrill::test_fleet_kill_c8_three_tenants_
-    conserves — graftstorm (`resilience/storm.py`, ROADMAP A20) and the
-    GUARD and FAILPOINTS it resets; the fleet it drives is ported
-    (tests/test_torch_fleet.py).
 
 Beside them: conservation holds after concurrent scans of several
 tenants through the live server.
@@ -49,7 +47,7 @@ _TWIN = ("TestHeaderCodec::", "TestCheckCosts::",
          "TestLedgerAndApportionment::test_unattributed_charge_lands_in_",
          "TestLedgerAndApportionment::test_queue_ms_outside_request_",
          "TestLedgerAndApportionment::test_shares_split_pro_rata_")
-_NOT_RUN = ("TestDedupApportionment::", "TestStormConservationDrill::")
+_NOT_RUN = ("TestDedupApportionment::",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,7 +133,15 @@ def test_cost_case_like_reference(cls, fn, given, request, _both_reset):
     "test_cost.py",
     keep=lambda c: not c.startswith(_TWIN + _NOT_RUN),
     subs=[("from helpers import parse_exposition",
-           "from trivy_tpu_torch.obs.exposition import parse_exposition")]))
+           "from trivy_tpu_torch.obs.exposition import parse_exposition"),
+          # the storm drill: the port has no failpoints and no device
+          # breaker to reset, and its servers run on the CPU here
+          ("        from trivy_tpu_torch.resilience import FAILPOINTS, GUARD\n",
+           ""),
+          ('        FAILPOINTS.configure("")\n        GUARD.reset_for_tests()\n',
+           ""),
+          ("report = run_storm(sched, opts, table=table)",
+           "report = run_storm(sched, opts, table=table, device=\"cpu\")")]))
 def test_cost_case_on_port(cls, fn, given, request):
     run_case(cls, fn, request, given)
 

@@ -654,3 +654,43 @@ def test_fleet_on_cuda_equals_cpu_fleet(cuda, tmp_path):
                 st.close()
     assert reports[0] == reports[1]
     assert "CVE-2023-0286" in str(reports[0][0])
+
+
+def test_storm_fleet_drill_on_cuda_joins_equal_plain(cuda):
+    """graftstorm's fleet drill on the card (resilience/storm.py): three
+    replicas behind the router, replica 0 killed and restarted, a rolling
+    DB upgrade and a tenant flood; every invariant passes, the joins
+    launched on the card, and each merged dispatch the replicas recorded
+    equals the plain join on the same descriptors and version pool, and
+    the oracles equal the same drill's on the CPU."""
+    from trivy_tpu_torch.resilience.storm import (Schedule, StormEvent,
+                                                  StormOptions, run_storm,
+                                                  storm_table)
+    from trivy_tpu_torch.server.listen import LaunchRecord
+    table = storm_table(n_pkgs=64)
+    sched = Schedule(seed=71, topology="fleet", horizon_ms=1000.0, events=[
+        StormEvent(at_ms=60.0, kind="kill_replica", replica=0,
+                   dur_ms=300.0),
+        StormEvent(at_ms=100.0, kind="adversarial_tenant", arg=8.0),
+        StormEvent(at_ms=200.0, kind="db_swap")])
+    opts = StormOptions(requests=12, concurrency=4, replicas=3, tenants=3)
+    record = LaunchRecord(per_kind=32)
+    before = J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches
+    rep = run_storm(sched, opts, table=table, device="cuda",
+                    launch_record=record)
+    assert rep.ok, rep.violations
+    assert J.csr_join_cuda.launches + J.csr_join_compact_cuda.launches \
+        > before
+    entries = [e for e in record.entries if e["rows"] == len(table)]
+    assert entries
+    lo, hi, flags, _lo_pre, _hi_pre = table.device_arrays(cuda)
+    for e in entries:
+        ver = torch.from_numpy(e["ver"]).to(cuda)
+        cols = [torch.from_numpy(np.ascontiguousarray(e[k])).to(cuda)
+                for k in ("q_start", "q_count", "q_ver")]
+        plain = J.csr_pair_join_plain(lo, hi, flags, ver, *cols,
+                                      int(e["total"]), int(e["t_pad"]))
+        np.testing.assert_array_equal(plain.cpu().numpy(), e["bits"])
+    cpu = run_storm(sched, opts, table=table, device="cpu")
+    assert cpu.ok, cpu.violations
+    assert rep.oracle == cpu.oracle

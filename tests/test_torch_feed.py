@@ -25,12 +25,11 @@ import torch
 
 from trivy_tpu.detect import feed as ref_feed
 from trivy_tpu.resilience.hostjoin import CompactBits as RefCompactBits
-from trivy_tpu.resilience.storm import storm_table
-from trivy_tpu_torch.db.table import AdvisoryTable
 from trivy_tpu_torch.detect import engine as DE
 from trivy_tpu_torch.detect import feed as _feed
 from trivy_tpu_torch.detect.engine import BatchDetector, CompactBits, PkgQuery
 from trivy_tpu_torch.detect.sched import DispatchScheduler, SchedOptions
+from trivy_tpu_torch.resilience.storm import storm_table
 
 JOIN_TIMEOUT = 120
 PLAN_FIELDS = ("u_start", "u_count", "u_ver", "n_unique", "unique_total",
@@ -40,10 +39,9 @@ PLAN_FIELDS = ("u_start", "u_count", "u_ver", "n_unique", "unique_total",
 
 @pytest.fixture(scope="module")
 def big_table():
-    ref = storm_table(n_pkgs=96)
-    return AdvisoryTable.from_numpy(ref.hash, ref.lo_tok, ref.hi_tok,
-                                    ref.flags, ref.group, ref.groups,
-                                    ref.window, ref.details, ref.aux)
+    # the port's graftstorm table, column for column the JAX package's
+    # (tests/test_torch_storm.py test_workload_equals_reference)
+    return storm_table(n_pkgs=96)
 
 
 def _keys(hits):

@@ -118,7 +118,14 @@ _TWIN = ("TestHashRing::",)
 _NOT_RUN = ("TestFailover::test_rpc_route_chaos_flaky_forwards_all_succeed",
             "TestFailpointGrammar::")
 _PORT_SUBS = [("cache_backend=self.cache_url)",
-               "cache_backend=self.cache_url, device=\"cpu\")")]
+               "cache_backend=self.cache_url, device=\"cpu\")"),
+              # TestTenantFailover kills the first replica, which owns
+              # none of the case's six keys in 1.3% of port draws: then
+              # nothing fails over and its failover count cannot move.
+              # The ring owner of key 0 always holds a key
+              ("fleet.kill_replica(next(iter(fleet.replicas)))",
+               "fleet.kill_replica(\n"
+               "            fleet.state.ring.node_for(blob_doc(0)[\"DiffID\"]))")]
 
 
 def test_every_reference_case_is_accounted_for():

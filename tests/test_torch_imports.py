@@ -56,7 +56,8 @@ need = ["trivy_tpu_torch." + m for m in (
     "parallel.mesh", "parallel.multihost", "fleet.ring", "fleet.router",
     "fleet.supervisor", "resilience.breaker", "k8s", "k8s.client",
     "k8s.kubeconfig", "k8s.scanner", "k8s.nodes", "k8s.fixtures",
-    "module", "plugin", "native", "parallel.follower")]
+    "module", "plugin", "native", "parallel.follower",
+    "resilience.storm")]
 bad += [m for m in need if m not in names]
 print(len(names), bad)
 """

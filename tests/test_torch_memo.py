@@ -15,8 +15,7 @@ after a DB swap (detect/redetect.py) and the delta flatten
     live server on the CPU, and TestFleetDedupDrill: four CPU replicas
     sharing one memo behind the port's router (fleet/router.py),
     across a rolling DB swap. Their `trivy_tpu.resilience.storm` imports
-    (`_post`, `canonical_digest`; graftstorm is ROADMAP A20) are the
-    copies below.
+    (`_post`, `canonical_digest`) are the port's graftstorm's.
 
 Not run, with what they need:
   * TestRedetectd::test_sweep_faults_never_charge_the_backend_breaker
@@ -34,7 +33,6 @@ the other's, the `server --memo-backend` CLI, and the chip script's
 `memo` phase at a small size on the CPU."""
 
 import functools
-import hashlib
 import json
 import os
 import signal
@@ -43,7 +41,6 @@ import subprocess
 import sys
 import threading
 import time
-import urllib.error
 import urllib.request
 
 import numpy as np
@@ -60,33 +57,6 @@ from trivy_tpu_torch.scanner import LocalScanner
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXGLOB = os.path.join(REPO, "tests", "fixtures", "db", "*.yaml")
-
-
-# ---- the storm helpers the JAX file imports ------------------------------
-
-def _post(base: str, route: str, doc: dict, timeout: float,
-          headers: dict | None = None):
-    """→ (status, headers, parsed JSON body); HTTP error statuses are
-    returned, not raised (trivy_tpu/resilience/storm.py _post)."""
-    req = urllib.request.Request(
-        base + route, data=json.dumps(doc).encode(),
-        headers={"Content-Type": "application/json", **(headers or {})},
-        method="POST")
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, dict(r.headers), json.loads(r.read())
-    except urllib.error.HTTPError as e:
-        body = e.read()
-        try:
-            parsed = json.loads(body) if body else {}
-        except json.JSONDecodeError:
-            parsed = {"_raw": body.decode(errors="replace")[:200]}
-        return e.code, dict(e.headers), parsed
-
-
-def canonical_digest(doc: dict) -> str:
-    return hashlib.sha256(json.dumps(
-        doc, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
 
 
 # ---- the twins' helpers ---------------------------------------------------
@@ -112,13 +82,16 @@ class _TwinJson:
         return port
 
 
-_IMPORTS = [("from {root}.resilience import FAILPOINTS, GUARD\n", ""),
-            ("from {root}.resilience.storm import _post, "
-             "canonical_digest\n", "")]
+_IMPORTS = [("from {root}.resilience import FAILPOINTS, GUARD\n", "")]
+# the twin cases use neither helper: a twin of `_post` would send each
+# request twice
+_TWIN_IMPORTS = [("from {root}.resilience.storm import _post, "
+                  "canonical_digest\n", "")]
 
 
 def _subs(root: str, more=()) -> list:
-    return [(a.format(root=root), b) for a, b in _IMPORTS] + list(more)
+    imports = _IMPORTS + (_TWIN_IMPORTS if root != PORT else [])
+    return [(a.format(root=root), b) for a, b in imports] + list(more)
 
 
 _TWIN = ("TestMemoStore::test_open_memo_spellings",
@@ -134,8 +107,7 @@ _OWN = ("TestMemoStore::test_backend_fault_degrades_never_raises",
 _NOT_RUN = (
     "TestRedetectd::test_sweep_faults_never_charge_the_backend_breaker",
     "TestRedetectd::test_blameless_never_consumes_the_halfopen_probe")
-_PORT_ENV = {"LocalScanner": functools.partial(LocalScanner, device="cpu"),
-             "_post": _post, "canonical_digest": canonical_digest}
+_PORT_ENV = {"LocalScanner": functools.partial(LocalScanner, device="cpu")}
 _PORT_SUBS = [("memo_backend=memo, **kw)",
                "memo_backend=memo, device=\"cpu\", **kw)"),
               ("cache_backend=shared_cache, memo_backend=shared_memo)",

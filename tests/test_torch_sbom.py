@@ -26,12 +26,18 @@ package's, on the CPU, with the same inputs:
   the document through redetectd's sweep, whose entry the next scan
   replays.
 
+- TestStormSBOMLane::test_ingest_fault_menu_sites_are_cataloged against
+  the port's graftstorm (resilience/storm.py): its ingest fault menu,
+  kept as the JAX package's data, names sites of the JAX failpoint
+  catalog (the port has none to check against).
+
 Not mirrored here: the cases of tests/test_sbom.py for the parse
-breaker and watchdog, the failpoints, the server route and the storm
-lane. The breaker, watchdog and failpoints are not ported by design
-(ROADMAP, "Not ported"), the SBOMArtifact of the port has no metrics,
-the storm lane comes with graftstorm (ROADMAP A20), and tests/test_torch_server.py holds the
-server's ScanSBOM route both ways."""
+breaker and watchdog, the failpoints and the server route, and the
+storm lane's parse-hang drill (a `sbom.parse` failpoint, which the
+port's storm refuses). The breaker, watchdog and failpoints are not
+ported by design (ROADMAP, "Not ported"), the SBOMArtifact of the port
+has no metrics, and tests/test_torch_server.py holds the server's
+ScanSBOM route both ways."""
 
 import json
 import os
@@ -560,8 +566,6 @@ def _sbom_table():
     "test_sbom.py", keep=lambda c: c.startswith("TestSBOMMemo::"),
     subs=[("from trivy_tpu_torch.resilience import FAILPOINTS, GUARD\n",
            ""),
-          ("from trivy_tpu_torch.resilience.storm import _post",
-           "from test_torch_memo import _post"),
           ("scanner = LocalScanner(cache, table, memo=memo)",
            "scanner = LocalScanner(cache, table, device=\"cpu\", "
            "memo=memo)"),
@@ -570,3 +574,15 @@ def _sbom_table():
            'device="cpu")')]))
 def test_sbom_memo_case_on_port(cls, fn, given, request):
     run_case(cls, fn, request, {"table": _sbom_table(), **given})
+
+
+@pytest.mark.parametrize("cls,fn,given", port_cases(
+    "test_sbom.py",
+    keep=lambda c: c == ("TestStormSBOMLane::"
+                         "test_ingest_fault_menu_sites_are_cataloged"),
+    subs=[("from trivy_tpu_torch.resilience import FAILPOINTS, GUARD\n",
+           ""),
+          ("from trivy_tpu_torch.resilience.failpoints import known_site",
+           "from trivy_tpu.resilience.failpoints import known_site")]))
+def test_storm_lane_case_on_port(cls, fn, given, request):
+    run_case(cls, fn, request, given)

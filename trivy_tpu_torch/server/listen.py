@@ -85,9 +85,13 @@ class MeshOptions:
     devices=0 keeps the single-device detector; N > 0 takes the first N
     devices of the server's type, N < 0 all of them (on the CPU, N
     slots of it); db_shards is the preferred db width, fitted to the
-    largest valid factorization of the device count."""
+    largest valid factorization of the device count. `slots` names the
+    devices outright (a grid of repeated slots of one card, as graftstorm
+    lays `--mesh-devices` slots on a machine with fewer cards); empty
+    takes them from `devices`."""
     devices: int = 0
     db_shards: int = 1
+    slots: tuple = ()
 
 
 class LaunchRecord:
@@ -122,6 +126,8 @@ class LaunchRecord:
         dense = bits.dense() if isinstance(bits, CompactBits) else bits
         entry = {"deduped": deduped, "route": route,
                  "h_cap": getattr(launched, "h_cap", 0),
+                 # which table the dispatch joined (a swap changes it)
+                 "rows": len(det.table),
                  "batches": len(preps), "q_start": q_start,
                  "q_count": q_count, "q_ver": q_ver, "total": total,
                  "t_pad": t_pad, "ver": det.ver_snapshot(u_pad),
@@ -168,7 +174,11 @@ class ServerState:
         # the mesh every scanner built here joins over (None: one device);
         # a table swap keeps it and re-shards the new table
         self.mesh = None
-        if mesh_opts is not None and mesh_opts.devices:
+        if mesh_opts is not None and mesh_opts.slots:
+            from ..parallel.mesh import mesh_from_devices
+            self.mesh = mesh_from_devices(mesh_opts.slots,
+                                          mesh_opts.db_shards)
+        elif mesh_opts is not None and mesh_opts.devices:
             from ..parallel.multihost import global_mesh
             self.mesh = global_mesh(mesh_opts.db_shards, device,
                                     mesh_opts.devices)
